@@ -4,11 +4,12 @@
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import List
 
 import torch
 
 from ..config import GlobalConfig, load_config
+from ..engine.checkpoint import resolve_checkpoint_path
 
 
 def _dataset_hdf5_path(cfg: GlobalConfig) -> str:
@@ -34,18 +35,6 @@ def _checkpoint_candidates(cfg: GlobalConfig) -> List[str]:
     candidates.append(os.path.join(cfg.project_root_path, "ckpt", "bioscan_clip", cfg.version,
                                    mc.dataset, mc.model_output_name))
     return candidates
-
-
-def resolve_checkpoint_path(base: str) -> Optional[str]:
-    """exact path → best → last, for npz directories and torch files
-    (`clibd_tpu/engine/checkpoint.py::resolve_checkpoint_path`)."""
-    for cand in (base, os.path.join(base, "best"), os.path.join(base, "last"),
-                 os.path.join(base, "best.pth"), os.path.join(base, "last.pth")):
-        if os.path.isdir(cand) and os.path.exists(os.path.join(cand, "params.npz")):
-            return cand
-        if os.path.isfile(cand):
-            return cand
-    return None
 
 
 def _resolve_params(cfg: GlobalConfig, device: torch.device):
@@ -74,8 +63,7 @@ def _resolve_params(cfg: GlobalConfig, device: torch.device):
 
 def _extract_split_auto(model, mc, cfg, hdf5, split, spec, for_key=False, progress=False):
     """One split through the plain loader (single process)."""
-    from clibd_tpu.data.pipeline import BioscanLoader
-
+    from ..data.pipeline import BioscanLoader
     from ..engine.extract import extract_split
 
     loader = BioscanLoader(hdf5, split, spec, num_workers=cfg.pipeline.num_workers,

@@ -19,8 +19,7 @@ def _not_ported(what: str) -> NotImplementedError:
 
 def cmd_eval(args, overrides) -> int:
     from ..config import to_dict
-    from clibd_tpu.data.pipeline import BatchSpec
-
+    from ..data.pipeline import BatchSpec
     from ..engine.evaluate import format_results, inference_and_eval, save_results, stringify
     from ..engine.extract import load_extracted_features, save_extracted_features, save_labels_and_ids
     from ..utils.profiling import PhaseTimer
@@ -76,7 +75,7 @@ def cmd_eval(args, overrides) -> int:
             device=device)
 
     if settings.plot_embeddings:
-        from clibd_tpu.analysis.plots import generate_embedding_plot
+        from ..analysis.plots import generate_embedding_plot
 
         with timing.phase("embedding plots"):
             generate_embedding_plot(
@@ -116,7 +115,7 @@ def cmd_eval(args, overrides) -> int:
             ):
                 with open(os.path.join(folder, name), "w") as f:
                     json.dump(stringify(payload), f, indent=4)
-            from clibd_tpu.analysis.report import eval_report_sections, write_html_report
+            from ..analysis.report import eval_report_sections, write_html_report
 
             sections = eval_report_sections(folder, acc_table_rows=csv_rows or None)
             write_html_report(os.path.join(folder, "report.html"),

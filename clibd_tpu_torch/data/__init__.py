@@ -1,9 +1,10 @@
 """Input data for the port.
 
-The HDF5 loader of `clibd_tpu.data` is plain numpy and imports no jax, so the
-port reuses it; it needs h5py and is imported where a split is read from a
-file (`cli/common.py`).  `SyntheticSplit` needs no file and feeds
-`extract_split` from memory.
+`pipeline.py` (the HDF5 loader), `hdf5.py`, `tokenizers.py`, `transforms.py`,
+`native.py` and `clip_tokenizer.py` are copies of the JAX package's jax-free
+modules of the same names; h5py is imported only where a file is opened.
+`SyntheticSplit` needs no file and feeds `extract_split` and the trainer from
+memory.
 """
 
 from .synthetic import SyntheticSplit

@@ -1,13 +1,17 @@
-"""A split made in memory from a seed, for driving extraction without a
-dataset file.
+"""A split made in memory from a seed, for driving extraction and training
+without a dataset file.
 
-`SyntheticSplit` has the loader interface `engine.extract.extract_split`
-consumes from `BioscanLoader`: `batches(epoch, shuffle)`, `label_dicts()`,
-`ids()` and `spec.batch_size` (the config's batch size).  Its batches have
-the shapes and dtypes the model's config asks for: uint8 images
-`[B, S, S, 3]`, DNA as k-mer ids from random barcodes of 400 to 659 bp
-through the real tokenizer, and text ids with ragged attention masks.  The last batch is ragged when `n` is not a
-multiple of the batch size.
+`SyntheticSplit` has the loader interface that `engine.extract.extract_split`
+and `engine.train.Trainer` consume from `BioscanLoader`:
+`batches(epoch, shuffle, start_batch)`, `len()` (batches per epoch),
+`label_dicts()`, `ids()`, `close()` and `spec.batch_size` (the config's batch
+size).  Its batches have the shapes and dtypes the model's config asks for:
+uint8 images `[B, S, S, 3]`, DNA as k-mer ids from random barcodes of 400 to
+659 bp through the real tokenizer, text ids with ragged attention masks, and
+the training label, the row index (as `BioscanLoader` labels by default,
+instance discrimination).  Every epoch yields the same batches in the same
+order.  The last batch is ragged when `n` is not a multiple of the batch
+size.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from types import SimpleNamespace
 
 import numpy as np
 
-from clibd_tpu.data.tokenizers import tokenize_dna_batch
+from .tokenizers import tokenize_dna_batch
 
 
 class SyntheticSplit:
@@ -41,6 +45,7 @@ class SyntheticSplit:
             ids = rng.integers(1, vocab, (hi - lo, text_len)).astype(np.int32) * att
             self._batches.append({
                 "index": np.arange(lo, hi),
+                "label": np.arange(lo, hi, dtype=np.int64),
                 "image": rng.integers(0, 256, (hi - lo, size, size, 3), dtype=np.uint8),
                 "dna": dna[lo:hi],
                 "language": {"input_ids": ids, "token_type_ids": np.zeros_like(ids),
@@ -51,8 +56,8 @@ class SyntheticSplit:
                          "genus": f"genus_{s % 13}", "species": f"species_{s}"} for s in species]
         self._ids = [f"{name}_{i}" for i in range(n)]
 
-    def batches(self, epoch: int = 0, shuffle: bool = False):
-        return iter(self._batches)
+    def batches(self, epoch: int = 0, shuffle: bool = False, start_batch: int = 0):
+        return iter(self._batches[start_batch:])
 
     def label_dicts(self):
         return self._labels
@@ -62,3 +67,6 @@ class SyntheticSplit:
 
     def __len__(self):
         return len(self._batches)
+
+    def close(self):
+        pass

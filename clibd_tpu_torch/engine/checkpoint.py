@@ -1,0 +1,205 @@
+"""Checkpointing: the port of `clibd_tpu/engine/checkpoint.py` (`:48-258`),
+best/last semantics (reference train_cl.py:273-319) with the full training
+state -- params, optimizer state and step -- for a true resume.
+
+A checkpoint directory holds:
+
+- `params.npz`: every parameter, fp32, under the JAX package's flat pytree
+  keys ("image_encoder/blocks/qkv_w"; the port's parameter names with "/"
+  for "."), so a checkpoint the port trains loads in either package
+  (`clibd_tpu.models.convert.load_params_npz`, `models.convert.load_model_npz`);
+- `meta.json`: {"step", "epoch", ...} as the JAX package writes it (the best
+  checkpoint adds "overall_acc");
+- `opt_state.npz`: the port's own AdamW state, three arrays per trainable
+  parameter -- "<key>/exp_avg", "<key>/exp_avg_sq" and "<key>/step" (a
+  scalar) with <key> the parameter's params.npz key.  The JAX package's
+  optax state has another layout; loading one into the other is not ported
+  (ROADMAP.md Queue 1).
+
+Writes are atomic per file (write, then rename).  `AsyncCheckpointWriter`
+copies the state to host memory on the caller's thread and writes it on a
+background thread, so the disk leg overlaps the next steps.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.convert import load_params_npz, params_from_jax
+
+
+def _key(name: str) -> str:
+    return name.replace(".", "/")
+
+
+def _atomic_npz(path: str, arrays: dict) -> None:
+    tmp = path + ".tmp.npz"  # np.savez appends .npz to names without it
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def _host_snapshot(model: torch.nn.Module, optimizer: Optional[torch.optim.Optimizer]
+                   ) -> Tuple[Dict[str, np.ndarray], Optional[Dict[str, np.ndarray]]]:
+    """Device → host copies of the params and the optimizer state."""
+    params = {_key(n): p.detach().float().cpu().numpy() for n, p in model.named_parameters()}
+    if optimizer is None:
+        return params, None
+    opt: Dict[str, np.ndarray] = {}
+    for n, p in model.named_parameters():
+        state = optimizer.state.get(p)
+        if state:
+            for field in ("exp_avg", "exp_avg_sq", "step"):
+                opt[f"{_key(n)}/{field}"] = state[field].detach().float().cpu().numpy()
+    return params, opt
+
+
+def _write_host(directory: str, params: dict, opt: Optional[dict], step: int, epoch: int,
+                meta: Optional[dict]) -> None:
+    os.makedirs(directory, exist_ok=True)
+    _atomic_npz(os.path.join(directory, "params.npz"), params)
+    if opt is not None:
+        _atomic_npz(os.path.join(directory, "opt_state.npz"), opt)
+    info = {"step": int(step), "epoch": int(epoch)}
+    info.update(meta or {})
+    tmp = os.path.join(directory, "meta.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump(info, f, indent=2)
+    os.replace(tmp, os.path.join(directory, "meta.json"))
+
+
+def save_train_state(directory: str, model: torch.nn.Module,
+                     optimizer: Optional[torch.optim.Optimizer] = None, step: int = 0,
+                     epoch: int = 0, meta: Optional[dict] = None) -> None:
+    params, opt = _host_snapshot(model, optimizer)
+    _write_host(directory, params, opt, step, epoch, meta)
+
+
+def load_train_state(directory: str, model: torch.nn.Module,
+                     optimizer: Optional[torch.optim.Optimizer] = None) -> dict:
+    """Load params.npz into `model` (strict) and, when `optimizer` is given
+    and opt_state.npz exists, the AdamW state of every trainable parameter;
+    → meta.json's dict (empty when absent)."""
+    state = params_from_jax(load_params_npz(os.path.join(directory, "params.npz")))
+    model.load_state_dict(state, strict=True)
+    meta: dict = {}
+    meta_path = os.path.join(directory, "meta.json")
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    opt_path = os.path.join(directory, "opt_state.npz")
+    if optimizer is not None and os.path.exists(opt_path):
+        with np.load(opt_path) as data:
+            flat = {k: data[k] for k in data.files}
+        trainable = {id(p) for g in optimizer.param_groups for p in g["params"]}
+        named = [(n, p) for n, p in model.named_parameters() if id(p) in trainable]
+        want = {f"{_key(n)}/{f}" for n, _ in named for f in ("exp_avg", "exp_avg_sq", "step")}
+        if set(flat) != want:
+            raise ValueError("Optimizer state keys do not match the checkpoint")
+        for n, p in named:
+            k = _key(n)
+            optimizer.state[p] = {
+                "step": torch.tensor(float(flat[f"{k}/step"]), dtype=torch.float32),
+                "exp_avg": torch.from_numpy(flat[f"{k}/exp_avg"]).to(p.device, p.dtype),
+                "exp_avg_sq": torch.from_numpy(flat[f"{k}/exp_avg_sq"]).to(p.device, p.dtype),
+            }
+    return meta
+
+
+def resolve_checkpoint_path(base: str) -> Optional[str]:
+    """Reference resolution chain (util/util.py:951-963): exact path → best →
+    last, for npz directories and torch .pth files."""
+    for cand in (base, os.path.join(base, "best"), os.path.join(base, "last"),
+                 os.path.join(base, "best.pth"), os.path.join(base, "last.pth")):
+        if os.path.isdir(cand) and os.path.exists(os.path.join(cand, "params.npz")):
+            return cand
+        if os.path.isfile(cand):
+            return cand
+    return None
+
+
+class AsyncCheckpointWriter:
+    """Overlap checkpoint disk writes with training: the device → host copy
+    happens on the caller's thread (the next step updates the parameters in
+    place), the serialise + write + rename on a background thread.  A new
+    submit to a directory joins its previous write first; `wait()` joins
+    every write and re-raises any failure, so a lost checkpoint never looks
+    like a saved one."""
+
+    def __init__(self):
+        self._pending: Dict[str, threading.Thread] = {}
+        self._errors: list = []
+
+    def submit(self, directory: str, model, optimizer, step: int, epoch: int,
+               meta: Optional[dict] = None) -> None:
+        self.wait(directory)
+        params, opt = _host_snapshot(model, optimizer)
+
+        def write():
+            try:
+                _write_host(directory, params, opt, step, epoch, meta)
+            except Exception as e:  # surfaced on the next wait()
+                self._errors.append((directory, e))
+
+        # not a daemon: the interpreter joins outstanding writes at exit, so
+        # an exception in the training loop cannot tear a checkpoint set
+        t = threading.Thread(target=write, daemon=False)
+        t.start()
+        self._pending[directory] = t
+
+    def wait(self, directory: Optional[str] = None) -> None:
+        dirs = [directory] if directory is not None else list(self._pending)
+        for d in dirs:
+            t = self._pending.pop(d, None)
+            if t is not None:
+                t.join()
+        if self._errors:
+            errors, self._errors = self._errors, []
+            detail = "; ".join(f"{d!r}: {e!r}" for d, e in errors)
+            raise RuntimeError(f"async checkpoint write(s) failed: {detail}") from errors[0][1]
+
+
+class BestLastCheckpointer:
+    """best/last checkpoint pair selected by overall_acc
+    (train_cl.py:292-319).  async_writes=True overlaps the disk leg with the
+    next epoch; call `wait()` before reading the files back."""
+
+    def __init__(self, directory: str, async_writes: bool = False):
+        self.directory = directory
+        self.best_metric: Optional[float] = None
+        self.best_epoch: Optional[int] = None
+        self._writer = AsyncCheckpointWriter() if async_writes else None
+
+    def _save(self, subdir, model, optimizer, step, epoch, meta):
+        path = os.path.join(self.directory, subdir)
+        if self._writer is not None:
+            self._writer.submit(path, model, optimizer, step, epoch, meta)
+        else:
+            save_train_state(path, model, optimizer, step, epoch, meta)
+
+    def save_last(self, model, optimizer, step, epoch, meta=None):
+        self._save("last", model, optimizer, step, epoch, meta)
+
+    def maybe_save_best(self, metric: float, model, optimizer, step, epoch, meta=None,
+                        save: bool = True) -> bool:
+        """Track (and optionally persist) the best state; → whether the
+        metric improved (the reference's early-stop signal is `not
+        improved`, train_cl.py:304-313)."""
+        if self.best_metric is None or metric > self.best_metric:
+            self.best_metric = metric
+            self.best_epoch = epoch
+            if save:
+                info = dict(meta or {})
+                info["overall_acc"] = metric
+                self._save("best", model, optimizer, step, epoch, info)
+            return True
+        return False
+
+    def wait(self):
+        if self._writer is not None:
+            self._writer.wait()

@@ -2,8 +2,8 @@
 
 The reference's metric grid -- micro and macro top-k accuracy x 4 taxonomic
 levels x {seen, unseen} x every (query feature type x key feature type) --
-over the exact kNN of `ops.knn`, with the metrics of `clibd_tpu.utils.metrics`
-and the table of `clibd_tpu.utils.table` (both jax-free, shared), and the
+over the exact kNN of `ops.knn`, with the port's copies of the JAX package's
+metrics (`utils/metrics.py`) and table (`utils/table.py`), and the
 reference's ASCII table, accuracy.json / results.csv / raw.csv writers.
 """
 
@@ -17,16 +17,15 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from clibd_tpu.utils.metrics import (
+from ..ops.knn import knn_search, prepare_keys
+from ..utils.metrics import (
     LEVELS,
     labels_to_level_arrays,
     predictions_to_level_arrays,
     top_k_macro_accuracy,
     top_k_micro_accuracy,
 )
-from clibd_tpu.utils.table import Table
-
-from ..ops.knn import knn_search, prepare_keys
+from ..utils.table import Table
 from .extract import ALL_TYPE_OF_FEATURES_OF_KEY, ALL_TYPE_OF_FEATURES_OF_QUERY
 
 
@@ -38,7 +37,7 @@ def _pred_lists(preds_by_level, n: int) -> List[dict]:
 def inference_and_eval(keys_dict: Dict, seen_dict: Dict, unseen_dict: Dict,
                        k_list: Sequence[int] = (1, 3, 5), query_chunk: int = 4096,
                        with_preds: bool = True,
-                       device: torch.device | str = "cpu") -> tuple:
+                       device: torch.device | str = "cuda") -> tuple:
     """→ (acc_dict, per_class_acc, pred_dict) with the reference's nesting:
     acc_dict[query_type][key_type][seen|unseen][micro_acc|macro_acc][k][level].
     Each key matrix and each query matrix goes to `device` once."""
@@ -219,6 +218,19 @@ def stringify(obj):
     if hasattr(obj, "item") and getattr(obj, "ndim", 1) == 0:
         return obj.item()
     return obj
+
+
+def convert_acc_dict_to_wandb_dict(acc_dict: Dict) -> Dict:
+    """Flatten the grid for logging (reference train_cl.py:110-121)."""
+    out = {}
+    for q, by_key in acc_dict.items():
+        for kt, entry in by_key.items():
+            for split in ("seen", "unseen"):
+                for acc_type in ("micro_acc", "macro_acc"):
+                    for k, by_level in entry[split][acc_type].items():
+                        for level, v in by_level.items():
+                            out[f"{q}||{kt}||{split}||{acc_type}||top-{k}||{level}"] = v
+    return out
 
 
 def compute_overall_acc(acc_dict: Dict, k: int = 1) -> float:

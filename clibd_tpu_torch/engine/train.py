@@ -1,0 +1,373 @@
+"""Contrastive trainer: the port of `clibd_tpu/engine/train.py` on one device
+(reference scripts/train_cl.py:145-369, epoch/train_epoch.py:9-81).
+
+One train step: uint8 images → [0, 1] → compute dtype → device-side
+augmentation (flips and rotation; the host pipeline decodes, resizes and
+crops), the tri-encoder forward in bf16 with the blocks rematerialised as
+`cfg.remat` / `cfg.remat_policy` ask, the batch's multi-positive InfoNCE,
+the backward (through the attention kernels on the card), and AdamW on the
+trainable parameters with the LR schedule stepped per update.  The epoch
+loop evaluates every `evaluation_period` epochs through the retrieval grid,
+keeps best/last checkpoints by overall_acc, stops early on no improvement,
+and resumes from a checkpoint, mid-epoch included.
+
+Left out, each raising NotImplementedError (ROADMAP.md Queue 1):
+gradient-cache accumulation (`make_train_step_accum`, `accum_steps > 1`),
+the shard_map / multi-device step (`make_train_step_shard_map`), the
+multi-host resume (`resume_multihost`) and the INSECT loader path.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..config.schema import ExperimentConfig, GlobalConfig
+from ..models.clibd import clibd_apply, dequantize_image, init_clibd_model
+from ..ops.augment import train_augment
+from ..ops.loss import clip_loss
+from .checkpoint import BestLastCheckpointer, load_train_state
+from .evaluate import compute_overall_acc, convert_acc_dict_to_wandb_dict, inference_and_eval
+from .extract import extract_split, to_device
+from .schedules import build_schedule
+
+_LATER = "is not ported to clibd_tpu_torch yet (ROADMAP.md Queue 1)"
+
+
+def clip_by_global_norm_(grads, max_norm: float) -> None:
+    """optax.clip_by_global_norm, in place: scale every gradient by
+    max_norm / ||g|| when the global norm ||g|| exceeds max_norm.  Stays on
+    the device (no host sync)."""
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float())
+                                                 for g in grads]))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+
+
+class ScheduledAdamW(torch.optim.AdamW):
+    """AdamW whose i-th update (0-based, the count optax keeps) runs at
+    `schedule(i)`, after an optional global-norm clip of the gradients.  The
+    count is read from AdamW's own per-parameter step, so it comes back with
+    the optimizer state on resume."""
+
+    def __init__(self, params, schedule: Callable[[int], float], grad_clip_norm: float = 0.0,
+                 **adamw_kwargs):
+        super().__init__(params, lr=float(schedule(0)), **adamw_kwargs)
+        self.schedule = schedule
+        self.grad_clip_norm = grad_clip_norm
+
+    def update_count(self) -> int:
+        return max((int(s["step"]) for s in self.state.values() if "step" in s), default=0)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if self.grad_clip_norm > 0:
+            grads = [p.grad for g in self.param_groups for p in g["params"] if p.grad is not None]
+            clip_by_global_norm_(grads, self.grad_clip_norm)
+        lr = float(self.schedule(self.update_count()))
+        for group in self.param_groups:
+            group["lr"] = lr
+        return super().step(closure)
+
+
+def build_optimizer(cfg: ExperimentConfig, model: torch.nn.Module,
+                    schedule: Callable[[int], float]) -> ScheduledAdamW:
+    """AdamW over the trainable parameters only (`requires_grad`, set by
+    `set_trainable`), as the JAX package's masked optax.adamw: frozen
+    parameters get no update, no weight decay and no part in the clip."""
+    o = cfg.optim
+    return ScheduledAdamW([p for p in model.parameters() if p.requires_grad], schedule,
+                          grad_clip_norm=o.grad_clip_norm, betas=(o.beta1, o.beta2), eps=o.eps,
+                          weight_decay=o.weight_decay)
+
+
+def remat_arg(cfg: ExperimentConfig):
+    """cfg.remat / cfg.remat_policy → the `remat` argument of clibd_apply:
+    False (off), True (blanket recompute) or a policy spec string."""
+    if not cfg.remat:
+        return False
+    return cfg.remat_policy if cfg.remat_policy not in ("", "none") else True
+
+
+def make_loss_fn(cfg: ExperimentConfig, model: torch.nn.Module) -> Callable:
+    """→ loss_fn(batch, generator): the scalar loss of one batch of device
+    tensors, differentiable in the model's parameters."""
+    compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
+    remat = remat_arg(cfg)
+
+    def loss_fn(batch: dict, generator: Optional[torch.Generator]) -> torch.Tensor:
+        image_in = batch.get("image")
+        if image_in is not None and cfg.image.input_type == "image":
+            # flips and rotation only move values, so augmenting in the
+            # compute dtype equals casting the augmented fp32 images
+            image_in = train_augment(generator, dequantize_image(image_in).to(compute_dtype))
+        out = clibd_apply(model, cfg, image_input=image_in, dna_input=batch.get("dna"),
+                          language_input=batch.get("language"), compute_dtype=compute_dtype,
+                          remat=remat)
+        # fix_temperature → literal 1/0.07 (reference train_epoch.py:55-56)
+        logit_scale = (1.0 / 0.07) if cfg.loss.fix_temperature else out["logit_scale"]
+        features = {m: out[m] for m in ("image", "dna", "language")}
+        return clip_loss(features, batch["label"], logit_scale, cfg.loss)
+
+    return loss_fn
+
+
+def make_train_step(cfg: ExperimentConfig, model: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer) -> Callable:
+    """→ step(batch, generator) → the loss as a device tensor (not fetched);
+    the parameters are updated in place."""
+    loss_fn = make_loss_fn(cfg, model)
+
+    def step(batch: dict, generator: Optional[torch.Generator]) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(batch, generator)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def make_train_step_accum(*args, **kwargs):
+    raise NotImplementedError(f"gradient-cache accumulation (accum_steps > 1) {_LATER}")
+
+
+def make_train_step_shard_map(*args, **kwargs):
+    raise NotImplementedError(f"the shard_map multi-device train step {_LATER}")
+
+
+def batch_generator(device: torch.device, seed: int, epoch: int, batch_idx: int) -> torch.Generator:
+    """The augmentation generator of one batch, from (seed, epoch, batch
+    index) alone -- the counterpart of fold_in(PRNGKey(seed, epoch), i) -- so
+    a mid-epoch resume draws what an uninterrupted run would."""
+    state = np.random.SeedSequence([seed, epoch, batch_idx]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+class Trainer:
+    """The full training loop on one device: loaders + model + optimizer +
+    eval + checkpoints."""
+
+    def __init__(
+        self,
+        global_cfg: GlobalConfig,
+        hdf5_path: Optional[str],
+        output_dir: str,
+        train_split: str = "no_split_and_seen_train",
+        eval_splits: Optional[dict] = None,  # {"keys": ..., "seen": ..., "unseen": ...}
+        model=None,
+        log_fn: Optional[Callable[[dict], None]] = None,
+        num_workers: Optional[int] = None,
+        train_labels: Optional[np.ndarray] = None,
+        train_loader=None,
+        eval_loader_factory: Optional[Callable[[str, bool], object]] = None,
+        device: torch.device | str = "cuda",
+    ):
+        """train_loader / eval_loader_factory take the place of the HDF5
+        loaders (a dataset in memory, `data.SyntheticSplit`):
+        eval_loader_factory(split_name, train) returns a loader with
+        batches()/label_dicts()/ids()/close()."""
+        self.gcfg = global_cfg
+        self.cfg = cfg = global_cfg.model_config
+        self.hdf5_path = hdf5_path
+        self.device = torch.device(device)
+        self.log_fn = log_fn or (lambda d: None)
+        # async checkpoint writes: the disk leg of last/best saves overlaps
+        # the next epoch; fit() and close() join before returning
+        self.checkpointer = BestLastCheckpointer(output_dir, async_writes=True)
+        self.eval_splits = eval_splits or {"keys": "all_keys", "seen": "val_seen",
+                                           "unseen": "val_unseen"}
+        self.eval_loader_factory = eval_loader_factory
+        if cfg.step_impl == "shard_map":
+            make_train_step_shard_map()
+        if cfg.accum_steps > 1:
+            make_train_step_accum()
+        if train_loader is not None:
+            self.train_loader = train_loader
+        else:
+            from ..data.pipeline import BatchSpec, BioscanLoader
+
+            spec = BatchSpec(
+                batch_size=cfg.batch_size, train=True, transport_uint8=cfg.amp,
+                with_image=cfg.image.enable, with_dna=cfg.dna.enable,
+                with_language=cfg.language.enable, dna_kmer=cfg.dna.kmer,
+                dna_tokenizer=cfg.dna.tokenizer, dna_stride=cfg.dna.stride,
+                dna_max_bp=cfg.dna.max_bp,
+                image_source="image" if cfg.image.input_type == "image" else "image_features",
+                dna_source="sequence" if cfg.dna.input_type == "sequence" else "dna_features",
+                clip_tokenizer=BatchSpec.maybe_clip_tokenizer(cfg),
+            )
+            nw = global_cfg.pipeline.num_workers if num_workers is None else num_workers
+            self.train_loader = BioscanLoader(
+                hdf5_path, train_split, spec, labels=train_labels, num_workers=nw,
+                prefetch=global_cfg.pipeline.prefetch_batches, seed=cfg.default_seed,
+                use_native=global_cfg.pipeline.use_native_decoder)
+
+        if model is None:
+            model = init_clibd_model(cfg, torch.Generator().manual_seed(cfg.default_seed),
+                                     self.device)
+        self.model = model
+        steps_per_epoch = len(self.train_loader)
+        total_steps = max(steps_per_epoch * cfg.epochs, 1)
+        # LR × batch/500 (reference util/util.py:753-756), one device
+        self.schedule = build_schedule(cfg.optim, total_steps, cfg.batch_size, world_size=1)
+        self.optimizer = build_optimizer(cfg, model, self.schedule)
+        self.step_fn = make_train_step(cfg, model, self.optimizer)
+        self.global_step = 0
+        self.stop_flag = False
+        self._resume_start_batch = 0
+
+    # -- epoch loops --------------------------------------------------------
+
+    def train_epoch(self, epoch: int, progress: bool = False, start_batch: int = 0) -> float:
+        from ..utils.profiling import StepTimer
+
+        cfg = self.cfg
+        timer = StepTimer(warmup_steps=1, device=self.device)
+        epoch_loss, n_steps = 0.0, 0
+        t0 = time.time()
+        batch_idx = start_batch
+        pending = None  # one-step-delayed loss fetch: the host reads step i's
+        # loss only after step i+1 has been launched
+
+        def emit(item):
+            nonlocal epoch_loss
+            loss_dev, step_no, lr = item
+            loss_val = float(loss_dev)
+            epoch_loss += loss_val
+            self.log_fn({"loss": loss_val, "step": step_no, "learning_rate": lr})
+            if progress:
+                dt = time.time() - t0
+                print(f"\rEpoch {epoch}||Step {step_no}||Loss {loss_val:.4f}||LR {lr:.3e}||"
+                      f"{n_steps / max(dt, 1e-9):.2f} it/s", end="")
+
+        for batch in self.train_loader.batches(epoch=epoch, start_batch=start_batch):
+            gen = batch_generator(self.device, cfg.default_seed, epoch, batch_idx)
+            batch_idx += 1
+            model_batch = {k: batch[k] for k in ("image", "dna", "language", "label")
+                           if k in batch}
+            loss = self.step_fn(to_device(model_batch, self.device), gen)
+            self.global_step += 1
+            n_steps += 1
+            # step-cadence last/ (mid-epoch failure recovery); meta.epoch is
+            # the last completed epoch, so resume continues inside this one
+            if (cfg.checkpoint_every_steps and self.gcfg.save_ckpt
+                    and self.global_step % cfg.checkpoint_every_steps == 0):
+                self.checkpointer.save_last(self.model, self.optimizer, self.global_step,
+                                            epoch - 1)
+            lr = float(self.schedule(self.global_step - 1))
+            if pending is not None:
+                emit(pending)
+            pending = (loss, self.global_step, lr)
+            timer.tick()
+        if pending is not None:
+            emit(pending)
+        if progress:
+            print()
+        if timer.times:
+            self.log_fn({"epoch": epoch, **{f"throughput/{k}": v for k, v in
+                                            timer.summary(cfg.batch_size).items()}})
+        return epoch_loss / max(n_steps, 1)
+
+    def evaluate(self) -> dict:
+        cfg = self.cfg
+
+        def run(split, for_key=False):
+            if self.eval_loader_factory is not None:
+                loader = self.eval_loader_factory(split, False)
+            else:
+                from ..data.pipeline import BatchSpec, BioscanLoader
+
+                # best-checkpoint selection sees the standalone eval's
+                # preprocessing: one shared constructor
+                loader = BioscanLoader(self.hdf5_path, split, BatchSpec.eval_spec(cfg),
+                                       num_workers=self.gcfg.pipeline.num_workers,
+                                       use_native=self.gcfg.pipeline.use_native_decoder)
+            try:
+                return extract_split(self.model, cfg, loader, for_key_set=for_key)
+            finally:
+                loader.close()
+
+        keys_dict = run(self.eval_splits["keys"], for_key=True)
+        seen_dict = run(self.eval_splits["seen"])
+        unseen_dict = run(self.eval_splits["unseen"])
+        acc_dict, _, _ = inference_and_eval(keys_dict, seen_dict, unseen_dict, with_preds=False,
+                                            device=self.device)
+        return acc_dict
+
+    def resume(self, directory: str) -> int:
+        """Restore params, optimizer state, step and best-metric tracking
+        from a checkpoint directory (a true resume: the reference reloads
+        params only); → the epoch to continue from, with the batch to start
+        at inside it kept for `fit`."""
+        meta = load_train_state(directory, self.model, self.optimizer)
+        self.global_step = int(meta.get("step", 0))
+        ckpt_epoch = int(meta.get("epoch", -1))
+        best = self._read_best_meta(directory)
+        # otherwise the first eval after resume always "improves" and may
+        # overwrite best/ with a worse model
+        if best is not None:
+            self.checkpointer.best_metric, self.checkpointer.best_epoch = best
+        # the seeded epoch streams make the step count an exact (epoch,
+        # batch) position: a checkpoint taken mid-epoch continues inside it
+        spe = max(len(self.train_loader), 1)
+        self._resume_start_batch = max(self.global_step - (ckpt_epoch + 1) * spe, 0)
+        return ckpt_epoch + 1
+
+    def resume_multihost(self, directory: str):
+        raise NotImplementedError(f"multi-host resume {_LATER}")
+
+    def _read_best_meta(self, directory: str):
+        """(best_metric, best_epoch) from the sibling best/meta.json, else None."""
+        best_meta = os.path.join(os.path.dirname(os.path.abspath(directory)), "best", "meta.json")
+        if os.path.exists(best_meta):
+            with open(best_meta) as f:
+                info = json.load(f)
+            if "overall_acc" in info:
+                return float(info["overall_acc"]), int(info.get("epoch", -1))
+        return None
+
+    def fit(self, progress: bool = False, start_epoch: int = 0) -> dict:
+        history = {"loss": [], "overall_acc": [], "best_epoch": None}
+        try:
+            return self._fit_loop(history, progress, start_epoch)
+        finally:
+            # join in-flight checkpoint writes on every exit path
+            self.checkpointer.wait()
+
+    def _fit_loop(self, history, progress: bool, start_epoch: int) -> dict:
+        cfg = self.cfg
+        for epoch in range(start_epoch, cfg.epochs):
+            if self.stop_flag:
+                break
+            start_batch = self._resume_start_batch if epoch == start_epoch else 0
+            history["loss"].append(self.train_epoch(epoch, progress=progress,
+                                                    start_batch=start_batch))
+            # last/ every epoch, so a crash always leaves something to resume
+            if self.gcfg.save_ckpt:
+                self.checkpointer.save_last(self.model, self.optimizer, self.global_step, epoch)
+            do_eval = ((epoch % cfg.evaluation_period == 0 or epoch == cfg.epochs - 1)
+                       and epoch > cfg.eval_skip_epoch)
+            if do_eval:
+                acc_dict = self.evaluate()
+                overall = compute_overall_acc(acc_dict)
+                history["overall_acc"].append((epoch, overall))
+                self.log_fn(convert_acc_dict_to_wandb_dict(acc_dict))
+                improved = self.checkpointer.maybe_save_best(
+                    overall, self.model, self.optimizer, self.global_step, epoch,
+                    save=self.gcfg.save_ckpt)
+                if improved:
+                    history["best_epoch"] = epoch
+                elif self.gcfg.enable_early_stopping:
+                    self.stop_flag = True
+                self.log_fn({"overall_acc": overall, "epoch": epoch})
+        return history
+
+    def close(self):
+        self.checkpointer.wait()
+        self.train_loader.close()

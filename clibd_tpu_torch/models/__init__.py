@@ -1,4 +1,4 @@
-from .clibd import CLIBD, clibd_apply, init_clibd_model, l2_normalize
+from .clibd import CLIBD, clibd_apply, init_clibd_model, l2_normalize, set_trainable
 from .convert import load_model_npz, load_params_npz, model_from_jax, params_from_jax
 
 __all__ = [
@@ -10,4 +10,5 @@ __all__ = [
     "load_params_npz",
     "model_from_jax",
     "params_from_jax",
+    "set_trainable",
 ]

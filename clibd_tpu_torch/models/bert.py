@@ -21,10 +21,9 @@ class Embeddings(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
         D = cfg.hidden_size
-        self.word = nn.Parameter(torch.zeros(cfg.vocab_size, D), requires_grad=False)
-        self.position = nn.Parameter(torch.zeros(cfg.max_position_embeddings, D),
-                                     requires_grad=False)
-        self.token_type = nn.Parameter(torch.zeros(cfg.type_vocab_size, D), requires_grad=False)
+        self.word = nn.Parameter(torch.zeros(cfg.vocab_size, D))
+        self.position = nn.Parameter(torch.zeros(cfg.max_position_embeddings, D))
+        self.token_type = nn.Parameter(torch.zeros(cfg.type_vocab_size, D))
         self.ln = LayerNorm(D)
 
 
@@ -64,7 +63,7 @@ class Bert(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, token_type_ids: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None, compute_dtype=torch.bfloat16,
-                fast_math: bool = True) -> torch.Tensor:
+                fast_math: bool = True, remat=False) -> torch.Tensor:
         """`bert_encode` → last hidden states [B, N, D]."""
         cfg = self.cfg
         emb = self.embeddings
@@ -82,7 +81,7 @@ class Bert(nn.Module):
         mask_bias = None if attention_mask is None else attention_mask_bias(attention_mask)
         return self.blocks(x, num_heads=cfg.num_heads, pre_ln=False, ln_eps=cfg.layernorm_eps,
                            mask_bias=mask_bias, lora=self.lora, compute_dtype=compute_dtype,
-                           fast_math=fast_math)
+                           fast_math=fast_math, remat=remat)
 
     def mlm_head_apply(self, hidden: torch.Tensor, compute_dtype=torch.bfloat16,
                        fast_math: bool = True) -> torch.Tensor:

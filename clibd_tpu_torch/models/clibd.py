@@ -4,11 +4,12 @@
 images, BarcodeBERT for DNA, BERT-small plus a projection for text -- under
 the same names as the JAX param pytree, so `convert.params_from_jax` maps one
 onto the other.  `clibd_apply` returns L2-normalised per-modality embeddings
-and exp(logit_scale).
+and exp(logit_scale), with the blocks rematerialised as `remat` asks.
+`set_trainable` is the JAX package's `trainable_mask` (`clibd.py:231-275`)
+as `requires_grad` flags.
 
 Not ported yet: the OpenCLIP backbone (`backbone: open_clip`, `clip.py`), the
-MLP encoders for feature inputs (`mlp.py`), SimCLR backbone loading and the
-trainability mask (training).
+MLP encoders for feature inputs (`mlp.py`) and SimCLR backbone loading.
 """
 
 from __future__ import annotations
@@ -58,8 +59,7 @@ class CLIBD(nn.Module):
         super().__init__()
         _check_supported(cfg)
         lora_rank = 0 if cfg.disable_lora else cfg.lora_rank
-        self.logit_scale = nn.Parameter(torch.tensor(cfg.init_logit_scale, dtype=torch.float32),
-                                        requires_grad=False)
+        self.logit_scale = nn.Parameter(torch.tensor(cfg.init_logit_scale, dtype=torch.float32))
         self.image_encoder = (ViT(cfg.image.vit, output_dim=cfg.output_dim, lora_rank=lora_rank)
                               if cfg.image.enable else None)
         self.dna_encoder = (Bert(cfg.dna.bert, lora_rank=lora_rank, head_dim=cfg.output_dim)
@@ -76,29 +76,54 @@ class CLIBD(nn.Module):
                 m.reset_parameters(generator)
 
 
+def set_trainable(model: CLIBD, cfg: ExperimentConfig) -> CLIBD:
+    """Set `requires_grad` on every parameter as `trainable_mask` does.
+    Reference semantics (simple_clip.py:100-246): with LoRA, backbones are
+    frozen and only the LoRA A/B, the replaced heads (ViT head, DNA decoder,
+    text projection) and logit_scale train; with `disable_lora`, everything
+    trains.  logit_scale is frozen under `fix_temperature`, and a
+    modality's `freeze` flag freezes that whole encoder (the text one with
+    its projection)."""
+    lora_heads = ("image_encoder.head.", "dna_encoder.mlm_head.decoder.", "language_proj.")
+    frozen = [enc for enc, flag in (("image_encoder.", cfg.image.freeze),
+                                    ("dna_encoder.", cfg.dna.freeze),
+                                    ("language_encoder.", cfg.language.freeze),
+                                    ("language_proj.", cfg.language.freeze)) if flag]
+    for name, p in model.named_parameters():
+        if name == "logit_scale":
+            train = not cfg.loss.fix_temperature
+        else:
+            train = (cfg.disable_lora or ".lora." in name or name.startswith(lora_heads))
+            train = train and not name.startswith(tuple(frozen))
+        p.requires_grad_(train)
+    return model
+
+
 def init_clibd_model(cfg: ExperimentConfig, generator: torch.Generator,
-                     device: torch.device | str = "cpu") -> CLIBD:
-    """Fresh init (`init_clibd_params`) from an explicit generator.  The
-    numbers differ from jax.random's for the same seed; the distributions
-    are the reference's."""
+                     device: torch.device | str = "cuda") -> CLIBD:
+    """Fresh init (`init_clibd_params`) from an explicit generator, with the
+    trainable parameters set by `set_trainable`.  The numbers differ from
+    jax.random's for the same seed; the distributions are the reference's."""
     model = CLIBD(cfg)
     model.reset_parameters(generator)
-    return model.to(device).eval()
+    return set_trainable(model, cfg).to(device)
 
 
-def encode_image(model: CLIBD, cfg: ExperimentConfig, image_input, compute_dtype=torch.bfloat16):
+def encode_image(model: CLIBD, cfg: ExperimentConfig, image_input, compute_dtype=torch.bfloat16,
+                 remat=False):
     return model.image_encoder(dequantize_image(image_input), compute_dtype=compute_dtype,
-                               fast_math=cfg.fast_math)
+                               fast_math=cfg.fast_math, remat=remat)
 
 
-def encode_dna(model: CLIBD, cfg: ExperimentConfig, dna_tokens, compute_dtype=torch.bfloat16):
+def encode_dna(model: CLIBD, cfg: ExperimentConfig, dna_tokens, compute_dtype=torch.bfloat16,
+               remat=False):
     attention_mask = None
     if isinstance(dna_tokens, dict):  # overlap tokenizer: {input_ids, attention_mask}
         attention_mask = dna_tokens.get("attention_mask")
         dna_tokens = dna_tokens["input_ids"]
     enc = model.dna_encoder
     hidden = enc(dna_tokens, attention_mask=attention_mask, compute_dtype=compute_dtype,
-                 fast_math=cfg.fast_math)
+                 fast_math=cfg.fast_math, remat=remat)
     logits = enc.mlm_head_apply(hidden, compute_dtype, fast_math=cfg.fast_math).float()
     if cfg.dna.readout == "softmax_mean":
         # checkpoint-parity quirk (reference dna_encoder.py:131-137): softmax
@@ -108,11 +133,11 @@ def encode_dna(model: CLIBD, cfg: ExperimentConfig, dna_tokens, compute_dtype=to
 
 
 def encode_language(model: CLIBD, cfg: ExperimentConfig, language_input: dict,
-                    compute_dtype=torch.bfloat16):
+                    compute_dtype=torch.bfloat16, remat=False):
     hidden = model.language_encoder(
         language_input["input_ids"], token_type_ids=language_input.get("token_type_ids"),
         attention_mask=language_input.get("attention_mask"), compute_dtype=compute_dtype,
-        fast_math=cfg.fast_math)
+        fast_math=cfg.fast_math, remat=remat)
     # mean over ALL positions, padding included (reference
     # language_encoder.py:87-89)
     pooled = hidden.float().mean(dim=1)
@@ -121,15 +146,17 @@ def encode_language(model: CLIBD, cfg: ExperimentConfig, language_input: dict,
 
 def clibd_apply(model: CLIBD, cfg: ExperimentConfig, image_input=None, dna_input=None,
                 language_input: Optional[dict] = None,
-                compute_dtype=torch.bfloat16) -> Dict[str, Any]:
+                compute_dtype=torch.bfloat16, remat=False) -> Dict[str, Any]:
     """Forward pass → {image, dna, language}: L2-normalised [B, output_dim]
-    fp32 (None where absent), and logit_scale exp()'d."""
+    fp32 (None where absent), and logit_scale exp()'d.  remat: as
+    `layers.transformer_stack`."""
     out: Dict[str, Any] = {"image": None, "dna": None, "language": None}
     if image_input is not None and model.image_encoder is not None:
-        out["image"] = l2_normalize(encode_image(model, cfg, image_input, compute_dtype))
+        out["image"] = l2_normalize(encode_image(model, cfg, image_input, compute_dtype, remat))
     if dna_input is not None and model.dna_encoder is not None:
-        out["dna"] = l2_normalize(encode_dna(model, cfg, dna_input, compute_dtype))
+        out["dna"] = l2_normalize(encode_dna(model, cfg, dna_input, compute_dtype, remat))
     if language_input is not None and model.language_encoder is not None:
-        out["language"] = l2_normalize(encode_language(model, cfg, language_input, compute_dtype))
+        out["language"] = l2_normalize(encode_language(model, cfg, language_input, compute_dtype,
+                                                       remat))
     out["logit_scale"] = torch.exp(model.logit_scale)
     return out

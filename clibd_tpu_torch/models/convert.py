@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..config import ExperimentConfig
-from .clibd import CLIBD
+from .clibd import CLIBD, set_trainable
 
 
 def flatten_pytree(tree: dict, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -55,15 +55,16 @@ def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
 
 
 def model_from_jax(tree: dict, cfg: ExperimentConfig,
-                   device: torch.device | str = "cpu") -> CLIBD:
+                   device: torch.device | str = "cuda") -> CLIBD:
     """Build the `CLIBD` module for `cfg` and load the pytree into it; every
-    parameter must be present and of the same shape (strict)."""
+    parameter must be present and of the same shape (strict).  The trainable
+    parameters are set by `set_trainable`."""
     model = CLIBD(cfg)
     model.load_state_dict(params_from_jax(tree), strict=True)
-    return model.to(device).eval()
+    return set_trainable(model, cfg).to(device)
 
 
-def load_model_npz(path: str, cfg: ExperimentConfig, device: torch.device | str = "cpu") -> CLIBD:
+def load_model_npz(path: str, cfg: ExperimentConfig, device: torch.device | str = "cuda") -> CLIBD:
     """npz params as the JAX package writes them (a file, or a checkpoint
     directory holding params.npz) → `CLIBD` on `device`."""
     if os.path.isdir(path):

@@ -12,24 +12,39 @@ separate op, as in `layers.py:112-118`.  LayerNorm and softmax accumulate in
 fp32.
 
 Attention dispatch: a key-only mask (or none) goes to
-`ops.attention.flash_attention_qkv` -- the CUDA kernel on a CUDA tensor, its
-plain version on a CPU tensor -- with the TPU kernel's numerics (fp32
-scores, bf16 P).  A query-dependent mask takes the eager path, which keeps the
-reference XLA path's numerics (scores in compute_dtype).
+`ops.attention.flash_attention_qkv` -- the CUDA kernels on a CUDA tensor,
+their plain versions on a CPU tensor, differentiable either way -- with the
+TPU kernel's numerics (fp32 scores, bf16 P).  A query-dependent mask takes
+the eager path, which keeps the reference XLA path's numerics (scores in
+compute_dtype).
+
+Parameters are trainable tensors; which of them train is set by
+`models.clibd.set_trainable` (the JAX package's `trainable_mask`).
+Rematerialisation (`transformer_stack(remat=...)`, `layers.py:269-297`) is
+`torch.utils.checkpoint` of each block: `True` recomputes everything in the
+backward, and a policy spec ("attn", "qkv", "mlp", "+"-joins, "dots") is
+selective activation checkpointing that saves the named intermediates, which
+the forward tags with `checkpoint_name` as the JAX code tags them.
 
 Deliberately absent (TPU-only or later): `ATTENTION_IMPL` / `flash_context`
-(the port has one policy), `SCAN_UNROLL`, the opt-in fused out-projection and
-fused-MLP kernels, and remat (inference only).
+(the port has one policy), `SCAN_UNROLL`, `vmem_safe_block_b` and the
+attention `block_b`, and the opt-in fused out-projection and fused-MLP
+kernels (not ported yet).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
+import threading
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.attention import flash_attention_qkv
 
@@ -82,6 +97,25 @@ def attention_mask_bias(attention_mask: torch.Tensor, dtype=torch.float32) -> to
     return ((1.0 - attention_mask.float()) * neg)[:, None, None, :].to(dtype)
 
 
+# The name of the intermediate the ops being dispatched produce, for the
+# selective remat policies (per thread: autograd may recompute a block on
+# its own device thread, which then sets the name itself).
+_CHECKPOINT_NAME = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """The ops run inside produce the intermediate `name`: the counterpart
+    of `jax.ad_checkpoint.checkpoint_name`.  Wrap only the op whose output is
+    the named tensor, since a policy saves the output of every op inside."""
+    prev = getattr(_CHECKPOINT_NAME, "name", None)
+    _CHECKPOINT_NAME.name = name
+    try:
+        yield
+    finally:
+        _CHECKPOINT_NAME.name = prev
+
+
 def _lora_delta(xc, a, b, compute_dtype):
     return torch.matmul(torch.matmul(xc, a.to(compute_dtype)), b.to(compute_dtype))
 
@@ -103,7 +137,9 @@ def fused_qkv_attention(
     B, N, D = x.shape
     head_dim = D // num_heads
     xc = x.to(compute_dtype)
-    qkv = torch.matmul(xc, qkv_w.to(compute_dtype)) + qkv_b.to(compute_dtype)
+    proj, bias = torch.matmul(xc, qkv_w.to(compute_dtype)), qkv_b.to(compute_dtype)
+    with checkpoint_name("qkv"):
+        qkv = proj + bias
 
     dq = dk = dv = None
     if lora is not None:
@@ -118,7 +154,9 @@ def fused_qkv_attention(
         if lora is not None:
             qkv = qkv + torch.cat([dq, dk if dk is not None else torch.zeros_like(dq), dv], dim=-1)
         mask_row = None if mask_bias is None else mask_bias[:, 0, 0, :]
-        ctx = flash_attention_qkv(qkv.contiguous(), num_heads, mask_row=mask_row)
+        qkv = qkv.contiguous()
+        with checkpoint_name("attn_ctx"):
+            ctx = flash_attention_qkv(qkv, num_heads, mask_row=mask_row)
         return torch.matmul(ctx, out_w.to(compute_dtype)) + out_b.to(compute_dtype)
 
     q, k, v = qkv.split(D, dim=-1)
@@ -135,8 +173,49 @@ def fused_qkv_attention(
     scores = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(head_dim))
     scores = scores + mask_bias.to(compute_dtype)
     probs = torch.softmax(scores.float(), dim=-1).to(compute_dtype)
-    ctx = torch.matmul(probs, v).transpose(1, 2).reshape(B, N, D)
+    ctx = torch.matmul(probs, v).transpose(1, 2)
+    with checkpoint_name("attn_ctx"):
+        ctx = ctx.reshape(B, N, D)
     return torch.matmul(ctx, out_w.to(compute_dtype)) + out_b.to(compute_dtype)
+
+
+# Names a remat policy can elect to save (tagged above and in the MLP):
+#   attn → "attn_ctx" [B,N,D]   the attention context (the flash forward's
+#          output): without it the backward re-runs the forward kernel on
+#          top of the backward kernel's own recompute of P
+#   qkv  → "qkv"      [B,N,3D]  the fused qkv projection output
+#   mlp  → "mlp_mid"  [B,N,F]   the post-GELU MLP intermediate
+_REMAT_TAGS = {"attn": "attn_ctx", "qkv": "qkv", "mlp": "mlp_mid"}
+# "dots": every matmul without batch dims (the projections), as XLA's
+# dots_with_no_batch_dims_saveable
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def remat_policy(spec):
+    """A remat spec → the policy of selective activation checkpointing, or
+    None for `True` (blanket remat: save nothing, recompute everything).
+    "attn" / "qkv" / "mlp" or "+"-joined combinations save only those
+    tagged intermediates; "dots" saves every projection matmul's output."""
+    if spec is True:
+        return None
+    if spec == "dots":
+        def saves(op):
+            return op in _DOT_OPS
+    else:
+        try:
+            names = tuple(_REMAT_TAGS[p] for p in str(spec).split("+"))
+        except KeyError:
+            raise ValueError(
+                f"unknown remat policy {spec!r}: expected True, 'dots', or a "
+                f"'+'-joined subset of {sorted(_REMAT_TAGS)}") from None
+
+        def saves(op):
+            return getattr(_CHECKPOINT_NAME, "name", None) in names
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if saves(op) else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
 
 
 class TransformerStack(nn.Module):
@@ -153,8 +232,7 @@ class TransformerStack(nn.Module):
             "ln1_scale": (L, D), "ln1_bias": (L, D), "ln2_scale": (L, D), "ln2_bias": (L, D),
         }
         for name in BLOCK_KEYS:
-            self.register_parameter(name, nn.Parameter(torch.zeros(shapes[name]),
-                                                       requires_grad=False))
+            self.register_parameter(name, nn.Parameter(torch.zeros(shapes[name])))
         self.num_layers = L
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -171,41 +249,68 @@ class TransformerStack(nn.Module):
     def forward(self, x, num_heads: int, pre_ln: bool, ln_eps: float,
                 mask_bias=None, lora: Optional[nn.Module] = None,
                 compute_dtype=torch.bfloat16, activation: str = "gelu",
-                fast_math: bool = True) -> torch.Tensor:
+                fast_math: bool = True, remat=False) -> torch.Tensor:
         return transformer_stack(
             {n: getattr(self, n) for n in BLOCK_KEYS}, x, num_heads, pre_ln, ln_eps,
             mask_bias=mask_bias, lora=None if lora is None else lora.stacked(),
-            compute_dtype=compute_dtype, activation=activation, fast_math=fast_math)
+            compute_dtype=compute_dtype, activation=activation, fast_math=fast_math,
+            remat=remat)
+
+
+def _unstack(stacked: Dict[str, torch.Tensor]) -> list:
+    """{name: [L, ...]} → L dicts of per-layer views.  One unbind per tensor,
+    so the backward stacks the L layer gradients once."""
+    names = list(stacked)
+    return [dict(zip(names, views)) for views in zip(*(stacked[n].unbind(0) for n in names))]
 
 
 def transformer_stack(stacked: Dict[str, torch.Tensor], x: torch.Tensor, num_heads: int,
                       pre_ln: bool, ln_eps: float, mask_bias=None,
                       lora: Optional[Dict[str, torch.Tensor]] = None,
                       compute_dtype=torch.bfloat16, activation: str = "gelu",
-                      fast_math: bool = True) -> torch.Tensor:
+                      fast_math: bool = True, remat=False) -> torch.Tensor:
     """Run the stacked blocks in order.  pre_ln: ViT/timm ordering; else BERT
-    post-LN.  fast_math (bf16 only): tanh GELU and bf16 LN arithmetic."""
+    post-LN.  fast_math (bf16 only): tanh GELU and bf16 LN arithmetic.
+    remat: False = no rematerialisation; True = checkpoint each block and
+    recompute all of it in the backward; a policy spec (`remat_policy`) saves
+    the named intermediates so the backward skips their recompute -- "attn"
+    keeps the forward kernel from running again in the backward.  Policies
+    never change the math, only what is stored."""
     fast = fast_math and compute_dtype != torch.float32
     act = (lambda t: gelu(t, fast=fast)) if activation == "gelu" else _ACTIVATIONS[activation]
-    for i in range(stacked["qkv_w"].shape[0]):
-        p = {k: v[i] for k, v in stacked.items()}
-        lo = None if lora is None else {k: v[i] for k, v in lora.items()}
 
+    def block(h, p, lo):
         def attn(inp):
             return fused_qkv_attention(inp, p["qkv_w"], p["qkv_b"], p["out_w"], p["out_b"],
                                        num_heads=num_heads, mask_bias=mask_bias, lora=lo,
                                        compute_dtype=compute_dtype)
 
         def mlp(inp):
-            hmid = act(linear(inp, p["fc1_w"], p["fc1_b"], compute_dtype))
+            pre = linear(inp, p["fc1_w"], p["fc1_b"], compute_dtype)
+            with checkpoint_name("mlp_mid"):
+                hmid = act(pre)
             return linear(hmid, p["fc2_w"], p["fc2_b"], compute_dtype)
 
         if pre_ln:
-            x = x + attn(layernorm(x, p["ln1_scale"], p["ln1_bias"], ln_eps, fast=fast))
-            x = x + mlp(layernorm(x, p["ln2_scale"], p["ln2_bias"], ln_eps, fast=fast))
-        else:
-            x = layernorm(x + attn(x), p["ln1_scale"], p["ln1_bias"], ln_eps, fast=fast)
-            x = layernorm(x + mlp(x), p["ln2_scale"], p["ln2_bias"], ln_eps, fast=fast)
+            h = h + attn(layernorm(h, p["ln1_scale"], p["ln1_bias"], ln_eps, fast=fast))
+            return h + mlp(layernorm(h, p["ln2_scale"], p["ln2_bias"], ln_eps, fast=fast))
+        h = layernorm(h + attn(h), p["ln1_scale"], p["ln1_bias"], ln_eps, fast=fast)
+        return layernorm(h + mlp(h), p["ln2_scale"], p["ln2_bias"], ln_eps, fast=fast)
+
+    if remat:
+        policy = remat_policy(remat)
+        context_fn = (functools.partial(create_selective_checkpoint_contexts, policy)
+                      if policy is not None else None)
+        kwargs = {} if context_fn is None else {"context_fn": context_fn}
+
+        def run(h, p, lo):
+            return checkpoint(block, h, p, lo, use_reentrant=False, **kwargs)
+    else:
+        run = block
+    layers = _unstack(stacked)
+    lora_layers = [None] * len(layers) if lora is None else _unstack(lora)
+    for p, lo in zip(layers, lora_layers):
+        x = run(x, p, lo)
     return x
 
 
@@ -228,9 +333,8 @@ class Linear(nn.Module):
 
     def __init__(self, in_dim: int, out_dim: int, with_bias: bool = True):
         super().__init__()
-        self.w = nn.Parameter(torch.zeros(in_dim, out_dim), requires_grad=False)
-        self.b = (nn.Parameter(torch.zeros(out_dim), requires_grad=False)
-                  if with_bias else None)
+        self.w = nn.Parameter(torch.zeros(in_dim, out_dim))
+        self.b = nn.Parameter(torch.zeros(out_dim)) if with_bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """torch nn.Linear default: U(±1/sqrt(in)) for weight and bias."""
@@ -249,8 +353,8 @@ class LayerNorm(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.scale = nn.Parameter(torch.ones(dim), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(dim), requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x, eps: float, fast: bool = False):
         return layernorm(x, self.scale, self.bias, eps, fast=fast)

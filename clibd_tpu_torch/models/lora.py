@@ -22,10 +22,8 @@ class Lora(nn.Module):
     def __init__(self, num_layers: int, dim: int, rank: int):
         super().__init__()
         for n in ("q", "v"):
-            self.register_parameter(f"a_{n}", nn.Parameter(torch.zeros(num_layers, dim, rank),
-                                                           requires_grad=False))
-            self.register_parameter(f"b_{n}", nn.Parameter(torch.zeros(num_layers, rank, dim),
-                                                           requires_grad=False))
+            self.register_parameter(f"a_{n}", nn.Parameter(torch.zeros(num_layers, dim, rank)))
+            self.register_parameter(f"b_{n}", nn.Parameter(torch.zeros(num_layers, rank, dim)))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():

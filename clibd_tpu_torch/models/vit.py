@@ -29,8 +29,8 @@ class ViT(nn.Module):
         self.cfg = cfg
         D = cfg.hidden_size
         self.patch_embed = Linear(cfg.patch_size * cfg.patch_size * 3, D)
-        self.cls_token = nn.Parameter(torch.zeros(1, 1, D), requires_grad=False)
-        self.pos_embed = nn.Parameter(torch.zeros(1, cfg.seq_len, D), requires_grad=False)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
+        self.pos_embed = nn.Parameter(torch.zeros(1, cfg.seq_len, D))
         self.blocks = TransformerStack(cfg.num_layers, D, cfg.mlp_dim)
         self.norm = LayerNorm(D)
         self.head = Linear(D, output_dim)
@@ -50,7 +50,7 @@ class ViT(nn.Module):
             self.lora.reset_parameters(generator)
 
     def forward(self, images: torch.Tensor, compute_dtype=torch.bfloat16,
-                fast_math: bool = True) -> torch.Tensor:
+                fast_math: bool = True, remat=False) -> torch.Tensor:
         """images [B, H, W, 3] float (normalised) → [B, output_dim] fp32."""
         cfg = self.cfg
         B = images.shape[0]
@@ -58,7 +58,8 @@ class ViT(nn.Module):
         cls = self.cls_token.to(compute_dtype).expand(B, 1, cfg.hidden_size)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(compute_dtype)
         x = self.blocks(x, num_heads=cfg.num_heads, pre_ln=True, ln_eps=cfg.layernorm_eps,
-                        lora=self.lora, compute_dtype=compute_dtype, fast_math=fast_math)
+                        lora=self.lora, compute_dtype=compute_dtype, fast_math=fast_math,
+                        remat=remat)
         fast = fast_math and compute_dtype != torch.float32
         # LN is per token: normalising only the CLS row equals timm's
         # norm-then-select

@@ -3,9 +3,11 @@
 Each `csrc/<name>.cu` is compiled by `nvcc` into a shared library with a
 plain C interface and loaded with `ctypes`.  The library goes to
 `build/kernels/` at the root of the checkout (or `$CLIBD_KERNEL_BUILD_DIR`),
-named by a hash of the source and the compiler flags, so the first call after
-a change rebuilds and every later call loads.  Nothing here runs at import:
-the CPU tests import every module on a host with no `nvcc`.
+named by a hash of the source, the shared headers (`csrc/*.cuh`) and the
+compiler flags, so the first call after a change rebuilds and every later
+call loads.  `build_libraries` starts one nvcc per source, all together.
+Nothing here runs at import: the CPU tests import every module on a host
+with no `nvcc`.
 """
 
 from __future__ import annotations
@@ -44,31 +46,50 @@ def find_nvcc() -> str:
                        "on a machine with the CUDA toolkit")
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build `csrc/<name>.cu` if its hashed library is missing, then load it."""
-    if name in _LOADED:
-        return _LOADED[name]
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = build_dir()
-    lib_path = out_dir / f"{name}-{digest}.so"
-    info = {"seconds": 0.0, "log": "", "path": str(lib_path)}
-    if not lib_path.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
+def _library_path(name: str) -> Path:
+    """`build/kernels/<name>-<hash>.so`, the hash over the source, the shared
+    headers of `csrc/` and the flags."""
+    blob = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        blob += header.read_bytes()
+    digest = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return build_dir() / f"{name}-{digest}.so"
+
+
+def build_libraries(names) -> None:
+    """Build every `csrc/<name>.cu` whose hashed library is missing: one nvcc
+    per source, all started together, then wait for all of them."""
+    running = []
+    for name in names:
+        lib_path = _library_path(name)
+        if lib_path.exists():
+            BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": "", "path": str(lib_path)})
+            continue
+        lib_path.parent.mkdir(parents=True, exist_ok=True)
         # compile to a temporary name and rename: concurrent builders never
         # load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib_path.parent)
         os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                              capture_output=True, text=True)
-        info["seconds"] = time.perf_counter() - t0
-        info["log"] = proc.stdout + proc.stderr
+        proc = subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+                                 str(CSRC / f"{name}.cu")],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((name, proc, tmp, lib_path, time.perf_counter()))
+    failed = []
+    for name, proc, tmp, lib_path, t0 in running:
+        log, _ = proc.communicate()
+        BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "log": log, "path": str(lib_path)}
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed to build {src.name}:\n{info['log']}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    BUILD_INFO[name] = info
-    _LOADED[name] = lib
-    return lib
+            failed.append(f"nvcc failed to build {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, lib_path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build `csrc/<name>.cu` if its hashed library is missing, then load it."""
+    if name not in _LOADED:
+        build_libraries([name])
+        _LOADED[name] = ctypes.CDLL(str(_library_path(name)))
+    return _LOADED[name]

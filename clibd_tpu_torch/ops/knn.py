@@ -30,7 +30,7 @@ def _as_tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(x, np.float32)).to(device)
 
 
-def prepare_keys(keys, device: torch.device | str = "cpu", dtype: str = "float32") -> torch.Tensor:
+def prepare_keys(keys, device: torch.device | str = "cuda", dtype: str = "float32") -> torch.Tensor:
     """Upload and L2-normalise a key matrix once, for reuse across the eval
     grid."""
     if dtype != "float32":

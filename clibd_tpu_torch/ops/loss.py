@@ -1,0 +1,85 @@
+"""Tri-modal multi-positive InfoNCE: the port of `clibd_tpu/ops/loss.py`
+(`label_equality_matrix`, `soft_target_cross_entropy`, `_pair_list`,
+`clip_loss`, `:43-102`; reference bioscanclip/model/loss_func.py:25-201).
+
+- The target is the label-equality matrix M[i, j] = (l_i == l_j):
+  multi-positive soft targets, not row-normalised (torch CrossEntropyLoss
+  with probability targets, mean_i(-sum_j M_ij log_softmax(sim_i)_j)).
+- Every ordered pair (a, b) of present modalities adds CE(s a.b^T, M) and
+  CE(s b.a^T, M); the loss is the mean over all terms.
+- `bind_to` keeps only pairs touching one anchor modality and
+  `no_image_text_loss` drops image<->text, with the reference's
+  filtered-index quirk kept as it is (see `_pair_list`).
+- Features are re-normalised inside the loss, and the similarity matmuls run
+  in fp32 with TF32 off (set at import by the package), the counterpart of
+  `Precision.HIGHEST`.
+
+Not ported yet: `sharded_clip_loss` (multi-GPU) and the SimCLR losses
+(ROADMAP.md Queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from ..config.schema import LossConfig
+from ..models.clibd import l2_normalize
+
+MODALITY_ORDER = ("image", "dna", "language")
+_BIND_IDX = {"image": 0, "dna": 1, "text": 2, "language": 2}
+
+
+def label_equality_matrix(labels_a: torch.Tensor,
+                          labels_b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if labels_b is None:
+        labels_b = labels_a
+    return (labels_a[:, None] == labels_b[None, :]).float()
+
+
+def soft_target_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """torch nn.CrossEntropyLoss(probability targets, reduction='mean')."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -(targets * logp).sum(dim=-1).mean()
+
+
+def _pair_list(present: list, cfg: LossConfig) -> list:
+    """Ordered modality pairs per the reference's loop (loss_func.py:176-199).
+
+    `present` is the list of modality names with features, in MODALITY_ORDER.
+    Indices for bind_to / no_image_text_loss follow the reference exactly,
+    quirk included: it compares fixed indices (image=0, dna=1, text=2)
+    against positions in the *filtered* feature list, so with a modality
+    absent the positions shift (dna+text only: bind_to='text' matches
+    nothing, and the loss divides by zero, as the reference does).
+    """
+    bind_idx = _BIND_IDX.get(cfg.bind_to) if cfg.bind_to else None
+    pairs = []
+    for ia, a in enumerate(present):
+        for ib, b in enumerate(present):
+            if ia == ib:
+                continue
+            if bind_idx is not None and ia != bind_idx and ib != bind_idx:
+                continue
+            if cfg.no_image_text_loss and {ia, ib} == {0, 2}:
+                continue
+            pairs.append((a, b))
+    return pairs
+
+
+def clip_loss(features: Dict[str, Optional[torch.Tensor]], labels: torch.Tensor,
+              logit_scale, cfg: LossConfig) -> torch.Tensor:
+    """Batch loss.  features: {'image', 'dna', 'language'} → [B, D] or None;
+    logit_scale: a scalar tensor (exp'd) or a float."""
+    present = [m for m in MODALITY_ORDER if features.get(m) is not None]
+    if len(present) < 2:
+        raise ValueError("Too less element for calculating the contrastive loss.")
+    target = label_equality_matrix(labels)
+    normed = {m: l2_normalize(features[m].float()) for m in present}
+    terms = []
+    for a, b in _pair_list(present, cfg):
+        sim_ab = logit_scale * torch.matmul(normed[a], normed[b].T)
+        terms.append(soft_target_cross_entropy(sim_ab, target))
+        terms.append(soft_target_cross_entropy(sim_ab.T, target))
+    return sum(terms) / len(terms)

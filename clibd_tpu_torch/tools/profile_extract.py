@@ -1,10 +1,11 @@
-"""Where the time of extraction goes, on one CUDA card.
+"""Where the time of extraction, or of a train step, goes on one CUDA card.
 
     python -m clibd_tpu_torch.tools.profile_extract [--out DIR]
+    python -m clibd_tpu_torch.tools.profile_extract --train [--out DIR]
 
 Drives the flagship tri-modal recipe (`EXPERIMENT`: ViT-B/16, BarcodeBERT,
 BERT-small at full width, bf16, batch 500, no LoRA) with weights from a
-seeded fresh init over `SyntheticSplit`s, and measures:
+seeded fresh init over `SyntheticSplit`s.  Extraction (the default) measures:
 
 1. step: device ms per batch of the whole encode step and of each encoder,
    by CUDA events (median of 5 after 2 warm-up runs), with the attention
@@ -17,8 +18,19 @@ seeded fresh init over `SyntheticSplit`s, and measures:
    part of the traced `extract_split` span in which no kernel, copy or
    memset ran on the card.
 
-Writes `summary.json`, `profile_table.txt` (key_averages by device time)
-and `trace.json.gz` into --out, and prints the summary as its last line.
+--train measures one train step of the same recipe (remat "attn", AdamW,
+the one-cycle schedule) on one batch already on the card:
+
+1. step: device ms per train step by CUDA events (median of 3 after 1
+   warm-up step), with the attention kernels and with their plain versions
+   in their place, in the order kernels, plain, plain, kernels; the peak
+   device memory of a step;
+2. trace: `torch.profiler` over `TRACE_STEPS` steps.  Device time by kernel
+   group and the device's idle share inside the traced `train_step` span.
+
+Each mode writes `summary.json`, `profile_table.txt` (key_averages by device
+time) and `trace.json.gz` into --out, and prints the summary as its last
+line.
 """
 
 from __future__ import annotations
@@ -37,10 +49,13 @@ EXPERIMENT = "for_bioscan_1m/final_experiments/image_dna_text_seed_42.yaml"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 BATCHES = 10  # the end-to-end runs
 TRACE_BATCHES = 3
+TRACE_STEPS = 2
 # kernel name fragment -> group, first match wins
 KERNEL_GROUPS = (
     ("flash_fwd", "attention kernel"),
+    ("flash_bwd", "attention backward kernel"),
     ("nvjet", "gemm"), ("gemm", "gemm"), ("cutlass", "gemm"), ("xmma", "gemm"),
+    ("multi_tensor", "optimizer"),
     ("copy", "casts and copies"),
 )
 
@@ -95,15 +110,85 @@ def trace_window(events: List[dict], name: str) -> Tuple[float, float]:
 
 @contextmanager
 def plain_attention():
-    """Run the layers through the kernel's plain version instead."""
-    from ..models import layers
-    from ..ops.attention import flash_attention_qkv, flash_attention_qkv_reference
+    """Send the attention operators to the kernels' plain versions on the
+    card, for a comparison; the port itself has no such switch."""
+    from ..ops import attention
 
-    layers.flash_attention_qkv = flash_attention_qkv_reference
+    saved = attention._cuda_fwd, attention._cuda_bwd
+    attention._cuda_fwd = attention.flash_attention_qkv_reference
+    attention._cuda_bwd = attention.flash_attention_qkv_bwd_reference
     try:
         yield
     finally:
-        layers.flash_attention_qkv = flash_attention_qkv
+        attention._cuda_fwd, attention._cuda_bwd = saved
+
+
+def write_trace(prof, out: str, span: str, runs: int) -> dict:
+    """Write the profiler's table and gzipped trace into `out`; → the span's
+    length, the device's idle share in it and device ms by kernel group."""
+    with open(os.path.join(out, "profile_table.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    with gzip.open(os.path.join(out, "trace.json.gz"), "wt") as f:
+        json.dump(trace, f)
+    events = trace["traceEvents"]
+    window = trace_window(events, span)
+    return {"runs": runs, "span_ms": (window[1] - window[0]) / 1e3,
+            "device_idle_share": device_idle_share(events, window),
+            "device_ms_by_group": device_ms_by_group(events, window)}
+
+
+def profile_train(out: str, card: str, summary: dict) -> dict:
+    import torch
+
+    from ..config import load_config
+    from ..data import SyntheticSplit
+    from ..engine.extract import to_device
+    from ..engine.schedules import build_schedule
+    from ..engine.train import batch_generator, build_optimizer, make_train_step
+    from ..models import init_clibd_model
+    from ..utils.profiling import cuda_ms
+
+    device = torch.device("cuda")
+    mc = load_config(experiment=EXPERIMENT).model_config
+    model = init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed), device)
+    B = mc.batch_size
+    batch = to_device({k: v for k, v in next(SyntheticSplit("train", B, mc, seed=0).batches())
+                       .items() if k != "index"}, device)
+    optimizer = build_optimizer(mc, model, build_schedule(mc.optim, 6 * mc.epochs, B))
+    step = make_train_step(mc, model, optimizer)
+
+    def run():
+        step(batch, batch_generator(device, mc.default_seed, 0, 0))
+
+    summary.update({"mode": "train", "batch": B, "remat": mc.remat,
+                    "remat_policy": mc.remat_policy})
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    summary["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms: Dict[str, List[float]] = {"kernels": [], "plain": []}
+    for which in ("kernels", "plain", "plain", "kernels"):
+        with plain_attention() if which == "plain" else nullcontext():
+            ms[which].append(cuda_ms(run, warmup=1, iters=3))
+        print(f"train step, {which}: {ms[which][-1]:.3f} ms = "
+              f"{B / ms[which][-1] * 1e3:.2f} samples/s  [{card}]")
+    summary["train_step_ms"] = ms
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("train_step"):
+            for _ in range(TRACE_STEPS):
+                run()
+        torch.cuda.synchronize()
+    summary["trace"] = write_trace(prof, out, "train_step", TRACE_STEPS)
+    print(f"trace of {TRACE_STEPS} train steps: {summary['trace']}  [{card}]")
+    return summary
 
 
 def main(argv=None) -> dict:
@@ -118,6 +203,7 @@ def main(argv=None) -> dict:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile_extract")
+    ap.add_argument("--train", action="store_true", help="profile a train step instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_extract needs a CUDA card")
@@ -125,14 +211,21 @@ def main(argv=None) -> dict:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     device = torch.device("cuda")
+    summary: dict = {"card": card, "experiment": EXPERIMENT,
+                     "torch": torch.__version__, "cuda": torch.version.cuda}
+    if args.train:
+        summary = profile_train(args.out, card, summary)
+        with open(os.path.join(args.out, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=1)
+        print(json.dumps(summary))
+        return summary
     mc = load_config(experiment=EXPERIMENT).model_config
     model = init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed), device)
     B = mc.batch_size
     split = SyntheticSplit("profile", BATCHES * B, mc, seed=0)
     batch = to_device({k: v for k, v in next(split.batches()).items() if k != "index"}, device)
     step = make_encode_step(mc, model, torch.bfloat16)
-    summary: dict = {"card": card, "experiment": EXPERIMENT, "batch": B,
-                     "torch": torch.__version__, "cuda": torch.version.cuda}
+    summary["batch"] = B
 
     def encoders():
         return {
@@ -170,23 +263,7 @@ def main(argv=None) -> dict:
         with torch.profiler.record_function("extract_split"):
             extract_split(model, mc, short)
         torch.cuda.synchronize()
-    with open(os.path.join(args.out, "profile_table.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            trace = json.load(f)
-    with gzip.open(os.path.join(args.out, "trace.json.gz"), "wt") as f:
-        json.dump(trace, f)
-    events = trace["traceEvents"]
-    window = trace_window(events, "extract_split")
-    summary["trace"] = {
-        "batches": TRACE_BATCHES,
-        "span_ms": (window[1] - window[0]) / 1e3,
-        "device_idle_share": device_idle_share(events, window),
-        "device_ms_by_group": device_ms_by_group(events, window),
-    }
+    summary["trace"] = write_trace(prof, args.out, "extract_split", TRACE_BATCHES)
     print(f"trace of {TRACE_BATCHES} batches: {summary['trace']}  [{card}]")
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)

@@ -1,16 +1,16 @@
-"""Timing: the port of `PhaseTimer` in `clibd_tpu/utils/profiling.py`, and
-`cuda_ms`, device time by CUDA events.
+"""Timing: the port of `PhaseTimer` and `StepTimer` in
+`clibd_tpu/utils/profiling.py`, and `cuda_ms`, device time by CUDA events.
 
-A phase ends with `torch.cuda.synchronize(device)` when the timer's device is
-CUDA, so the time of asynchronous kernels lands in the phase that launched
-them and not in the next one.
+A phase ends, and a step is ticked, with `torch.cuda.synchronize(device)`
+when the timer's device is CUDA, so the time of asynchronous kernels lands in
+the phase or step that launched them and not in the next one.
 """
 
 from __future__ import annotations
 
 import statistics
 import time
-from typing import List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -30,6 +30,42 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+class StepTimer:
+    """Steady-state step time and samples/s, the first `warmup_steps` steps
+    excluded (`profiling.py:29-57`).  Each tick waits for the card."""
+
+    def __init__(self, warmup_steps: int = 2, device: torch.device | str = "cpu"):
+        self.warmup_steps = warmup_steps
+        self.device = torch.device(device)
+        self.times: List[float] = []
+        self._last: Optional[float] = None
+        self._step = 0
+
+    def tick(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self._step += 1
+        if self._last is not None and self._step > self.warmup_steps:
+            self.times.append(now - self._last)
+        self._last = now
+
+    @property
+    def mean_step_time(self) -> float:
+        return sum(self.times) / len(self.times) if self.times else 0.0
+
+    def samples_per_sec(self, batch_size: int, n_chips: int = 1) -> float:
+        st = self.mean_step_time
+        return batch_size / st / n_chips if st > 0 else 0.0
+
+    def summary(self, batch_size: int, n_chips: int = 1) -> Dict[str, float]:
+        return {
+            "mean_step_time_s": self.mean_step_time,
+            "samples_per_sec_per_chip": self.samples_per_sec(batch_size, n_chips),
+            "steps_timed": len(self.times),
+        }
 
 
 class PhaseTimer:

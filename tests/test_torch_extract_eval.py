@@ -65,7 +65,7 @@ def extracted(tiny_hdf5):
         w = tree[enc]["blocks"]["qkv_w"]
         tree[enc]["blocks"]["qkv_w"] = (np.random.default_rng(2).standard_normal(w.shape)
                                         * 0.1).astype(np.float32)
-    model = model_from_jax(tree, cfg)
+    model = model_from_jax(tree, cfg, "cpu")
     spec = BatchSpec(batch_size=6, image_size=32, resize_to=36, dna_max_bp=80, train=False)
     mesh = create_mesh(jax.devices()[:1])
     out = {}
@@ -137,7 +137,8 @@ def test_cache_files_match_jax_schema(extracted, tmp_path):
 def test_inference_and_eval_matches_jax(extracted):
     """Fed the same embeddings (tie-free), both grids agree exactly."""
     keys, seen, unseen = (extracted[s][0] for s, _ in SPLITS)
-    got = port_evaluate.inference_and_eval(keys, seen, unseen, k_list=(1, 3, 5), query_chunk=7)
+    got = port_evaluate.inference_and_eval(keys, seen, unseen, k_list=(1, 3, 5), query_chunk=7,
+                                           device="cpu")
     want = jax_evaluate.inference_and_eval(keys, seen, unseen, k_list=(1, 3, 5), query_chunk=7)
     assert got[0] == want[0]  # acc_dict
     assert got[1] == want[1]  # per_class_acc
@@ -151,7 +152,7 @@ def test_inference_and_eval_matches_jax(extracted):
 
 def test_save_results_matches_jax(extracted, tmp_path):
     keys, seen, unseen = (extracted[s][0] for s, _ in SPLITS)
-    acc = port_evaluate.inference_and_eval(keys, seen, unseen, with_preds=False)[0]
+    acc = port_evaluate.inference_and_eval(keys, seen, unseen, with_preds=False, device="cpu")[0]
     _, csv_rows, raw_rows, _ = port_evaluate.format_results(acc)
     for name, mod in (("jax", jax_evaluate), ("port", port_evaluate)):
         mod.save_results(str(tmp_path / name), acc, csv_rows, raw_rows, config_snapshot={"a": 1})
@@ -178,7 +179,7 @@ def test_knn_search_matches_jax(rng):
                "species": f"s{i}"} for i in range(53)]
     assert port_knn.make_prediction(q, k, labels, max_k=3) == \
         jax_knn.make_prediction(q, k, labels, max_k=3)
-    prepared = port_knn.prepare_keys(k)
+    prepared = port_knn.prepare_keys(k, device="cpu")
     np.testing.assert_allclose(prepared.norm(dim=1).numpy(), 1, atol=1e-6)
 
 
@@ -253,10 +254,12 @@ def test_options_not_ported_raise(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of clibd_tpu_torch imports with jax made unimportable."""
+    """Every module of clibd_tpu_torch imports with jax and the JAX package
+    made unimportable."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['clibd_tpu'] = None\n"
         "import clibd_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(clibd_tpu_torch.__path__, "
         "'clibd_tpu_torch.')]\n"
@@ -293,7 +296,7 @@ def test_synthetic_split_matches_jax_extraction():
     cfg = tiny_cfg()
     cfg.batch_size = 3
     tree = jax.tree.map(np.asarray, init_clibd_params(jax.random.PRNGKey(3), cfg))
-    model = model_from_jax(tree, cfg)
+    model = model_from_jax(tree, cfg, "cpu")
     split = SyntheticSplit("keys", 7, cfg, seed=4)
     assert len(split) == 3 and split.spec.batch_size == 3
     saved = jax_layers.ATTENTION_IMPL
@@ -344,4 +347,4 @@ def test_wrapper_on_cpu_needs_no_cuda():
 
     qkv = torch.randn(2, 5, 3 * 128, generator=torch.Generator().manual_seed(0))
     out = attention.flash_attention_qkv(qkv, 2)
-    assert out.shape == (2, 5, 128) and attention._LIB is None
+    assert out.shape == (2, 5, 128) and attention._LIBS == {}

@@ -6,9 +6,10 @@ has PyTorch for CUDA and no jax:
 
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda -q
 
-The kernel is held against its plain PyTorch version (which the CPU tests
-hold against clibd_tpu) at the slice's shapes, and a tiny model on the card
-against the same model on the CPU.
+Each kernel (the attention forward and backward) is held against its plain
+PyTorch version (which the CPU tests hold against clibd_tpu) at the slices'
+shapes, and a tiny model on the card against the same model on the CPU, in
+extraction and in a training step.
 """
 
 import copy
@@ -17,9 +18,14 @@ import numpy as np
 import pytest
 import torch
 
-from clibd_tpu.config.schema import BertConfig, ExperimentConfig, ViTConfig
+from clibd_tpu_torch.config import BertConfig, ExperimentConfig, ViTConfig
 from clibd_tpu_torch.models import clibd_apply, init_clibd_model
-from clibd_tpu_torch.ops.attention import flash_attention_qkv, flash_attention_qkv_reference
+from clibd_tpu_torch.ops.attention import (
+    flash_attention_qkv,
+    flash_attention_qkv_bwd,
+    flash_attention_qkv_bwd_reference,
+    flash_attention_qkv_reference,
+)
 
 NEG = np.finfo(np.float32).min
 # Both sides round P and V to bf16 after fp32 maths; a probability within
@@ -34,6 +40,12 @@ EMB_ATOL = 1e-3
 # bf16 on the card against bf16 on the CPU: the same rounding points, other
 # accumulation orders in the GEMMs
 BF16_COSINE_MIN = 0.99
+# backward kernel against its plain version, per part (dq, dk, dv): both round
+# P, dS and the inputs to bf16 at the same points, so they differ where a
+# value within float noise of a bf16 boundary rounds the other way, and by
+# the bf16 rounding of the output itself; bounded relative to the part's
+# largest entry
+BWD_REL_TOL = 2e-2
 
 
 @pytest.fixture
@@ -140,3 +152,106 @@ def test_tiny_model_on_the_card_matches_the_cpu(cuda_device):
         assert err <= EMB_ATOL, (m, err)
         cos = torch.nn.functional.cosine_similarity(got16[m], want16[m], dim=-1)
         assert float(cos.min()) >= BF16_COSINE_MIN, (m, cos)
+
+
+def _parts_err(got, want, H):
+    """max |got - want| / max |want| for each of dq, dk, dv."""
+    D = H * 64
+    return [float((got[..., i * D:(i + 1) * D].float() - want[..., i * D:(i + 1) * D].float())
+                  .abs().max() / want[..., i * D:(i + 1) * D].float().abs().max())
+            for i in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,masked", [(197, 12, False), (133, 12, False), (20, 8, True),
+                                         (33, 2, True)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bwd_kernel_matches_plain_version(cuda_device, N, H, masked, dtype):
+    qkv, mask = _inputs(8, N, H, masked, seed=N + 1)
+    dout = np.random.default_rng(N).standard_normal((8, N, H * 64)).astype(np.float32)
+    t = torch.from_numpy(qkv).to(cuda_device, dtype)
+    g = torch.from_numpy(dout).to(cuda_device, dtype)
+    m = None if mask is None else torch.from_numpy(mask).to(cuda_device)
+    before = flash_attention_qkv_bwd.launches
+    got = flash_attention_qkv_bwd(t, g, H, m)
+    torch.cuda.synchronize()
+    assert flash_attention_qkv_bwd.launches == before + 1
+    assert got.dtype == dtype and got.shape == t.shape
+    assert torch.isfinite(got).all()
+    want = flash_attention_qkv_bwd_reference(t, g, H, m)
+    errs = _parts_err(got, want, H)
+    assert max(errs) <= BWD_REL_TOL, errs
+
+
+@pytest.mark.cuda
+def test_autograd_through_the_op_runs_both_kernels(cuda_device):
+    """grad of the op on the card: one forward and one backward launch, and
+    the gradient is the backward kernel's own output; a strided dO is taken."""
+    qkv, mask = _inputs(4, 20, 8, True, seed=7)
+    t = torch.from_numpy(qkv).to(cuda_device, torch.bfloat16).requires_grad_()
+    m = torch.from_numpy(mask).to(cuda_device)
+    g = torch.randn(4, 8 * 64, 20, device=cuda_device, dtype=torch.bfloat16).transpose(1, 2)
+    f0, b0 = flash_attention_qkv.launches, flash_attention_qkv_bwd.launches
+    out = flash_attention_qkv(t, 8, m)
+    (grad,) = torch.autograd.grad(out, t, g)
+    torch.cuda.synchronize()
+    assert (flash_attention_qkv.launches - f0, flash_attention_qkv_bwd.launches - b0) == (1, 1)
+    assert torch.equal(grad, flash_attention_qkv_bwd(t.detach(), g, 8, m))
+
+
+@pytest.mark.cuda
+def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    ok = torch.zeros(2, 5, 3 * 128, device=cuda_device, dtype=torch.bfloat16)
+    dout = torch.zeros(2, 5, 128, device=cuda_device, dtype=torch.bfloat16)
+    before = flash_attention_qkv_bwd.launches
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_qkv_bwd(torch.zeros(2, 5, 3 * 96, device=cuda_device), dout, 1)
+    with pytest.raises(ValueError, match="dout"):
+        flash_attention_qkv_bwd(ok, dout[:, :4], 2)
+    with pytest.raises(ValueError, match="mask"):
+        flash_attention_qkv_bwd(ok, dout, 2, torch.zeros(2, 5))
+    assert flash_attention_qkv_bwd.launches == before
+
+
+@pytest.mark.cuda
+def test_tiny_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """Loss gradients of a tiny tri-modal model through both kernels, under
+    the "attn" remat policy, against the same weights on the CPU, in fp32:
+    every trainable parameter gets a gradient, and the forward kernel is not
+    re-run in the backward."""
+    from clibd_tpu_torch.ops.loss import clip_loss
+
+    cfg = _tiny_cfg()
+    cpu_model = init_clibd_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(cuda_device)
+    rng = np.random.default_rng(2)
+    att = (rng.random((4, 20)) > 0.3).astype(np.int32)
+    att[:, 0] = 1
+    ids = rng.integers(0, 300, (4, 20)).astype(np.int32)
+    inputs = {"image": rng.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8),
+              "dna": rng.integers(0, 1027, (4, 17)).astype(np.int32),
+              "language": {"input_ids": ids, "token_type_ids": np.zeros_like(ids),
+                           "attention_mask": att}}
+    labels = np.array([0, 1, 0, 2])
+
+    def grads(model, device):
+        def put(x):
+            return ({k: put(v) for k, v in x.items()} if isinstance(x, dict)
+                    else torch.from_numpy(x).to(device))
+        x = put(inputs)
+        out = clibd_apply(model, cfg, x["image"], x["dna"], x["language"],
+                          compute_dtype=torch.float32, remat="attn")
+        loss = clip_loss(out, torch.from_numpy(labels).to(device), out["logit_scale"], cfg.loss)
+        params = [p for p in model.parameters() if p.requires_grad]
+        return loss, torch.autograd.grad(loss, params)
+
+    f0, b0 = flash_attention_qkv.launches, flash_attention_qkv_bwd.launches
+    loss_gpu, g_gpu = grads(gpu_model, cuda_device)
+    torch.cuda.synchronize()
+    assert (flash_attention_qkv.launches - f0, flash_attention_qkv_bwd.launches - b0) == (6, 6)
+    loss_cpu, g_cpu = grads(cpu_model, "cpu")
+    assert abs(float(loss_gpu) - float(loss_cpu)) <= 1e-4 * abs(float(loss_cpu))
+    for a, b in zip(g_gpu, g_cpu):
+        a = a.cpu().flatten()
+        assert torch.isfinite(a).all()
+        assert float((a - b.flatten()).abs().max()) <= 2e-2 * float(b.abs().max()) + 1e-6

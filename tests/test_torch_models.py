@@ -302,7 +302,7 @@ def _inputs(rng, B=3):
 def test_vit_apply(rng, tmp_path, monkeypatch, dtype):
     cfg = tiny_cfg()
     tree = _params(rng, tmp_path, cfg)
-    model = model_from_jax(tree, cfg)
+    model = model_from_jax(tree, cfg, "cpu")
     images = rng.standard_normal((3, 32, 32, 3)).astype(np.float32)
 
     def port(td):
@@ -319,7 +319,7 @@ def test_vit_apply(rng, tmp_path, monkeypatch, dtype):
 def test_bert_encode_with_mlm_head(rng, tmp_path, monkeypatch, dtype):
     cfg = tiny_cfg()
     tree = _params(rng, tmp_path, cfg)
-    model = model_from_jax(tree, cfg)
+    model = model_from_jax(tree, cfg, "cpu")
     dna = rng.integers(0, 1027, (3, 17)).astype(np.int32)
     att = _mask(rng, 3, 17)
     enc = model.dna_encoder
@@ -343,7 +343,7 @@ def test_bert_encode_with_mlm_head(rng, tmp_path, monkeypatch, dtype):
 def test_clibd_apply_trimodal(rng, tmp_path, monkeypatch, impl, dtype):
     cfg = tiny_cfg()
     tree = _params(rng, tmp_path, cfg)
-    model = model_from_jax(tree, cfg)
+    model = model_from_jax(tree, cfg, "cpu")
     images, dna, lang = _inputs(rng)
     jparams = jax.tree.map(jnp.asarray, tree)
 
@@ -371,4 +371,4 @@ def test_bridge_is_strict_about_the_config(rng, tmp_path):
     cfg = tiny_cfg()
     tree = _params(rng, tmp_path, cfg)
     with pytest.raises(RuntimeError, match="lora"):
-        model_from_jax(tree, tiny_cfg(disable_lora=True))
+        model_from_jax(tree, tiny_cfg(disable_lora=True), "cpu")
