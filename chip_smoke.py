@@ -46,6 +46,43 @@ Phases, each of which raises on failure:
    Prints train samples/s over the steps after each epoch's first
    (CUDA-synchronised) and the peak device memory.
 
+6. out-projection kernel: `flash_attention_qkv_outproj` (attention with the
+   out-projection fused in) against its plain version at the same three
+   shapes, with a random W_out and bias, at B=64 and B=500 (the fully masked
+   row included): max |kernel - plain| <= 2e-2 * max |plain|; kernel, plain
+   version and the library yardstick (SDPA, then addmm) timed at B=500; and
+   at B=16 `torch.autograd.grad` through the operator, for qkv, W_out and
+   the bias, equals the composed backward (W_out^T product, the backward
+   kernel, the forward kernel's ctx for dW).
+7. fused-MLP kernel: `fused_mlp` against its plain version at (R, D, F) =
+   (500*197, 768, 3072), (500*133, 768, 3072) and (500*77, 512, 2048) with
+   gelu_tanh, and at R = 64*197 and the ragged 63*197 with gelu and with
+   quick_gelu: max |kernel - plain| <= 2e-2 * max |plain|; kernel, plain
+   version and the yardstick (addmm, tanh GELU, addmm) timed at the first
+   three.
+8. BioCLIP eval: the recipe
+   for_bioscan_1m/image_bind_style/with_bioclip_bind_to_image.yaml (CLIP
+   ViT-B/16, the 12-layer causal CLIP text tower at D=512, BarcodeBERT, embed
+   512, bf16, batch 500) with both opt-in kernels on
+   (`CLIBD_ATTN_FUSE_OUTPROJ=1`, `CLIBD_MLP_IMPL=pallas`) over the same
+   synthetic splits, through extract_split and the kNN grid.  Checks finite
+   unit-norm 512-d embeddings, a non-empty grid, per batch 24 out-projection
+   launches (12 ViT + 12 BarcodeBERT), 36 fused-MLP launches (12 per tower)
+   and no launch of the plain forward kernel (the causal text attention is
+   eager), and on 8 samples the bf16 path against the fp32 path and the
+   kernels on against off (cosine >= 0.99 per row).
+9. BioCLIP train: 4 steps of batch 500 of the same recipe with the kernels
+   on (image and text towers frozen, BarcodeBERT and logit_scale train,
+   bind_to image, remat "attn").  Checks finite losses, a finite nonzero
+   gradient on every trainable tensor after the first step, per step 24
+   out-projection, 48 fused-MLP (36 forward + the 12 BarcodeBERT layers
+   recomputed under "attn"), 12 forward-kernel (the out-projection backward
+   recomputes ctx) and 12 backward-kernel launches, and on 16 samples the
+   bf16 gradients through the kernels against the plain versions (cosine >=
+   0.99 per tensor).  Prints samples/s over the steps after the first and
+   the peak device memory.
+
+Phases 3-5 run with both opt-in kernels off, as the flagship recipe does.
 The last three lines are the kernel summary JSON, the card line, and
 `{"ok": true, "device": {...}}`.
 """
@@ -68,6 +105,16 @@ BWD_REL_TOL = 2e-2     # backward, per part, relative to the part's max |plain|
 COSINE_MIN = 0.99      # bf16 vs fp32 path per embedding row; kernel vs plain gradients per tensor
 SHAPES = (("vit", 197, 12, False), ("barcode_bert", 133, 12, False), ("bert_small", 20, 8, True))
 EXPERIMENT = "for_bioscan_1m/final_experiments/image_dna_text_seed_42.yaml"
+BIOCLIP = "for_bioscan_1m/image_bind_style/with_bioclip_bind_to_image.yaml"
+REL_TOL = 2e-2         # out-projection and fused MLP: max |kernel - plain| / max |plain|
+# fused MLP (name, R, D, F, activation): the BioCLIP towers' shapes at batch 500
+MLP_SHAPES = (("vit", 500 * 197, 768, 3072, "gelu_tanh"),
+              ("barcode_bert", 500 * 133, 768, 3072, "gelu_tanh"),
+              ("clip_text", 500 * 77, 512, 2048, "gelu_tanh"))
+# 64*197 rows fill whole 64-row blocks; 63*197 leaves a ragged tail of 59
+MLP_EXTRA = tuple((f"vit R={r} {act}", r, 768, 3072, act)
+                  for r in (64 * 197, 63 * 197) for act in ("gelu", "quick_gelu"))
+BIOCLIP_TRAIN_STEPS = 4
 SPLIT_ROWS = {"all_keys": 1100, "test_seen": 500, "test_unseen": 500}
 TRAIN_ROWS = {"train": 3000, "all_keys": 1100, "val_seen": 500, "val_unseen": 500}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
@@ -261,7 +308,7 @@ def eval_slice_phase(card: str, fwd_entry: dict, mc, device, split_rows: dict) -
     make_encode_step(mc, model, torch.bfloat16)(small)
     torch.cuda.synchronize()
 
-    flash_attention_qkv.launches = flash_attention_qkv_bwd.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     keys_dict = extract_split(model, mc, splits["all_keys"], for_key_set=True)
     seen_dict = extract_split(model, mc, splits["test_seen"])
@@ -275,9 +322,10 @@ def eval_slice_phase(card: str, fwd_entry: dict, mc, device, split_rows: dict) -
                  + mc.language.bert.num_layers)
     print(f"flash_attention_qkv launches in the eval slice: {launches} "
           f"(expected {per_batch} x {n_batches} batches = {per_batch * n_batches})")
-    if launches != per_batch * n_batches or flash_attention_qkv_bwd.launches:
+    others = {k: v for k, v in read_counts().items() if k != "flash_attention_qkv"}
+    if launches != per_batch * n_batches or any(others.values()):
         fail(f"eval path launched the forward kernel {launches} times, expected "
-             f"{per_batch * n_batches}, and the backward {flash_attention_qkv_bwd.launches} times")
+             f"{per_batch * n_batches}, and the others {others}")
     fwd_entry["launches"] = launches
 
     t0 = time.perf_counter()
@@ -336,7 +384,7 @@ def train_slice_phase(card: str, fwd_entry: dict, bwd_entry: dict, gcfg, device)
     )
     from clibd_tpu_torch.models import init_clibd_model, load_model_npz
     from clibd_tpu_torch.ops.attention import flash_attention_qkv, flash_attention_qkv_bwd
-    from clibd_tpu_torch.tools.profile_extract import plain_attention
+    from clibd_tpu_torch.tools.profile_extract import plain_kernels
 
     mc = gcfg.model_config
     t0 = time.perf_counter()
@@ -376,7 +424,7 @@ def train_slice_phase(card: str, fwd_entry: dict, bwd_entry: dict, gcfg, device)
             return loss
 
         trainer.step_fn = counted_step
-        flash_attention_qkv.launches = flash_attention_qkv_bwd.launches = 0
+        reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         history = trainer.fit()
@@ -388,8 +436,11 @@ def train_slice_phase(card: str, fwd_entry: dict, bwd_entry: dict, gcfg, device)
         steps = mc.epochs * len(splits["train"])
         print(f"kernel launches per train step (forward, backward): {sorted(set(per_step))} over "
               f"{len(per_step)} steps (expected ({n_layers}, {n_layers}) x {steps})")
-        if len(per_step) != steps or set(per_step) != {(n_layers, n_layers)}:
-            fail(f"train steps launched {per_step}, expected ({n_layers}, {n_layers}) x {steps}")
+        fused = {k: read_counts()[k] for k in ("flash_attention_qkv_outproj", "fused_mlp")}
+        if len(per_step) != steps or set(per_step) != {(n_layers, n_layers)} \
+                or any(fused.values()):
+            fail(f"train steps launched {per_step}, expected ({n_layers}, {n_layers}) x {steps}, "
+                 f"and the opt-in kernels {fused}, expected none")
         bwd_entry["launches"] = flash_attention_qkv_bwd.launches
         fwd_entry["launches"] += flash_attention_qkv.launches  # train steps and both evals
         losses = [d["loss"] for d in logs if "loss" in d]
@@ -443,7 +494,7 @@ def train_slice_phase(card: str, fwd_entry: dict, bwd_entry: dict, gcfg, device)
         return [g.float() for g in torch.autograd.grad(loss, params)]
 
     with_kernels = grads()
-    with plain_attention():
+    with plain_kernels():
         with_plain = grads()
     cos = [float((a * b).sum() / (a.norm() * b.norm())) for a, b in zip(with_kernels, with_plain)]
     worst = min(range(len(cos)), key=cos.__getitem__)
@@ -452,6 +503,352 @@ def train_slice_phase(card: str, fwd_entry: dict, bwd_entry: dict, gcfg, device)
           f"(need >= {COSINE_MIN})")
     if not all(c >= COSINE_MIN for c in cos):
         fail("gradients through the kernels disagree with the plain versions")
+
+
+def rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def kernel_counters():
+    from clibd_tpu_torch.ops.attention import (flash_attention_qkv, flash_attention_qkv_bwd,
+                                               flash_attention_qkv_outproj)
+    from clibd_tpu_torch.ops.mlp import fused_mlp
+
+    return {"flash_attention_qkv": flash_attention_qkv,
+            "flash_attention_qkv_bwd": flash_attention_qkv_bwd,
+            "flash_attention_qkv_outproj": flash_attention_qkv_outproj, "fused_mlp": fused_mlp}
+
+
+def reset_counts() -> None:
+    for f in kernel_counters().values():
+        f.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: f.launches for name, f in kernel_counters().items()}
+
+
+def add_launches(entries: dict, path: str, counts: dict) -> None:
+    """Add one main-path run's launches to the summary entries."""
+    for name, n in counts.items():
+        entries[name]["launches"] = (entries[name]["launches"] or 0) + n
+        entries[name].setdefault("launches_by_path", {})[path] = n
+
+
+def outproj_kernel_phase(card: str) -> dict:
+    import torch
+
+    from clibd_tpu_torch.ops.attention import (
+        flash_attention_qkv_bwd_cuda,
+        flash_attention_qkv_cuda,
+        flash_attention_qkv_outproj,
+        flash_attention_qkv_outproj_cuda,
+        flash_attention_qkv_outproj_reference,
+    )
+    from clibd_tpu_torch.utils.profiling import cuda_ms
+
+    def weights(D, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        w = (torch.randn(D, D, generator=g, device="cuda") / math.sqrt(D)).to(torch.bfloat16)
+        return w, (0.1 * torch.randn(D, generator=g, device="cuda")).to(torch.bfloat16)
+
+    def library(qkv, w, b, H, mask):
+        """SDPA, then addmm: the yardstick, for timing only"""
+        B, N, three_d = qkv.shape
+        ctx = library_attention(qkv, H, mask).transpose(1, 2).reshape(B * N, three_d // 3)
+        return torch.addmm(b, ctx, w)
+
+    shapes = []
+    for name, N, H, masked in SHAPES:
+        D = H * 64
+        w, b = weights(D, seed=N)
+        err = 0.0
+        for B in (64, 500):
+            qkv, mask = make_qkv(B, N, H, masked, seed=N + B + 2)
+            got = flash_attention_qkv_outproj_cuda(qkv, w, b, H, mask)
+            want = flash_attention_qkv_outproj_reference(qkv, w, b, H, mask)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                fail(f"out-projection kernel output not finite at {name} B={B}")
+            rel = rel_err(got, want)
+            masked_row = f", fully masked row {rel_err(got[0], want[0]):.3e}" if masked else ""
+            print(f"kernel flash_attention_qkv_outproj {name} B={B} N={N} H={H} mask={masked}: "
+                  f"max|kernel-plain|/max|plain| {rel:.3e}{masked_row} (tol {REL_TOL})")
+            if rel > REL_TOL or (masked and rel_err(got[0], want[0]) > REL_TOL):
+                fail(f"out-projection kernel disagrees with its plain version at {name} B={B}")
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            del got, want
+        ms = cuda_ms(lambda: flash_attention_qkv_outproj_cuda(qkv, w, b, H, mask))
+        plain_ms = cuda_ms(lambda: flash_attention_qkv_outproj_reference(qkv, w, b, H, mask))
+        library_ms = cuda_ms(lambda: library(qkv, w, b, H, mask))
+        flops = 4 * 500 * H * N * N * 64 + 2 * 500 * N * D * D
+        nbytes = 500 * N * (3 * D + D) * 2 + (D * D + D) * 2 + (500 * N * 4 if masked else 0)
+        bound_ms, bound_by = bound(nbytes, flops)
+        print(f"time flash_attention_qkv_outproj {name} B=500: kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library (sdpa + "
+              f"addmm) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
+        shapes.append({"shape": name, "B": 500, "N": N, "H": H, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "max_abs_err": err})
+        del qkv, mask
+    torch.cuda.empty_cache()
+
+    # autograd through the operator equals the composed backward (B=16)
+    qkv, mask = make_qkv(16, 20, 8, True, seed=9)
+    w, b = weights(512, seed=9)
+    leaves = [t.detach().requires_grad_() for t in (qkv, w, b)]
+    dout = torch.randn(16, 20, 512, device="cuda", dtype=torch.bfloat16)
+    got = torch.autograd.grad(flash_attention_qkv_outproj(leaves[0], leaves[1], leaves[2], 8,
+                                                          mask), leaves, dout)
+    dctx = torch.matmul(dout, w.t())
+    ctx = flash_attention_qkv_cuda(qkv, 8, mask)
+    want = (flash_attention_qkv_bwd_cuda(qkv, dctx, 8, mask),
+            torch.matmul(ctx.reshape(-1, 512).t(), dout.reshape(-1, 512)),
+            dout.float().sum(dim=(0, 1)).to(b.dtype))
+    for part, a, e in zip(("qkv", "W_out", "bias"), got, want):
+        if not torch.equal(a, e):
+            fail(f"autograd through the out-projection operator differs from the composed "
+                 f"backward for {part}: max|Δ| {float((a.float() - e.float()).abs().max())}")
+    print("autograd.grad through the out-projection operator equals the composed backward "
+          "for qkv, W_out and the bias (B=16)")
+    return kernel_entry("flash_attention_qkv_outproj",
+                        "clibd_tpu_torch/csrc/flash_attention_qkv_outproj.cu",
+                        "clibd_tpu/ops/pallas/attention.py:313", shapes)
+
+
+def fused_mlp_kernel_phase(card: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from clibd_tpu_torch.ops.mlp import fused_mlp_cuda, fused_mlp_reference
+    from clibd_tpu_torch.utils.profiling import cuda_ms
+
+    def library(x, w1, b1, w2, b2):
+        """addmm, tanh GELU, addmm: the yardstick, for timing only"""
+        return torch.addmm(b2, F.gelu(torch.addmm(b1, x, w1), approximate="tanh"), w2)
+
+    shapes = []
+    for i, (name, R, D, Fd, act) in enumerate(MLP_SHAPES + MLP_EXTRA):
+        g = torch.Generator(device="cuda").manual_seed(100 + i)
+        x = torch.randn(R, D, generator=g, device="cuda").to(torch.bfloat16)
+        w1 = (torch.randn(D, Fd, generator=g, device="cuda") / math.sqrt(D)).to(torch.bfloat16)
+        w2 = (torch.randn(Fd, D, generator=g, device="cuda") / math.sqrt(Fd)).to(torch.bfloat16)
+        b1 = (0.1 * torch.randn(Fd, generator=g, device="cuda")).to(torch.bfloat16)
+        b2 = (0.1 * torch.randn(D, generator=g, device="cuda")).to(torch.bfloat16)
+        got = fused_mlp_cuda(x, w1, b1, w2, b2, act)
+        want = fused_mlp_reference(x, w1, b1, w2, b2, act)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"fused-MLP kernel output not finite at {name}")
+        rel = rel_err(got, want)
+        print(f"kernel fused_mlp {name} R={R} D={D} F={Fd} {act}: max|kernel-plain|/max|plain| "
+              f"{rel:.3e} (tol {REL_TOL})")
+        if rel > REL_TOL:
+            fail(f"fused-MLP kernel disagrees with its plain version at {name}: {rel}")
+        err = float((got.float() - want.float()).abs().max())
+        del got, want
+        if i < len(MLP_SHAPES):
+            ms = cuda_ms(lambda: fused_mlp_cuda(x, w1, b1, w2, b2, act))
+            plain_ms = cuda_ms(lambda: fused_mlp_reference(x, w1, b1, w2, b2, act))
+            library_ms = cuda_ms(lambda: library(x, w1, b1, w2, b2))
+            flops = 4 * R * D * Fd
+            nbytes = (2 * R * D + 2 * D * Fd + Fd + D) * 2
+            bound_ms, bound_by = bound(nbytes, flops)
+            print(f"time fused_mlp {name} R={R}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                  f"TFLOP/s), plain {plain_ms:.4f} ms, library (addmm + gelu + addmm) "
+                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
+            shapes.append({"shape": name, "R": R, "D": D, "F": Fd, "ms": ms, "plain_ms": plain_ms,
+                           "library_ms": library_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "max_abs_err": err})
+        else:
+            shapes[0]["max_abs_err"] = max(shapes[0]["max_abs_err"], err)
+        del x, w1, w2, b1, b2
+    torch.cuda.empty_cache()
+    return kernel_entry("fused_mlp", "clibd_tpu_torch/csrc/fused_mlp.cu",
+                        "clibd_tpu/ops/pallas/mlp.py:49", shapes)
+
+
+def bioclip_config():
+    from clibd_tpu_torch.config import load_config
+
+    gcfg = load_config(experiment=BIOCLIP)
+    mc = gcfg.model_config
+    c = mc.clip
+    if not (mc.backbone == "open_clip" and mc.amp and mc.batch_size == 500 and mc.image.freeze
+            and mc.language.freeze and not mc.dna.freeze and mc.loss.bind_to == "image"
+            and (c.vision_hidden, c.vision_layers, c.text_hidden, c.text_layers, c.embed_dim)
+            == (768, 12, 512, 12, 512) and mc.remat and mc.remat_policy == "attn"):
+        fail(f"{BIOCLIP} is not the bf16 BioCLIP recipe at batch 500 with frozen image and "
+             "text towers and remat 'attn'")
+    return gcfg
+
+
+def cosine_rows(a, b):
+    return (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+
+
+def bioclip_eval_phase(card: str, entries: dict, device, split_rows: dict) -> None:
+    import torch
+
+    from clibd_tpu_torch.data import SyntheticSplit
+    from clibd_tpu_torch.engine.evaluate import format_results, inference_and_eval
+    from clibd_tpu_torch.engine.extract import extract_split, make_encode_step, to_device
+    from clibd_tpu_torch.models import clibd_apply, init_clibd_model
+    from clibd_tpu_torch.models.layers import kernel_knobs
+
+    mc = bioclip_config().model_config
+    t0 = time.perf_counter()
+    model = init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed), device)
+    splits = {name: SyntheticSplit(name, n, mc, seed=20 + i)
+              for i, (name, n) in enumerate(split_rows.items())}
+    print(f"BioCLIP eval set-up: {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params "
+          f"in {time.perf_counter() - t0:.1f} s")
+    b = next(splits["test_seen"].batches())
+    small = to_device({"image": b["image"][:8], "dna": b["dna"][:8],
+                       "language": {k: v[:8] for k, v in b["language"].items()}}, device)
+    with kernel_knobs(True, "pallas"):
+        make_encode_step(mc, model, torch.bfloat16)(small)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        dicts = {"all_keys": extract_split(model, mc, splits["all_keys"], for_key_set=True),
+                 "test_seen": extract_split(model, mc, splits["test_seen"]),
+                 "test_unseen": extract_split(model, mc, splits["test_unseen"])}
+        torch.cuda.synchronize()
+        t_extract = time.perf_counter() - t0
+        counts = read_counts()
+    n_batches = sum(len(s) for s in splits.values())
+    n_rows = sum(split_rows.values())
+    layers = (mc.clip.vision_layers, mc.dna.bert.num_layers, mc.clip.text_layers)
+    expected = {"flash_attention_qkv": 0, "flash_attention_qkv_bwd": 0,
+                "flash_attention_qkv_outproj": (layers[0] + layers[1]) * n_batches,
+                "fused_mlp": sum(layers) * n_batches}
+    print(f"BioCLIP eval launches over {n_batches} batches: {counts} (expected {expected})")
+    if counts != expected:
+        fail(f"BioCLIP eval launched {counts}, expected {expected}")
+    add_launches(entries, "bioclip_eval", counts)
+
+    acc_dict, _, _ = inference_and_eval(dicts["all_keys"], dicts["test_seen"],
+                                        dicts["test_unseen"], k_list=[1, 3, 5], query_chunk=4096,
+                                        with_preds=False, device=device)
+    _, csv_rows, _, _ = format_results(acc_dict, [1, 3, 5], "I,D,T")
+    if len(csv_rows) < 2 or not acc_dict:
+        fail("the BioCLIP kNN grid is empty")
+    for name, d in dicts.items():
+        for m in ("image", "dna", "language"):
+            emb = d[f"encoded_{m}_feature"]
+            if emb.shape != (split_rows[name], mc.output_dim) or not np.isfinite(emb).all():
+                fail(f"BioCLIP {name} {m} embeddings: shape {emb.shape} or not finite")
+            if float(np.abs(np.linalg.norm(emb, axis=1) - 1).max()) > 1e-3:
+                fail(f"BioCLIP {name} {m} embeddings not unit-norm")
+    print(f"BioCLIP kNN grid: {len(csv_rows) - 1} rows; embeddings finite, unit-norm, "
+          f"{mc.output_dim}-d")
+    print(f"BioCLIP extraction, kernels on: {n_rows} samples in {t_extract:.3f} s = "
+          f"{n_rows / t_extract:.2f} samples/s (bf16, batch {mc.batch_size}, {n_batches} "
+          f"batches incl. ragged)  [{card}]")
+
+    def embed(dtype, fused):
+        with torch.inference_mode(), kernel_knobs(fused, "pallas" if fused else "xla"):
+            return clibd_apply(model, mc, small["image"], small["dna"], small["language"],
+                               compute_dtype=dtype)
+
+    on16, on32, off16 = (embed(torch.bfloat16, True), embed(torch.float32, True),
+                         embed(torch.bfloat16, False))
+    for m in ("image", "dna", "language"):
+        c32 = float(cosine_rows(on16[m], on32[m]).min())
+        coff = float(cosine_rows(on16[m], off16[m]).min())
+        print(f"BioCLIP {m}: min cosine bf16 vs fp32 (kernels on) {c32:.6f}, kernels on vs off "
+              f"(bf16) {coff:.6f} (need >= {COSINE_MIN})")
+        if min(c32, coff) < COSINE_MIN:
+            fail(f"BioCLIP {m} embeddings disagree across precisions or kernel settings")
+    del model
+
+
+def bioclip_train_phase(card: str, entries: dict, device) -> None:
+    import torch
+
+    from clibd_tpu_torch.data import SyntheticSplit
+    from clibd_tpu_torch.engine.extract import to_device
+    from clibd_tpu_torch.engine.schedules import build_schedule
+    from clibd_tpu_torch.engine.train import (batch_generator, build_optimizer, make_loss_fn,
+                                              make_train_step)
+    from clibd_tpu_torch.models import init_clibd_model
+    from clibd_tpu_torch.models.layers import kernel_knobs
+    from clibd_tpu_torch.tools.profile_extract import plain_kernels
+
+    mc = bioclip_config().model_config
+    B = mc.batch_size
+    model = init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed), device)
+    trainable = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    frozen_towers = [n for n, p in model.named_parameters()
+                     if n.startswith(("clip_vision.", "clip_text.")) and p.requires_grad]
+    if frozen_towers or not all(n == "logit_scale" or n.startswith("dna_encoder.")
+                                for n, _ in trainable):
+        fail(f"BioCLIP trainable set is not BarcodeBERT + logit_scale: {frozen_towers[:4]}")
+    split = SyntheticSplit("train", BIOCLIP_TRAIN_STEPS * B, mc, seed=30)
+    optimizer = build_optimizer(mc, model, build_schedule(mc.optim, BIOCLIP_TRAIN_STEPS, B))
+    step = make_train_step(mc, model, optimizer)
+    n_l = (mc.clip.vision_layers, mc.dna.bert.num_layers, mc.clip.text_layers)
+    expected = {"flash_attention_qkv": n_l[1], "flash_attention_qkv_bwd": n_l[1],
+                "flash_attention_qkv_outproj": n_l[0] + n_l[1],
+                "fused_mlp": sum(n_l) + n_l[1]}
+    losses, per_step, times = [], [], []
+    with kernel_knobs(True, "pallas"):
+        batches = [to_device({k: v for k, v in bt.items() if k != "index"}, device)
+                   for bt in split.batches()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        for i, batch in enumerate(batches):
+            before = read_counts()
+            t0 = time.perf_counter()
+            losses.append(float(step(batch, batch_generator(device, mc.default_seed, 0, i))))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            per_step.append({k: v - before[k] for k, v in read_counts().items()})
+            if i == 0:
+                bad = [n for n, p in trainable
+                       if p.grad is None or not bool(torch.isfinite(p.grad).all())
+                       or float(p.grad.abs().max()) == 0.0]
+                if bad:
+                    fail(f"after the first BioCLIP step {len(bad)} trainable tensors have no "
+                         f"finite nonzero gradient: {bad[:8]}")
+        total = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"BioCLIP train: {len(trainable)} trainable tensors, all with a finite nonzero "
+          f"gradient after step 1; launches per step {per_step} (expected {expected} each)")
+    if any(c != expected for c in per_step):
+        fail(f"BioCLIP train steps launched {per_step}, expected {expected} each")
+    add_launches(entries, "bioclip_train", total)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"BioCLIP train losses {losses}")
+    rate = B * (len(times) - 1) / sum(times[1:])
+    print(f"BioCLIP train losses: {[round(v, 5) for v in losses]}; {B / times[0]:.2f} samples/s "
+          f"in step 1, {rate:.2f} over steps 2-{len(times)} (CUDA-synchronised); peak device "
+          f"memory {peak_gb:.2f} GiB  [{card}]")
+
+    small = {k: ({kk: vv[:16] for kk, vv in v.items()} if isinstance(v, dict) else v[:16])
+             for k, v in batches[0].items()}
+    loss_fn = make_loss_fn(mc, model)
+    params = [p for _, p in trainable]
+
+    def grads():
+        loss = loss_fn(small, batch_generator(device, 0, 0, 1))
+        return [g.float() for g in torch.autograd.grad(loss, params)]
+
+    optimizer.zero_grad(set_to_none=True)
+    with kernel_knobs(True, "pallas"):
+        with_kernels = grads()
+        with plain_kernels():
+            with_plain = grads()
+    cos = [float((a * b).sum() / (a.norm() * b.norm())) for a, b in zip(with_kernels, with_plain)]
+    worst = min(range(len(cos)), key=cos.__getitem__)
+    print(f"BioCLIP bf16 gradients, kernels vs plain versions on the card (16 samples): min "
+          f"cosine {cos[worst]:.6f} at {trainable[worst][0]} over {len(cos)} tensors "
+          f"(need >= {COSINE_MIN})")
+    if not all(c >= COSINE_MIN for c in cos):
+        fail("BioCLIP gradients through the kernels disagree with the plain versions")
+    del model, optimizer
 
 
 def main() -> int:
@@ -471,8 +868,9 @@ def main() -> int:
     from clibd_tpu_torch.ops.cuda_build import BUILD_INFO, build_libraries
 
     t0 = time.perf_counter()
-    build_libraries(["flash_attention_qkv", "flash_attention_qkv_bwd"])
-    print(f"build: both kernel sources in parallel, {time.perf_counter() - t0:.2f} s wall")
+    build_libraries(["flash_attention_qkv", "flash_attention_qkv_bwd",
+                     "flash_attention_qkv_outproj", "fused_mlp"])
+    print(f"build: all four kernel sources in parallel, {time.perf_counter() - t0:.2f} s wall")
     for name, info in BUILD_INFO.items():
         print(f"build {name}.cu: nvcc {info['seconds']:.2f} s -> {info['path']}")
         for line in info["log"].splitlines():
@@ -482,6 +880,7 @@ def main() -> int:
     fwd = forward_kernel_phase(card)
     bwd = backward_kernel_phase(card)
     from clibd_tpu_torch.config import load_config
+    from clibd_tpu_torch.models.layers import kernel_knobs
 
     gcfg = load_config(experiment=EXPERIMENT,
                        overrides=["model_config.epochs=2", "model_config.eval_skip_epoch=-1"])
@@ -490,13 +889,21 @@ def main() -> int:
             and mc.dna.enable and mc.language.enable and mc.remat and mc.remat_policy == "attn"):
         fail(f"{EXPERIMENT} is not the bf16 tri-modal full fine-tune recipe at batch 500 "
              "with remat 'attn'")
-    eval_slice_phase(card, fwd, mc, torch.device("cuda"), SPLIT_ROWS)
-    train_slice_phase(card, fwd, bwd, gcfg, torch.device("cuda"))
+    with kernel_knobs(False, "xla"):
+        eval_slice_phase(card, fwd, mc, torch.device("cuda"), SPLIT_ROWS)
+        train_slice_phase(card, fwd, bwd, gcfg, torch.device("cuda"))
+    for entry in (fwd, bwd):
+        entry["launches_by_path"] = {"flagship_eval_and_train": entry["launches"]}
+    outproj = outproj_kernel_phase(card)
+    mlp = fused_mlp_kernel_phase(card)
+    entries = {e["name"]: e for e in (fwd, bwd, outproj, mlp)}
+    bioclip_eval_phase(card, entries, torch.device("cuda"), SPLIT_ROWS)
+    bioclip_train_phase(card, entries, torch.device("cuda"))
     if "jax" in sys.modules or any(m == "clibd_tpu" or m.startswith("clibd_tpu.")
                                    for m in sys.modules):
         fail("jax or the JAX package was imported: the port must run without them")
 
-    print(json.dumps({"kernels": [fwd, bwd]}))
+    print(json.dumps({"kernels": [fwd, bwd, outproj, mlp]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -90,80 +90,10 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __rest
   const int m_tiles = (N + 15) / 16;
 
   for (int mt = warp; mt < m_tiles; mt += WARPS) {
+    float o[HD / 8][4];
+    attend_rows_bf16<KT>(o, qg, rs, Ks, Vt, mrow, N, mt * 16, scale, g, t);
     const int r0 = mt * 16 + g;
     const int r1 = r0 + 8;
-
-    // Q fragments (A operand, 16 rows x 64) straight from device memory
-    uint32_t qa[HD / 16][4];
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-      const int c = ks * 16 + t * 2;
-      qa[ks][0] = r0 < N ? ld_u32(qg + r0 * rs + c) : 0u;
-      qa[ks][1] = r1 < N ? ld_u32(qg + r1 * rs + c) : 0u;
-      qa[ks][2] = r0 < N ? ld_u32(qg + r0 * rs + c + 8) : 0u;
-      qa[ks][3] = r1 < N ? ld_u32(qg + r1 * rs + c + 8) : 0u;
-    }
-
-    // S = Q K^T: 2*KT n-tiles of 8 keys, fp32 accumulators
-    float s[2 * KT][4];
-#pragma unroll
-    for (int nt = 0; nt < 2 * KT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kr = Ks + (nt * 8 + g) * KS + t * 2;
-#pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks)
-        mma_bf16_16816(s[nt], qa[ks], ld_u32(kr + ks * 16), ld_u32(kr + ks * 16 + 8));
-    }
-
-    // scale, mask, row max (rows r0 and r1; a row is spread over a quad)
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < 2 * KT; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = nt * 8 + t * 2 + j;
-        const float add = col < N ? (mrow ? mrow[col] : 0.f) : -INFINITY;
-        s[nt][j] = s[nt][j] * scale + add;
-        s[nt][2 + j] = s[nt][2 + j] * scale + add;
-        mx0 = fmaxf(mx0, s[nt][j]);
-        mx1 = fmaxf(mx1, s[nt][2 + j]);
-      }
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < 2 * KT; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[nt][j] = expf(s[nt][j] - mx0);
-        s[nt][2 + j] = expf(s[nt][2 + j] - mx1);
-        l0 += s[nt][j];
-        l1 += s[nt][2 + j];
-      }
-    }
-    l0 = quad_sum(l0);
-    l1 = quad_sum(l1);
-
-    // O = bf16(P) V: the S accumulators of n-tiles 2kt and 2kt+1 are the A
-    // fragment of P for key tile kt
-    float o[HD / 8][4];
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-#pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16x2(s[2 * kt][0] / l0, s[2 * kt][1] / l0);
-      pa[1] = pack_bf16x2(s[2 * kt][2] / l1, s[2 * kt][3] / l1);
-      pa[2] = pack_bf16x2(s[2 * kt + 1][0] / l0, s[2 * kt + 1][1] / l0);
-      pa[3] = pack_bf16x2(s[2 * kt + 1][2] / l1, s[2 * kt + 1][3] / l1);
-#pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt) {
-        const __nv_bfloat16* vr = Vt + (dt * 8 + g) * VS + kt * 16 + t * 2;
-        mma_bf16_16816(o[dt], pa, ld_u32(vr), ld_u32(vr + 8));
-      }
-    }
-
     __nv_bfloat16* orow0 = out + ((long)b * N + r0) * D + h * HD + t * 2;
     __nv_bfloat16* orow1 = orow0 + 8L * D;
 #pragma unroll
@@ -211,39 +141,10 @@ flash_fwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ ma
   float* ps = Ps + warp * N;
 
   for (int r = warp; r < N; r += WARPS) {
-    qs[lane] = qg[r * rs + lane];
-    qs[lane + 32] = qg[r * rs + lane + 32];
-    __syncwarp();
-    float mx = -INFINITY;
-    for (int j = lane; j < N; j += 32) {
-      const float* kr = Ks + j * (HD + 1);
-      float acc = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < HD; ++d) acc = fmaf(qs[d], kr[d], acc);
-      const float sv = acc * scale + (mrow ? mrow[j] : 0.f);
-      ps[j] = sv;
-      mx = fmaxf(mx, sv);
-    }
-    mx = warp_max(mx);
-    float l = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float e = expf(ps[j] - mx);
-      ps[j] = e;
-      l += e;
-    }
-    l = warp_sum(l);
-    for (int j = lane; j < N; j += 32) ps[j] = __bfloat162float(__float2bfloat16_rn(ps[j] / l));
-    __syncwarp();
-    float o0 = 0.f, o1 = 0.f;
-    for (int j = 0; j < N; ++j) {
-      const float p = ps[j];
-      o0 = fmaf(p, Vs[j * HD + lane], o0);
-      o1 = fmaf(p, Vs[j * HD + lane + 32], o1);
-    }
+    const float2 o = attend_row_f32(qg + r * rs, Ks, Vs, qs, ps, mrow, N, scale, lane);
     float* orow = out + ((long)b * N + r) * D + h * HD;
-    orow[lane] = o0;
-    orow[lane + 32] = o1;
-    __syncwarp();
+    orow[lane] = o.x;
+    orow[lane + 32] = o.y;
   }
 }
 

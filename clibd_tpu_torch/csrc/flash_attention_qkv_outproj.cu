@@ -1,0 +1,356 @@
+// Flash attention over the fused qkv projection with the attention
+// out-projection fused in, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel
+// clibd_tpu/ops/pallas/attention.py::_flash_outproj_kernel.  Same arithmetic:
+// per (batch, head) the attention of flash_attention_qkv.cu (S = q.k^T / 8 in
+// fp32 plus the optional [B, N] key mask, the exact fp32 row softmax, P rounded
+// to bf16 after the normalisation, V read as bf16, P.V accumulated in fp32),
+// the context rounded to bf16, then out = ctx . bf16(W_out) accumulated in fp32
+// plus the fp32 bias, cast to qkv's dtype.  The context never reaches device
+// memory: it lives in shared memory between the two phases.
+//
+// What bounds it on an H100: the bytes are qkv read and out written (8*B*N*D
+// bytes in bf16: 606 MB at the ViT shape B=500 N=197 D=768, 0.181 ms at
+// 3.35 TB/s) plus W_out once; the tensor-core work is 4*B*H*N^2*64 FLOPs of
+// attention and 2*B*N*D^2 of projection (60 + 116 GFLOP there, 0.178 ms at
+// 989 TFLOP/s).  The two are within 2% of each other, so neither device memory
+// nor the tensor cores alone would bound a good kernel.  Unfused, the
+// context costs a [B, N, D] write and read (303 MB) on top.
+//
+// Design (a first, simple one).  The TPU kernel keeps a whole batch element's
+// [N, D] bf16 context in VMEM (296 KB at N=197, D=768), more than the 227 KB of
+// shared memory a CTA can have, so the queries are tiled instead:
+//  * one CTA per (batch, 64 query rows), 8 warps; warp w takes rows
+//    16*(w%4) .. +16 of the tile;
+//  * attention, one head pair at a time: K and V^T of heads h and h+1 are
+//    staged in shared memory (as the forward kernel stages one head), warps
+//    0-3 attend over head h and warps 4-7 over head h+1 exactly as the
+//    forward kernel does (the whole 16 x Npad score block in registers), and
+//    each writes its bf16 context into the CTA's [64, D] context tile;
+//  * projection: W_out is streamed through shared memory in [128, 128] bf16
+//    chunks with cp.async, double-buffered in the space the K/V tiles used;
+//    warp w multiplies its 16 context rows by the chunk's column half w/4
+//    with mma.sync (B operand by ldmatrix.trans), accumulating in fp32 over
+//    the D/128 chunks of a column block, then adds the bias and stores;
+//  * fp32 qkv (precision checks, not the bf16 main path) takes a SIMT
+//    attention phase with S exact in fp32, one head at a time, and the same
+//    projection (the context is bf16 in both, as in the TPU kernel).
+// Shared memory: the context tile, 64 x (D+8) bf16 (99 KB at D=768), plus the
+// larger of two heads' K/V^T (115 KB at N=197) and two W chunks (70 KB): 215 KB
+// at the ViT shape, so one CTA per SM.  Left on the table: wgmma and TMA, a
+// tile that fits two CTAs per SM, the K/V restaging of every query tile (4
+// tiles per batch element at N=197), W_out re-read from L2 by every CTA.
+
+#include "flash_common.cuh"
+
+namespace {
+
+using namespace clibd;
+
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int QROWS = 64;  // query rows per CTA: 4 tiles of 16
+constexpr int KC = 128;    // W_out chunk: k rows
+constexpr int NC = 128;    // W_out chunk: output columns (64 per warp)
+constexpr int WS = NC + 8; // W_out chunk row stride in bf16: conflict-free ldmatrix
+
+// bytes of one head's K (row stride HD+8) and V^T (row stride Npad+8), bf16
+__host__ __device__ constexpr size_t kv_bytes(int npad) {
+  return (size_t)(npad * (HD + 8) + HD * (npad + 8)) * 2;
+}
+
+// bytes of the fp32 attention scratch: K [N][HD+1], V [N][HD], per warp q[HD]
+// and p[N]
+__host__ __device__ constexpr size_t f32_attn_bytes(int n) {
+  return (size_t)(n * (HD + 1) + n * HD + WARPS * HD + WARPS * n) * 4;
+}
+
+constexpr size_t W_BYTES = 2 * (size_t)KC * WS * 2;  // two W_out chunks
+
+__host__ __device__ constexpr size_t ctx_bytes(int D) { return (size_t)QROWS * (D + 8) * 2; }
+
+// ---------------------------------------------------------------------------
+// Projection: out[q0 + r, :] = ctx[r, :] . W + bias for the CTA's rows below N.
+// `wbuf` holds two chunks of KC x WS bf16.
+// ---------------------------------------------------------------------------
+template <typename OutT>
+__device__ __forceinline__ void store_pair(OutT* p, float a, float b);
+
+template <>
+__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <>
+__device__ __forceinline__ void store_pair<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void load_w_chunk(__nv_bfloat16* dst, const __nv_bfloat16* w, int kc,
+                                             int nc, int D) {
+  for (int idx = threadIdx.x; idx < KC * (NC / 8); idx += THREADS) {
+    const int r = idx / (NC / 8);
+    const int c = (idx % (NC / 8)) * 8;
+    cp_async16(dst + r * WS + c, w + (long)(kc * KC + r) * D + nc * NC + c);
+  }
+}
+
+template <typename OutT>
+__device__ void project(const __nv_bfloat16* ctx, __nv_bfloat16* wbuf,
+                        const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
+                        OutT* __restrict__ out, long out_row0, int rows, int D) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp % 4;       // 16-row tile
+  const int half = warp / 4;     // 64-column half of each chunk
+  const int CS = D + 8;
+  const int kchunks = D / KC, total = (D / NC) * kchunks;
+  float acc[8][4];
+
+  load_w_chunk(wbuf, w, 0, 0, D);
+  cp_async_commit();
+  for (int i = 0; i < total; ++i) {
+    const int nc = i / kchunks, kc = i % kchunks;
+    cp_async_wait_all();
+    __syncthreads();  // chunk i landed for all; chunk i-1's buffer is free
+    if (i + 1 < total)
+      load_w_chunk(wbuf + ((i + 1) & 1) * KC * WS, w, (i + 1) % kchunks, (i + 1) / kchunks, D);
+    cp_async_commit();
+    if (kc == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    }
+    const __nv_bfloat16* wb = wbuf + (i & 1) * KC * WS;
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks) {
+      uint32_t a[4];
+      ld_a_frag(a, ctx, CS, mt * 16, kc * KC + ks * 16, g, t);
+      mma_kmajor<8>(acc, a, wb, WS, ks * 16, half * 64, lane);
+    }
+    if (kc == kchunks - 1) {
+      const int r0 = mt * 16 + g, r1 = r0 + 8;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = nc * NC + half * 64 + j * 8 + t * 2;
+        const float b0 = bias[col], b1 = bias[col + 1];
+        if (r0 < rows) store_pair(out + (out_row0 + r0) * D + col, acc[j][0] + b0, acc[j][1] + b1);
+        if (r1 < rows) store_pair(out + (out_row0 + r1) * D + col, acc[j][2] + b0, acc[j][3] + b1);
+      }
+    }
+  }
+}
+
+// zero the context rows of 16-row tiles that lie wholly past N, so the
+// projection multiplies no stale shared memory
+__device__ __forceinline__ void zero_dead_tiles(__nv_bfloat16* ctx, int rows, int D) {
+  const int CS = D + 8;
+  for (int idx = threadIdx.x; idx < QROWS * (D / 8); idx += THREADS) {
+    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
+    if ((r / 16) * 16 >= rows) *reinterpret_cast<uint4*>(ctx + r * CS + c) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor-core attention.  KT = number of 16-key tiles (Npad = 16*KT).
+// ---------------------------------------------------------------------------
+template <int KT>
+__global__ void __launch_bounds__(THREADS, 1)
+outproj_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ mask,
+                    const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
+                    __nv_bfloat16* __restrict__ out, int N, int H, float scale) {
+  constexpr int NPAD = KT * 16;
+  constexpr int KS = HD + 8;    // K row stride
+  constexpr int VS = NPAD + 8;  // V^T row stride
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int D = H * HD;
+  const int CS = D + 8;
+  __nv_bfloat16* ctx = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  unsigned char* region = smem_raw + ctx_bytes(D);
+
+  const int qtiles = (N + QROWS - 1) / QROWS;
+  const int b = blockIdx.x / qtiles;
+  const int q0 = (blockIdx.x % qtiles) * QROWS;
+  const int rows = min(QROWS, N - q0);
+  const long rs = 3L * D;
+  const __nv_bfloat16* base = qkv + (long)b * N * rs;
+  const float* mrow = mask ? mask + (long)b * N : nullptr;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp % 4;   // the warp's 16-row tile
+  const int grp = warp / 4;  // which head of the pair
+  const bool live = mt * 16 < rows;
+
+  zero_dead_tiles(ctx, rows, D);
+  for (int h0 = 0; h0 < H; h0 += 2) {
+    __syncthreads();  // the previous pair's K/V are no longer read
+    for (int idx = threadIdx.x; idx < 2 * NPAD * (HD / 8); idx += THREADS) {
+      const int gi = idx / (NPAD * (HD / 8));
+      const int rem = idx % (NPAD * (HD / 8));
+      const int r = rem / (HD / 8), c = (rem % (HD / 8)) * 8;
+      const int h = h0 + gi;
+      __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(region + gi * kv_bytes(NPAD));
+      __nv_bfloat16* Vt = Ks + NPAD * KS;
+      uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
+      if (r < N && h < H) {
+        kv = *reinterpret_cast<const uint4*>(base + r * rs + D + h * HD + c);
+        vv = *reinterpret_cast<const uint4*>(base + r * rs + 2 * D + h * HD + c);
+      }
+      *reinterpret_cast<uint4*>(Ks + r * KS + c) = kv;
+      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) Vt[(c + i) * VS + r] = ve[i];
+    }
+    __syncthreads();
+    const int h = h0 + grp;
+    if (!live || h >= H) continue;
+    const __nv_bfloat16* Ks = reinterpret_cast<const __nv_bfloat16*>(region + grp * kv_bytes(NPAD));
+    const __nv_bfloat16* Vt = Ks + NPAD * KS;
+    float o[HD / 8][4];
+    attend_rows_bf16<KT>(o, base + h * HD, rs, Ks, Vt, mrow, N, q0 + mt * 16, scale, g, t);
+    __nv_bfloat16* c0 = ctx + (mt * 16 + g) * CS + h * HD + t * 2;
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt) {
+      *reinterpret_cast<__nv_bfloat162*>(c0 + dt * 8) = __floats2bfloat162_rn(o[dt][0], o[dt][1]);
+      *reinterpret_cast<__nv_bfloat162*>(c0 + 8 * CS + dt * 8) =
+          __floats2bfloat162_rn(o[dt][2], o[dt][3]);
+    }
+  }
+  __syncthreads();  // the context tile is complete; the K/V region is free
+  project(ctx, reinterpret_cast<__nv_bfloat16*>(region), w, bias, out, (long)b * N + q0, rows, D);
+}
+
+// ---------------------------------------------------------------------------
+// fp32: SIMT attention with S exact in fp32 (one warp per query row, as
+// flash_attention_qkv.cu's fp32 kernel), then the same bf16 projection.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(THREADS, 1)
+outproj_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
+                   const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
+                   float* __restrict__ out, int N, int H, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int D = H * HD;
+  const int CS = D + 8;
+  __nv_bfloat16* ctx = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  unsigned char* region = smem_raw + ctx_bytes(D);
+  float* Ks = reinterpret_cast<float*>(region);  // [N][HD + 1]
+  float* Vs = Ks + N * (HD + 1);                 // [N][HD], rounded to bf16
+  float* Qs = Vs + N * HD;                       // [WARPS][HD]
+  float* Ps = Qs + WARPS * HD;                   // [WARPS][N]
+
+  const int qtiles = (N + QROWS - 1) / QROWS;
+  const int b = blockIdx.x / qtiles;
+  const int q0 = (blockIdx.x % qtiles) * QROWS;
+  const int rows = min(QROWS, N - q0);
+  const long rs = 3L * D;
+  const float* base = qkv + (long)b * N * rs;
+  const float* mrow = mask ? mask + (long)b * N : nullptr;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float* qs = Qs + warp * HD;
+  float* ps = Ps + warp * N;
+
+  zero_dead_tiles(ctx, rows, D);
+  // rows past N inside a live tile: zero context (never stored)
+  for (int idx = threadIdx.x; idx < QROWS * D; idx += THREADS) {
+    const int r = idx / D;
+    if (r >= rows && (r / 16) * 16 < rows) ctx[r * CS + idx % D] = __float2bfloat16_rn(0.f);
+  }
+  for (int h = 0; h < H; ++h) {
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < N * HD; idx += THREADS) {
+      const int r = idx / HD, c = idx % HD;
+      Ks[r * (HD + 1) + c] = base[r * rs + D + h * HD + c];
+      Vs[r * HD + c] = bf16_round(base[r * rs + 2 * D + h * HD + c]);
+    }
+    __syncthreads();
+    for (int r = warp; r < rows; r += WARPS) {
+      const float2 o = attend_row_f32(base + (long)(q0 + r) * rs + h * HD, Ks, Vs, qs, ps, mrow,
+                                      N, scale, lane);
+      ctx[r * CS + h * HD + lane] = __float2bfloat16_rn(o.x);
+      ctx[r * CS + h * HD + lane + 32] = __float2bfloat16_rn(o.y);
+    }
+  }
+  __syncthreads();
+  project(ctx, reinterpret_cast<__nv_bfloat16*>(region), w, bias, out, (long)b * N + q0, rows, D);
+}
+
+// the key-tile count of the bf16 kernel instance that takes N keys
+int kt_for(int N) {
+  const int kt = (N + 15) / 16;
+  return kt <= 2 ? 2 : kt <= 4 ? 4 : kt <= 9 ? 9 : kt <= 13 ? 13 : 16;
+}
+
+// shared memory of a launch, or 0 where the shapes are not taken
+size_t smem_bytes(int N, int H, int dtype) {
+  const int D = H * HD;
+  if (N < 1 || N > MAX_N || H < 2 || D % KC) return 0;
+  const size_t attn = dtype == 1 ? 2 * kv_bytes(kt_for(N) * 16) : f32_attn_bytes(N);
+  return ctx_bytes(D) + (attn > W_BYTES ? attn : W_BYTES);
+}
+
+template <int KT>
+cudaError_t launch_bf16(const void* qkv, const float* mask, const void* w, const float* bias,
+                        void* out, int B, int N, int H, size_t smem, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(outproj_bf16_kernel<KT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const long grid = (long)B * ((N + QROWS - 1) / QROWS);
+  outproj_bf16_kernel<KT><<<grid, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), mask, static_cast<const __nv_bfloat16*>(w), bias,
+      static_cast<__nv_bfloat16*>(out), N, H, 1.0f / sqrtf((float)HD));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory a launch at (N, H, dtype) needs, 0 where the kernel does not
+// take the shapes (N above MAX_N, or D = 64*H not a multiple of 128).
+long clibd_flash_outproj_smem_bytes(int N, int H, int dtype) {
+  return (long)smem_bytes(N, H, dtype);
+}
+
+// qkv [B, N, 3*H*64] contiguous, bf16 (dtype 1) or fp32 (dtype 0); mask [B, N]
+// fp32 or null; w [H*64, H*64] bf16 ([in, out]); bias [H*64] fp32; out
+// [B, N, H*64] of qkv's dtype.  Launches on `stream` and returns
+// cudaGetLastError() (0 = launched).
+int clibd_flash_attention_qkv_outproj(const void* qkv, const float* mask, const void* w,
+                                      const float* bias, void* out, int B, int N, int H,
+                                      int dtype, void* stream) {
+  const size_t smem = smem_bytes(N, H, dtype);
+  int max_smem = 0, dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (B < 1 || smem == 0 || smem > (size_t)max_smem || (long)B * N > 0x7fffffffL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    cudaError_t e = cudaFuncSetAttribute(outproj_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    const long grid = (long)B * ((N + QROWS - 1) / QROWS);
+    outproj_f32_kernel<<<grid, THREADS, smem, s>>>(
+        static_cast<const float*>(qkv), mask, static_cast<const __nv_bfloat16*>(w), bias,
+        static_cast<float*>(out), N, H, 1.0f / sqrtf((float)HD));
+    return (int)cudaGetLastError();
+  }
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  switch (kt_for(N)) {
+    case 2: return (int)launch_bf16<2>(qkv, mask, w, bias, out, B, N, H, smem, s);
+    case 4: return (int)launch_bf16<4>(qkv, mask, w, bias, out, B, N, H, smem, s);
+    case 9: return (int)launch_bf16<9>(qkv, mask, w, bias, out, B, N, H, smem, s);
+    case 13: return (int)launch_bf16<13>(qkv, mask, w, bias, out, B, N, H, smem, s);
+    default: return (int)launch_bf16<16>(qkv, mask, w, bias, out, B, N, H, smem, s);
+  }
+}
+
+const char* clibd_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

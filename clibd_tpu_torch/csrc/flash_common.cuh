@@ -1,8 +1,7 @@
-// Device helpers shared by the flash-attention kernels (forward and
-// backward) for Hopper, sm_90a: the bf16 tensor-core product, fragment
-// packing and loads, and warp/quad reductions.  Included by
-// flash_attention_qkv.cu and flash_attention_qkv_bwd.cu; ops/cuda_build.py
-// hashes it with each source.
+// Device helpers shared by the port's kernels for Hopper, sm_90a: the bf16
+// tensor-core product, fragment packing and loads, asynchronous copies to
+// shared memory, and warp/quad reductions.  Included by every csrc/*.cu;
+// ops/cuda_build.py hashes it with each source.
 
 #pragma once
 
@@ -50,6 +49,46 @@ __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// A fragment (rows row0 + g and row0 + g + 8, columns col0 + 2t, +1, +8, +9)
+// of a row-major bf16 tile in shared memory with row stride `rs`
+__device__ __forceinline__ void ld_a_frag(uint32_t (&a)[4], const __nv_bfloat16* tile, int rs,
+                                          int row0, int col0, int g, int t) {
+  const __nv_bfloat16* p0 = tile + (row0 + g) * rs + col0 + t * 2;
+  const __nv_bfloat16* p1 = p0 + 8 * rs;
+  a[0] = ld_u32(p0);
+  a[1] = ld_u32(p1);
+  a[2] = ld_u32(p0 + 8);
+  a[3] = ld_u32(p1 + 8);
+}
+
+// acc[j] (16 x 8, j < NT) += A (16 x 16) . B[k0 .. k0+15, col0 + 8j ..] for a
+// k-major (one row per k) bf16 tile B in shared memory with row stride `rs`,
+// B read with ldmatrix.trans two n-tiles at a time
+template <int NT>
+__device__ __forceinline__ void mma_kmajor(float (&acc)[NT][4], const uint32_t (&a)[4],
+                                           const __nv_bfloat16* tile, int rs, int k0, int col0,
+                                           int lane) {
+  const __nv_bfloat16* p = tile + (k0 + (lane & 15)) * rs + col0 + (lane >> 4) * 8;
+#pragma unroll
+  for (int j = 0; j < NT; j += 2) {
+    uint32_t bfr[4];
+    ldmatrix_x4_trans(bfr, p + j * 8);
+    mma_bf16_16816(acc[j], a, bfr[0], bfr[1]);
+    mma_bf16_16816(acc[j + 1], a, bfr[2], bfr[3]);
+  }
+}
+
+// 16 bytes global -> shared without passing through registers (cp.async);
+// completion by cp_async_commit + cp_async_wait_all, then a barrier
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
@@ -72,6 +111,129 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// One warp's attention over one head for the 16 query rows row0 + g and
+// row0 + g + 8 (g = lane/4, t = lane%4), the TPU kernel's arithmetic:
+// S = q.k^T (bf16 in, fp32 accumulate) * scale + the key mask, keys N ..
+// 16*KT-1 at -inf, the exact fp32 row softmax, P rounded to bf16 after the
+// normalisation, o = P.V accumulated in fp32 (o[dt] holds output columns
+// dt*8 + 2t, +1 of both rows).  q comes straight from device memory (`qg`:
+// the head's q columns of row 0, row stride `rs`; rows past N read as 0); K
+// (row stride HD+8) and V^T (row stride 16*KT+8) are staged in shared
+// memory, zero past N.  The whole 16 x 16*KT score block stays in
+// registers, and the score accumulators of key tile kt are the A fragment
+// of P for the P.V product.
+template <int KT>
+__device__ __forceinline__ void attend_rows_bf16(float (&o)[HD / 8][4], const __nv_bfloat16* qg,
+                                                 long rs, const __nv_bfloat16* Ks,
+                                                 const __nv_bfloat16* Vt, const float* mrow, int N,
+                                                 int row0, float scale, int g, int t) {
+  constexpr int KS = HD + 8;
+  constexpr int VS = KT * 16 + 8;
+  const int r0 = row0 + g, r1 = r0 + 8;
+  uint32_t qa[HD / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    const int c = ks * 16 + t * 2;
+    qa[ks][0] = r0 < N ? ld_u32(qg + r0 * rs + c) : 0u;
+    qa[ks][1] = r1 < N ? ld_u32(qg + r1 * rs + c) : 0u;
+    qa[ks][2] = r0 < N ? ld_u32(qg + r0 * rs + c + 8) : 0u;
+    qa[ks][3] = r1 < N ? ld_u32(qg + r1 * rs + c + 8) : 0u;
+  }
+  float s[2 * KT][4];
+#pragma unroll
+  for (int nt = 0; nt < 2 * KT; ++nt) {
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    const __nv_bfloat16* kr = Ks + (nt * 8 + g) * KS + t * 2;
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks)
+      mma_bf16_16816(s[nt], qa[ks], ld_u32(kr + ks * 16), ld_u32(kr + ks * 16 + 8));
+  }
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < 2 * KT; ++nt) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = nt * 8 + t * 2 + j;
+      const float add = col < N ? (mrow ? mrow[col] : 0.f) : -INFINITY;
+      s[nt][j] = s[nt][j] * scale + add;
+      s[nt][2 + j] = s[nt][2 + j] * scale + add;
+      mx0 = fmaxf(mx0, s[nt][j]);
+      mx1 = fmaxf(mx1, s[nt][2 + j]);
+    }
+  }
+  mx0 = quad_max(mx0);
+  mx1 = quad_max(mx1);
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 2 * KT; ++nt) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      s[nt][j] = expf(s[nt][j] - mx0);
+      s[nt][2 + j] = expf(s[nt][2 + j] - mx1);
+      l0 += s[nt][j];
+      l1 += s[nt][2 + j];
+    }
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+    uint32_t pa[4];
+    pa[0] = pack_bf16x2(s[2 * kt][0] / l0, s[2 * kt][1] / l0);
+    pa[1] = pack_bf16x2(s[2 * kt][2] / l1, s[2 * kt][3] / l1);
+    pa[2] = pack_bf16x2(s[2 * kt + 1][0] / l0, s[2 * kt + 1][1] / l0);
+    pa[3] = pack_bf16x2(s[2 * kt + 1][2] / l1, s[2 * kt + 1][3] / l1);
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt) {
+      const __nv_bfloat16* vr = Vt + (dt * 8 + g) * VS + kt * 16 + t * 2;
+      mma_bf16_16816(o[dt], pa, ld_u32(vr), ld_u32(vr + 8));
+    }
+  }
+}
+
+// One warp's attention over one head for one query row, S exact in fp32:
+// `qr` the row's q (HD floats in device memory), K [N][HD+1] and V [N][HD]
+// (V rounded to bf16) in shared memory, `qs` [HD] and `ps` [N] the warp's
+// scratch in shared memory; the fp32 softmax, P rounded to bf16, P.V in
+// fp32.  Returns output columns lane and lane + 32.
+__device__ __forceinline__ float2 attend_row_f32(const float* qr, const float* Ks, const float* Vs,
+                                                 float* qs, float* ps, const float* mrow, int N,
+                                                 float scale, int lane) {
+  qs[lane] = qr[lane];
+  qs[lane + 32] = qr[lane + 32];
+  __syncwarp();
+  float mx = -INFINITY;
+  for (int j = lane; j < N; j += 32) {
+    const float* kr = Ks + j * (HD + 1);
+    float acc = 0.f;
+#pragma unroll 16
+    for (int d = 0; d < HD; ++d) acc = fmaf(qs[d], kr[d], acc);
+    const float sv = acc * scale + (mrow ? mrow[j] : 0.f);
+    ps[j] = sv;
+    mx = fmaxf(mx, sv);
+  }
+  mx = warp_max(mx);
+  float l = 0.f;
+  for (int j = lane; j < N; j += 32) {
+    const float e = expf(ps[j] - mx);
+    ps[j] = e;
+    l += e;
+  }
+  l = warp_sum(l);
+  for (int j = lane; j < N; j += 32) ps[j] = bf16_round(ps[j] / l);
+  __syncwarp();
+  float o0 = 0.f, o1 = 0.f;
+  for (int j = 0; j < N; ++j) {
+    const float p = ps[j];
+    o0 = fmaf(p, Vs[j * HD + lane], o0);
+    o1 = fmaf(p, Vs[j * HD + lane + 32], o1);
+  }
+  __syncwarp();
+  return make_float2(o0, o1);
 }
 
 }  // namespace clibd

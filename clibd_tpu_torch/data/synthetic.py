@@ -6,10 +6,14 @@ and `engine.train.Trainer` consume from `BioscanLoader`:
 `batches(epoch, shuffle, start_batch)`, `len()` (batches per epoch),
 `label_dicts()`, `ids()`, `close()` and `spec.batch_size` (the config's batch
 size).  Its batches have the shapes and dtypes the model's config asks for:
-uint8 images `[B, S, S, 3]`, DNA as k-mer ids from random barcodes of 400 to
-659 bp through the real tokenizer, text ids with ragged attention masks, and
-the training label, the row index (as `BioscanLoader` labels by default,
-instance discrimination).  Every epoch yields the same batches in the same
+uint8 images `[B, S, S, 3]` (S the ViT's size, or the CLIP tower's for
+`backbone: open_clip`), DNA as k-mer ids from random barcodes of 400 to 659
+bp through the real tokenizer, text as BERT ids with ragged attention masks
+(or, for `backbone: open_clip`, CLIP-style ids `[B, context_length]`: SOT,
+ids below SOT, EOT = the row's largest id, zero padding, as the BPE
+tokenizer lays them out, so no BPE file is needed), and the training label,
+the row index (as `BioscanLoader` labels by default, instance
+discrimination).  Every epoch yields the same batches in the same
 order.  The last batch is ragged when `n` is not a multiple of the batch
 size.
 """
@@ -29,27 +33,35 @@ class SyntheticSplit:
         batch_size = mc.batch_size
         self.spec = SimpleNamespace(batch_size=batch_size)
         self.name = name
-        size = mc.image.vit.image_size
+        clip = mc.backbone == "open_clip"
+        size = mc.clip.image_size if clip else mc.image.vit.image_size
         bases = np.frombuffer(b"ACGT", np.uint8)
         barcodes = [bases[rng.integers(0, 4, int(rng.integers(400, 660)))].tobytes()
                     for _ in range(n)]
         dna = np.asarray(tokenize_dna_batch(barcodes, k=mc.dna.kmer, max_bp=mc.dna.max_bp),
                          np.int32)
-        text_len = mc.language.max_len
+        text_len = mc.clip.context_length if clip else mc.language.max_len
         lengths = rng.integers(3, text_len + 1, n)
-        vocab = mc.language.bert.vocab_size
+        vocab = mc.clip.vocab_size if clip else mc.language.bert.vocab_size
         self._batches = []
         for lo in range(0, n, batch_size):
             hi = min(lo + batch_size, n)
             att = (np.arange(text_len)[None, :] < lengths[lo:hi, None]).astype(np.int32)
-            ids = rng.integers(1, vocab, (hi - lo, text_len)).astype(np.int32) * att
+            if clip:  # SOT = vocab - 2, EOT = vocab - 1, as in CLIP's BPE vocabulary
+                ids = rng.integers(1, vocab - 2, (hi - lo, text_len)).astype(np.int32) * att
+                ids[:, 0] = vocab - 2
+                ids[np.arange(hi - lo), lengths[lo:hi] - 1] = vocab - 1
+                language = {"input_ids": ids}
+            else:
+                ids = rng.integers(1, vocab, (hi - lo, text_len)).astype(np.int32) * att
+                language = {"input_ids": ids, "token_type_ids": np.zeros_like(ids),
+                            "attention_mask": att}
             self._batches.append({
                 "index": np.arange(lo, hi),
                 "label": np.arange(lo, hi, dtype=np.int64),
                 "image": rng.integers(0, 256, (hi - lo, size, size, 3), dtype=np.uint8),
                 "dna": dna[lo:hi],
-                "language": {"input_ids": ids, "token_type_ids": np.zeros_like(ids),
-                             "attention_mask": att},
+                "language": language,
             })
         species = rng.integers(0, 40, n)
         self._labels = [{"order": f"order_{s % 3}", "family": f"family_{s % 7}",

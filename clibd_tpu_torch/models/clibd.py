@@ -1,15 +1,17 @@
 """CLIBD tri-encoder model: the port of `clibd_tpu/models/clibd.py`.
 
 `CLIBD` holds the encoders an `ExperimentConfig` enables -- ViT-B/16 for
-images, BarcodeBERT for DNA, BERT-small plus a projection for text -- under
-the same names as the JAX param pytree, so `convert.params_from_jax` maps one
-onto the other.  `clibd_apply` returns L2-normalised per-modality embeddings
-and exp(logit_scale), with the blocks rematerialised as `remat` asks.
-`set_trainable` is the JAX package's `trainable_mask` (`clibd.py:231-275`)
-as `requires_grad` flags.
+images, BarcodeBERT for DNA, BERT-small plus a projection for text; or, with
+`backbone: open_clip`, the CLIP vision and text towers (`clip.py`) beside
+BarcodeBERT -- under the same names as the JAX param pytree, so
+`convert.params_from_jax` maps one onto the other.  `clibd_apply` returns
+L2-normalised per-modality embeddings and exp(logit_scale), with the BERT
+and ViT blocks rematerialised as `remat` asks (the CLIP towers take no remat,
+as in the reference).  `set_trainable` is the JAX package's `trainable_mask`
+(`clibd.py:231-275`) as `requires_grad` flags.
 
-Not ported yet: the OpenCLIP backbone (`backbone: open_clip`, `clip.py`), the
-MLP encoders for feature inputs (`mlp.py`) and SimCLR backbone loading.
+Not ported yet: the MLP encoders for feature inputs (`mlp.py`) and SimCLR
+backbone loading.
 """
 
 from __future__ import annotations
@@ -21,11 +23,11 @@ from torch import nn
 
 from ..config import ExperimentConfig
 from .bert import Bert
+from .clip import CLIPText, CLIPTextConfig, CLIPVision, CLIPVisionConfig, clip_normalize
 from .layers import Linear
 from .vit import ViT
 
-_LATER = ("not ported to clibd_tpu_torch yet (ROADMAP.md Queue 1: the CLIP backbone "
-          "and MLP encoders)")
+_LATER = "not ported to clibd_tpu_torch yet (ROADMAP.md Queue 1: the MLP encoders)"
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -42,16 +44,30 @@ def dequantize_image(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return x
 
 
+def clip_configs(cfg: ExperimentConfig):
+    """cfg.clip → (CLIPVisionConfig, CLIPTextConfig) (`clibd.py:41-55`)."""
+    c = cfg.clip
+    vcfg = CLIPVisionConfig(
+        image_size=c.image_size, patch_size=c.patch_size, hidden_size=c.vision_hidden,
+        num_layers=c.vision_layers, num_heads=c.vision_heads, mlp_dim=c.vision_mlp,
+        embed_dim=c.embed_dim, activation=c.activation)
+    tcfg = CLIPTextConfig(
+        vocab_size=c.vocab_size, context_length=c.context_length, hidden_size=c.text_hidden,
+        num_layers=c.text_layers, num_heads=c.text_heads, mlp_dim=c.text_mlp,
+        embed_dim=c.embed_dim, activation=c.activation)
+    return vcfg, tcfg
+
+
 def _check_supported(cfg: ExperimentConfig) -> None:
+    if cfg.dna.enable and cfg.dna.input_type != "sequence":
+        raise NotImplementedError(f"dna input_type {cfg.dna.input_type!r} (MLP encoder) is {_LATER}")
     if cfg.backbone == "open_clip":
-        raise NotImplementedError(f"backbone 'open_clip' is {_LATER}")
+        return  # the CLIP towers take the image and the text
     if cfg.image.enable and cfg.image.input_type != "image":
         raise NotImplementedError(f"image input_type {cfg.image.input_type!r} (MLP encoder) is {_LATER}")
     if cfg.image.enable and cfg.image.simclr_ckpt_path:
         raise NotImplementedError("image.simclr_ckpt_path: SimCLR backbone loading is not "
                                   "ported to clibd_tpu_torch yet")
-    if cfg.dna.enable and cfg.dna.input_type != "sequence":
-        raise NotImplementedError(f"dna input_type {cfg.dna.input_type!r} (MLP encoder) is {_LATER}")
 
 
 class CLIBD(nn.Module):
@@ -60,18 +76,26 @@ class CLIBD(nn.Module):
         _check_supported(cfg)
         lora_rank = 0 if cfg.disable_lora else cfg.lora_rank
         self.logit_scale = nn.Parameter(torch.tensor(cfg.init_logit_scale, dtype=torch.float32))
-        self.image_encoder = (ViT(cfg.image.vit, output_dim=cfg.output_dim, lora_rank=lora_rank)
-                              if cfg.image.enable else None)
-        self.dna_encoder = (Bert(cfg.dna.bert, lora_rank=lora_rank, head_dim=cfg.output_dim)
-                            if cfg.dna.enable else None)
-        self.language_encoder = self.language_proj = None
-        if cfg.language.enable:
+        self.image_encoder = self.clip_vision = self.dna_encoder = None
+        self.language_encoder = self.language_proj = self.clip_text = None
+        clip = cfg.backbone == "open_clip"
+        vcfg, tcfg = clip_configs(cfg)
+        if cfg.image.enable and clip:
+            self.clip_vision = CLIPVision(vcfg, lora_rank=lora_rank)
+        elif cfg.image.enable:
+            self.image_encoder = ViT(cfg.image.vit, output_dim=cfg.output_dim, lora_rank=lora_rank)
+        if cfg.dna.enable:
+            self.dna_encoder = Bert(cfg.dna.bert, lora_rank=lora_rank, head_dim=cfg.output_dim)
+        if cfg.language.enable and clip:
+            self.clip_text = CLIPText(tcfg, lora_rank=lora_rank)
+        elif cfg.language.enable:
             self.language_encoder = Bert(cfg.language.bert, lora_rank=lora_rank)
             self.language_proj = Linear(cfg.language.bert.hidden_size, cfg.output_dim)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Re-draw every encoder; logit_scale keeps its log(1/0.07) init."""
-        for m in (self.image_encoder, self.dna_encoder, self.language_encoder, self.language_proj):
+        for m in (self.image_encoder, self.clip_vision, self.dna_encoder, self.language_encoder,
+                  self.language_proj, self.clip_text):
             if m is not None:
                 m.reset_parameters(generator)
 
@@ -83,12 +107,14 @@ def set_trainable(model: CLIBD, cfg: ExperimentConfig) -> CLIBD:
     text projection) and logit_scale train; with `disable_lora`, everything
     trains.  logit_scale is frozen under `fix_temperature`, and a
     modality's `freeze` flag freezes that whole encoder (the text one with
-    its projection)."""
+    its projection; the CLIP towers follow the image and language flags)."""
     lora_heads = ("image_encoder.head.", "dna_encoder.mlm_head.decoder.", "language_proj.")
     frozen = [enc for enc, flag in (("image_encoder.", cfg.image.freeze),
+                                    ("clip_vision.", cfg.image.freeze),
                                     ("dna_encoder.", cfg.dna.freeze),
                                     ("language_encoder.", cfg.language.freeze),
-                                    ("language_proj.", cfg.language.freeze)) if flag]
+                                    ("language_proj.", cfg.language.freeze),
+                                    ("clip_text.", cfg.language.freeze)) if flag]
     for name, p in model.named_parameters():
         if name == "logit_scale":
             train = not cfg.loss.fix_temperature
@@ -111,8 +137,13 @@ def init_clibd_model(cfg: ExperimentConfig, generator: torch.Generator,
 
 def encode_image(model: CLIBD, cfg: ExperimentConfig, image_input, compute_dtype=torch.bfloat16,
                  remat=False):
-    return model.image_encoder(dequantize_image(image_input), compute_dtype=compute_dtype,
-                               fast_math=cfg.fast_math, remat=remat)
+    """Image features before normalisation: the CLIP vision tower on
+    CLIP-normalised images (no remat), or the ViT."""
+    images = dequantize_image(image_input)
+    if model.clip_vision is not None:
+        return model.clip_vision(clip_normalize(images), compute_dtype)
+    return model.image_encoder(images, compute_dtype=compute_dtype, fast_math=cfg.fast_math,
+                               remat=remat)
 
 
 def encode_dna(model: CLIBD, cfg: ExperimentConfig, dna_tokens, compute_dtype=torch.bfloat16,
@@ -132,8 +163,13 @@ def encode_dna(model: CLIBD, cfg: ExperimentConfig, dna_tokens, compute_dtype=to
     return logits.mean(dim=1)
 
 
-def encode_language(model: CLIBD, cfg: ExperimentConfig, language_input: dict,
+def encode_language(model: CLIBD, cfg: ExperimentConfig, language_input,
                     compute_dtype=torch.bfloat16, remat=False):
+    """Text features before normalisation: the CLIP text tower on the ids
+    (no remat), or BERT-small with its projection."""
+    if model.clip_text is not None:
+        ids = language_input["input_ids"] if isinstance(language_input, dict) else language_input
+        return model.clip_text(ids, compute_dtype)
     hidden = model.language_encoder(
         language_input["input_ids"], token_type_ids=language_input.get("token_type_ids"),
         attention_mask=language_input.get("attention_mask"), compute_dtype=compute_dtype,
@@ -151,11 +187,11 @@ def clibd_apply(model: CLIBD, cfg: ExperimentConfig, image_input=None, dna_input
     fp32 (None where absent), and logit_scale exp()'d.  remat: as
     `layers.transformer_stack`."""
     out: Dict[str, Any] = {"image": None, "dna": None, "language": None}
-    if image_input is not None and model.image_encoder is not None:
+    if image_input is not None and (model.image_encoder or model.clip_vision) is not None:
         out["image"] = l2_normalize(encode_image(model, cfg, image_input, compute_dtype, remat))
     if dna_input is not None and model.dna_encoder is not None:
         out["dna"] = l2_normalize(encode_dna(model, cfg, dna_input, compute_dtype, remat))
-    if language_input is not None and model.language_encoder is not None:
+    if language_input is not None and (model.language_encoder or model.clip_text) is not None:
         out["language"] = l2_normalize(encode_language(model, cfg, language_input, compute_dtype,
                                                        remat))
     out["logit_scale"] = torch.exp(model.logit_scale)

@@ -5,8 +5,11 @@ bridge from the JAX param pytree to the port's modules.
 The port's modules use the pytree's own names and layouts -- weights [in, out],
 per-layer blocks stacked [L, ...], one fused qkv [D, 3D], the patch-embed
 weight in (h, w, c) patch order -- so the bridge is a renaming of paths
-("a/b/c" → "a.b.c") with no transposes.  The importers of torch state dicts
-(timm, HF, released `best.pth`, `convert.py:94-300`) are not ported yet.
+("a/b/c" → "a.b.c") with no transposes; the same holds for the CLIP towers
+of `backbone: open_clip` (`clip_vision/...`, `clip_text/...`).  The
+importers of torch state dicts (timm, HF, released `best.pth`,
+`convert.py:94-300`) are not ported yet; `models.clip.clip_params_from_state_dict`
+turns an open_clip state dict into the pytree this bridge takes.
 """
 
 from __future__ import annotations

@@ -26,10 +26,21 @@ backward, and a policy spec ("attn", "qkv", "mlp", "+"-joins, "dots") is
 selective activation checkpointing that saves the named intermediates, which
 the forward tags with `checkpoint_name` as the JAX code tags them.
 
-Deliberately absent (TPU-only or later): `ATTENTION_IMPL` / `flash_context`
-(the port has one policy), `SCAN_UNROLL`, `vmem_safe_block_b` and the
-attention `block_b`, and the opt-in fused out-projection and fused-MLP
-kernels (not ported yet).
+Two opt-in kernels, read from the same environment variables as the
+reference (`layers.py:49,61`) into module attributes that a test or a
+measurement may set (`kernel_knobs`):
+* `ATTN_FUSE_OUTPROJ` (`CLIBD_ATTN_FUSE_OUTPROJ=1`): the key-only-mask branch
+  runs `ops.attention.flash_attention_qkv_outproj`, attention and
+  out-projection in one kernel, its output tagged "attn_ctx";
+* `MLP_IMPL` (`CLIBD_MLP_IMPL=pallas`): the MLP runs `ops.mlp.fused_mlp`,
+  fc1, activation and fc2 in one kernel, its [B, N, D] output tagged
+  "mlp_mid" (the intermediate never exists); the activation is gelu_tanh
+  under fast math, else exact gelu, or quick_gelu (`layers.py:347-364`).
+
+Deliberately absent (TPU-only): `ATTENTION_IMPL` / `flash_context` (the port
+has one policy), `SCAN_UNROLL`, `vmem_safe_block_b` and the attention
+`block_b`, and the TPU tiling knobs `CLIBD_ATTN_BLOCK_B`,
+`CLIBD_MLP_ROWS_BLOCK` and `CLIBD_MLP_F_BLOCK`.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import os
 import threading
 from typing import Dict, Optional
 
@@ -46,7 +58,25 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..ops.attention import flash_attention_qkv
+from ..ops.attention import flash_attention_qkv, flash_attention_qkv_outproj
+from ..ops.mlp import fused_mlp
+
+ATTN_FUSE_OUTPROJ = os.environ.get("CLIBD_ATTN_FUSE_OUTPROJ", "0") == "1"
+MLP_IMPL = os.environ.get("CLIBD_MLP_IMPL", "xla")
+
+
+@contextlib.contextmanager
+def kernel_knobs(fuse_outproj: bool, mlp_impl: str):
+    """Set `ATTN_FUSE_OUTPROJ` and `MLP_IMPL` for the code run inside, as
+    the environment variables would at import."""
+    global ATTN_FUSE_OUTPROJ, MLP_IMPL
+    saved = ATTN_FUSE_OUTPROJ, MLP_IMPL
+    ATTN_FUSE_OUTPROJ, MLP_IMPL = fuse_outproj, mlp_impl
+    try:
+        yield
+    finally:
+        ATTN_FUSE_OUTPROJ, MLP_IMPL = saved
+
 
 BLOCK_KEYS = ("qkv_w", "qkv_b", "out_w", "out_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b",
               "ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")
@@ -155,6 +185,10 @@ def fused_qkv_attention(
             qkv = qkv + torch.cat([dq, dk if dk is not None else torch.zeros_like(dq), dv], dim=-1)
         mask_row = None if mask_bias is None else mask_bias[:, 0, 0, :]
         qkv = qkv.contiguous()
+        if ATTN_FUSE_OUTPROJ:
+            w, b = out_w.to(compute_dtype), out_b.to(compute_dtype)
+            with checkpoint_name("attn_ctx"):
+                return flash_attention_qkv_outproj(qkv, w, b, num_heads, mask_row=mask_row)
         with checkpoint_name("attn_ctx"):
             ctx = flash_attention_qkv(qkv, num_heads, mask_row=mask_row)
         return torch.matmul(ctx, out_w.to(compute_dtype)) + out_b.to(compute_dtype)
@@ -278,6 +312,7 @@ def transformer_stack(stacked: Dict[str, torch.Tensor], x: torch.Tensor, num_hea
     never change the math, only what is stored."""
     fast = fast_math and compute_dtype != torch.float32
     act = (lambda t: gelu(t, fast=fast)) if activation == "gelu" else _ACTIVATIONS[activation]
+    kernel_act = ("gelu_tanh" if fast else "gelu") if activation == "gelu" else activation
 
     def block(h, p, lo):
         def attn(inp):
@@ -286,6 +321,11 @@ def transformer_stack(stacked: Dict[str, torch.Tensor], x: torch.Tensor, num_hea
                                        compute_dtype=compute_dtype)
 
         def mlp(inp):
+            if MLP_IMPL == "pallas":
+                args = [t.to(compute_dtype) for t in (inp, p["fc1_w"], p["fc1_b"], p["fc2_w"],
+                                                      p["fc2_b"])]
+                with checkpoint_name("mlp_mid"):
+                    return fused_mlp(*args, activation=kernel_act)
             pre = linear(inp, p["fc1_w"], p["fc1_b"], compute_dtype)
             with checkpoint_name("mlp_mid"):
                 hmid = act(pre)

@@ -1,10 +1,10 @@
 """LoRA adapters on the fused qkv: the port of `clibd_tpu/models/lora.py`.
 
-Rank-r adapters on q and v, stacked per layer: a_* [L, D, r], b_* [L, r, D]
-(the q/k/v variant belongs to the CLIP backbone, not ported yet; the layer
-functions already take its a_k/b_k).  A is U(±1/sqrt(D)), B starts at zero, so a
-fresh adapter leaves the backbone's output unchanged.  The deltas are folded
-into the fused qkv inside `layers.fused_qkv_attention`.
+Rank-r adapters on q and v, stacked per layer: a_* [L, D, r], b_* [L, r, D];
+`with_k` adds a_k/b_k, the q/k/v variant of the CLIP vision tower
+(`clip.py`, `add_lora_layer_to_open_clip`).  A is U(±1/sqrt(D)), B starts at
+zero, so a fresh adapter leaves the backbone's output unchanged.  The deltas
+are folded into the fused qkv inside `layers.fused_qkv_attention`.
 """
 
 from __future__ import annotations
@@ -19,9 +19,9 @@ from .layers import uniform_
 
 
 class Lora(nn.Module):
-    def __init__(self, num_layers: int, dim: int, rank: int):
+    def __init__(self, num_layers: int, dim: int, rank: int, with_k: bool = False):
         super().__init__()
-        for n in ("q", "v"):
+        for n in ("q", "v", "k") if with_k else ("q", "v"):
             self.register_parameter(f"a_{n}", nn.Parameter(torch.zeros(num_layers, dim, rank)))
             self.register_parameter(f"b_{n}", nn.Parameter(torch.zeros(num_layers, rank, dim)))
 

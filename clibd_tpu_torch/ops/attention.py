@@ -1,6 +1,8 @@
-"""Flash attention from the fused qkv tensor, forward and backward: the port
-of `clibd_tpu/ops/pallas/attention.py::_flash_kernel`, `_flash_bwd_kernel`
-and the custom VJP of `_make_flash`.
+"""Flash attention from the fused qkv tensor, forward and backward, and the
+attention with its out-projection fused in: the port of
+`clibd_tpu/ops/pallas/attention.py::_flash_kernel`, `_flash_bwd_kernel`,
+`_flash_outproj_kernel` and the custom VJPs of `_make_flash` and
+`_make_flash_outproj`.
 
 `flash_attention_qkv(qkv, num_heads, mask_row)` takes qkv [B, N, 3D] (bias
 and any LoRA deltas already added) and an optional [B, N] additive fp32 key
@@ -30,11 +32,19 @@ and the TPU kernels' -inf pad columns have no counterpart; a fully masked row
 still comes out uniform over its keys, because every masked score equals
 finfo(float32).min.
 
+`flash_attention_qkv_outproj(qkv, out_w, out_b, num_heads, mask_row)` is the
+attention followed by ctx . out_w + out_b in one operator,
+`clibd::flash_attention_qkv_outproj` (`csrc/flash_attention_qkv_outproj.cu`
+on a CUDA tensor, `flash_attention_qkv_outproj_reference` on a CPU tensor):
+ctx rounded to bf16, W_out read as bf16 and the bias as fp32, products
+accumulated in fp32, even for fp32 qkv.  Its backward is the TPU package's
+default one (`CLIBD_ATTN_BWD=pallas`): dctx = g . W_out^T into the backward
+kernel, ctx recomputed by the forward kernel for dW.
+
 Deliberately absent (TPU-only): `vmem_safe_block_b` (a model of the 16 MB
 VMEM), `block_b` batch blocking, `_seq_pad`, `ATTN_BWD_GROUP` and the
 `CLIBD_ATTN_NPAD16/PHASED/FWD_GROUP/FWD_BPHASE` statement-order knobs, and
-the `CLIBD_ATTN_BWD=xla` switch (the plain backward is the CPU path).  The
-out-projection fusion is not ported yet.
+the `CLIBD_ATTN_BWD=xla` switch (the plain backward is the CPU path).
 """
 
 from __future__ import annotations
@@ -45,9 +55,9 @@ from typing import Optional
 
 import torch
 
+from .cuda_build import DTYPE_CODE, function, launch
+
 HEAD_DIM = 64  # the kernels' head width
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_LIBS: dict = {}
 
 
 def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -99,30 +109,25 @@ def flash_attention_qkv_bwd_reference(qkv: torch.Tensor, dout: torch.Tensor, num
     return torch.cat(parts, dim=-1).to(qkv.dtype)
 
 
-def _library(name: str, fn: str, pointers: int, ints: int) -> ctypes.CDLL:
-    """Build/load `csrc/<name>.cu` and declare its entry point `fn`, which
-    takes `pointers` pointers, `ints` ints and the stream."""
-    if name not in _LIBS:
-        from .cuda_build import load_library
-
-        lib = load_library(name)
-        entry = getattr(lib, fn)
-        entry.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p]
-        entry.restype = ctypes.c_int
-        lib.clibd_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.clibd_cuda_error_string.restype = ctypes.c_char_p
-        lib.clibd_flash_attention_max_n.argtypes = []
-        lib.clibd_flash_attention_max_n.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return _LIBS[name]
+def flash_attention_qkv_outproj_reference(qkv: torch.Tensor, out_w: torch.Tensor,
+                                          out_b: torch.Tensor, num_heads: int,
+                                          mask_row: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the fused attention + out-projection kernel:
+    the forward kernel's plain version, ctx rounded to bf16, then
+    ctx . bf16(W_out) accumulated in fp32 plus the fp32 bias, cast to qkv's
+    dtype (`attention.py:555-559`).  bf16 ctx even for fp32 qkv, as the TPU
+    kernel's bf16 scratch holds it."""
+    ctx = flash_attention_qkv_reference(qkv, num_heads, mask_row).to(torch.bfloat16)
+    y = torch.matmul(ctx.float(), out_w.to(torch.bfloat16).float()) + out_b.float()
+    return y.to(qkv.dtype)
 
 
-def _check_cuda_args(what: str, lib, qkv: torch.Tensor, num_heads: int,
+def _check_cuda_args(what: str, qkv: torch.Tensor, num_heads: int,
                      mask_row: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """Raise on what the kernels do not take; → the mask as contiguous fp32."""
     if qkv.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {qkv.device}")
-    if qkv.dtype not in _DTYPE_CODE:
+    if qkv.dtype not in DTYPE_CODE:
         raise TypeError(f"{what}: dtype {qkv.dtype} (bf16 or fp32 only)")
     if qkv.dim() != 3 or qkv.shape[-1] % 3 or (qkv.shape[-1] // 3) != num_heads * HEAD_DIM:
         raise ValueError(f"{what}: qkv {tuple(qkv.shape)} is not "
@@ -130,9 +135,9 @@ def _check_cuda_args(what: str, lib, qkv: torch.Tensor, num_heads: int,
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError(f"{what}: qkv must be contiguous and 16-byte aligned")
     B, N, _ = qkv.shape
-    if N > lib.clibd_flash_attention_max_n():
-        raise ValueError(f"{what}: N={N} exceeds the kernel's "
-                         f"{lib.clibd_flash_attention_max_n()} keys")
+    max_n = function("flash_attention_qkv", "clibd_flash_attention_max_n", [])()
+    if N > max_n:
+        raise ValueError(f"{what}: N={N} exceeds the kernel's {max_n} keys")
     if mask_row is None:
         return None
     if mask_row.shape != (B, N) or mask_row.device != qkv.device:
@@ -141,26 +146,19 @@ def _check_cuda_args(what: str, lib, qkv: torch.Tensor, num_heads: int,
     return mask_row.to(torch.float32).contiguous()
 
 
-def _launch(what: str, lib, fn, pointers: list, B: int, N: int, num_heads: int,
-            dtype: torch.dtype, device: torch.device) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*pointers, B, N, num_heads, _DTYPE_CODE[dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           + lib.clibd_cuda_error_string(rc).decode())
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def flash_attention_qkv_cuda(qkv: torch.Tensor, num_heads: int,
                              mask_row: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the forward kernel → ctx [B, N, D]."""
-    lib = _library("flash_attention_qkv", "clibd_flash_attention_qkv_fwd", 3, 4)
-    mask_row = _check_cuda_args("flash_attention_qkv", lib, qkv, num_heads, mask_row)
+    mask_row = _check_cuda_args("flash_attention_qkv", qkv, num_heads, mask_row)
     B, N, three_d = qkv.shape
     out = torch.empty((B, N, three_d // 3), dtype=qkv.dtype, device=qkv.device)
-    _launch("flash_attention_qkv", lib, lib.clibd_flash_attention_qkv_fwd,
-            [qkv.data_ptr(), None if mask_row is None else mask_row.data_ptr(), out.data_ptr()],
-            B, N, num_heads, qkv.dtype, qkv.device)
+    launch("flash_attention_qkv", "flash_attention_qkv", "clibd_flash_attention_qkv_fwd",
+           [qkv.data_ptr(), _ptr(mask_row), out.data_ptr()],
+           [B, N, num_heads, DTYPE_CODE[qkv.dtype]], qkv.device)
     flash_attention_qkv.launches += 1
     return out
 
@@ -169,26 +167,58 @@ def flash_attention_qkv_bwd_cuda(qkv: torch.Tensor, dout: torch.Tensor, num_head
                                  mask_row: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the backward kernel → dqkv [B, N, 3D].  dout is made
     contiguous here (autograd may hand over a strided gradient)."""
-    lib = _library("flash_attention_qkv_bwd", "clibd_flash_attention_qkv_bwd", 4, 4)
-    mask_row = _check_cuda_args("flash_attention_qkv_bwd", lib, qkv, num_heads, mask_row)
+    mask_row = _check_cuda_args("flash_attention_qkv_bwd", qkv, num_heads, mask_row)
     B, N, three_d = qkv.shape
     dout = dout.to(qkv.dtype).contiguous()
     if dout.shape != (B, N, three_d // 3) or dout.device != qkv.device or dout.data_ptr() % 16:
         raise ValueError(f"flash_attention_qkv_bwd: dout {tuple(dout.shape)} on {dout.device} "
                          f"is not a 16-byte aligned [{B}, {N}, {three_d // 3}] on {qkv.device}")
     dqkv = torch.empty_like(qkv)
-    _launch("flash_attention_qkv_bwd", lib, lib.clibd_flash_attention_qkv_bwd,
-            [qkv.data_ptr(), dout.data_ptr(), None if mask_row is None else mask_row.data_ptr(),
-             dqkv.data_ptr()], B, N, num_heads, qkv.dtype, qkv.device)
+    launch("flash_attention_qkv_bwd", "flash_attention_qkv_bwd", "clibd_flash_attention_qkv_bwd",
+           [qkv.data_ptr(), dout.data_ptr(), _ptr(mask_row), dqkv.data_ptr()],
+           [B, N, num_heads, DTYPE_CODE[qkv.dtype]], qkv.device)
     flash_attention_qkv_bwd.launches += 1
     return dqkv
 
 
-# What each direction runs on a CUDA tensor.  Module attributes, so that a
-# measurement (`tools/profile_extract.plain_attention`) can send the
-# operators to the plain versions on the card for a comparison.
+def flash_attention_qkv_outproj_cuda(qkv: torch.Tensor, out_w: torch.Tensor, out_b: torch.Tensor,
+                                     num_heads: int,
+                                     mask_row: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the fused attention + out-projection kernel → [B, N, D].  W_out
+    goes to the kernel as bf16 and the bias as fp32, as the TPU kernel reads
+    them."""
+    what = "flash_attention_qkv_outproj"
+    mask_row = _check_cuda_args(what, qkv, num_heads, mask_row)
+    B, N, three_d = qkv.shape
+    D = three_d // 3
+    if out_w.shape != (D, D) or out_b.shape != (D,) or out_w.device != qkv.device \
+            or out_b.device != qkv.device:
+        raise ValueError(f"{what}: out_w {tuple(out_w.shape)} / out_b {tuple(out_b.shape)} on "
+                         f"{out_w.device} are not [{D}, {D}] / [{D}] on {qkv.device}")
+    code = DTYPE_CODE[qkv.dtype]
+    smem = function(what, "clibd_flash_outproj_smem_bytes", [ctypes.c_int] * 3,
+                    ctypes.c_long)(N, num_heads, code)
+    limit = torch.cuda.get_device_properties(qkv.device).shared_memory_per_block_optin
+    if not 0 < smem <= limit:
+        raise ValueError(f"{what}: N={N}, {num_heads} heads, {qkv.dtype} needs "
+                         f"{smem or 'an unsupported amount of'} bytes of shared memory "
+                         f"(D must be a multiple of 128; the card gives {limit})")
+    w = out_w.to(torch.bfloat16).contiguous()
+    b = out_b.to(torch.float32).contiguous()
+    out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
+    launch(what, what, "clibd_flash_attention_qkv_outproj",
+           [qkv.data_ptr(), _ptr(mask_row), w.data_ptr(), b.data_ptr(), out.data_ptr()],
+           [B, N, num_heads, code], qkv.device)
+    flash_attention_qkv_outproj.launches += 1
+    return out
+
+
+# What each operator runs on a CUDA tensor.  Module attributes, so that a
+# measurement (`tools/profile_extract.plain_kernels`) can send the operators
+# to the plain versions on the card for a comparison.
 _cuda_fwd = flash_attention_qkv_cuda
 _cuda_bwd = flash_attention_qkv_bwd_cuda
+_cuda_outproj = flash_attention_qkv_outproj_cuda
 
 
 @torch.library.custom_op("clibd::flash_attention_qkv_fwd", mutates_args=())
@@ -230,6 +260,53 @@ def _backward(ctx, grad):
 _fwd_op.register_autograd(_backward, setup_context=_setup_context)
 
 
+@torch.library.custom_op("clibd::flash_attention_qkv_outproj", mutates_args=())
+def _outproj_op(qkv: torch.Tensor, mask_row: Optional[torch.Tensor], out_w: torch.Tensor,
+                out_b: torch.Tensor, num_heads: int) -> torch.Tensor:
+    if qkv.device.type == "cpu":
+        return flash_attention_qkv_outproj_reference(qkv, out_w, out_b, num_heads, mask_row)
+    return _cuda_outproj(qkv, out_w, out_b, num_heads, mask_row)
+
+
+@_outproj_op.register_fake
+def _(qkv, mask_row, out_w, out_b, num_heads):
+    return qkv.new_empty((qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3))
+
+
+def _outproj_setup_context(ctx, inputs, output):
+    qkv, mask_row, out_w, out_b, num_heads = inputs
+    ctx.save_for_backward(qkv, mask_row, out_w, out_b)
+    ctx.num_heads = num_heads
+
+
+def _mm_fp32_acc(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """a.b of bf16 operands accumulated in fp32, returned in `dtype`: a bf16
+    GEMM where the result is bf16 anyway, else a product of the bf16 values
+    in fp32 (exact products)."""
+    if dtype == torch.bfloat16:
+        return torch.matmul(a, b)
+    return torch.matmul(a.float(), b.float()).to(dtype)
+
+
+def _outproj_backward(ctx, grad):
+    """`attention.py:536-553` (the default `CLIBD_ATTN_BWD=pallas`): dctx =
+    bf16(g).bf16(W_out)^T into the backward kernel; ctx recomputed by the
+    forward kernel for dW = bf16(ctx)^T.bf16(g); db = sum of g in fp32.  The
+    three products are plain GEMMs, as they are outside any Pallas kernel."""
+    qkv, mask_row, out_w, out_b = ctx.saved_tensors
+    D = out_w.shape[0]
+    gb = grad.to(torch.bfloat16)
+    dctx = _mm_fp32_acc(gb, out_w.to(torch.bfloat16).t(), qkv.dtype)
+    dqkv = _bwd_op(qkv, dctx, mask_row, ctx.num_heads)
+    c = _fwd_op(qkv, mask_row, ctx.num_heads).to(torch.bfloat16)
+    dw = _mm_fp32_acc(c.reshape(-1, D).t(), gb.reshape(-1, D), out_w.dtype)
+    db = grad.float().sum(dim=(0, 1)).to(out_b.dtype)
+    return dqkv, None, dw, db, None
+
+
+_outproj_op.register_autograd(_outproj_backward, setup_context=_outproj_setup_context)
+
+
 def flash_attention_qkv(qkv: torch.Tensor, num_heads: int,
                         mask_row: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused attention from the fused qkv tensor → ctx [B, N, D],
@@ -243,6 +320,17 @@ def flash_attention_qkv_bwd(qkv: torch.Tensor, dout: torch.Tensor, num_heads: in
     return _bwd_op(qkv, dout, mask_row, num_heads)
 
 
+def flash_attention_qkv_outproj(qkv: torch.Tensor, out_w: torch.Tensor, out_b: torch.Tensor,
+                                num_heads: int,
+                                mask_row: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused attention + out-projection from the fused qkv tensor:
+    attention(qkv) . out_w + out_b → [B, N, D] in qkv's dtype, with out_w
+    [D, D] ([in, out]) and out_b [D]; the context never exists in device
+    memory.  Differentiable with respect to qkv, out_w and out_b."""
+    return _outproj_op(qkv, mask_row, out_w, out_b, num_heads)
+
+
 # launches of each kernel, counted where the wrapper launches it
 flash_attention_qkv.launches = 0
 flash_attention_qkv_bwd.launches = 0
+flash_attention_qkv_outproj.launches = 0

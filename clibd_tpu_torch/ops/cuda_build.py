@@ -5,8 +5,9 @@ plain C interface and loaded with `ctypes`.  The library goes to
 `build/kernels/` at the root of the checkout (or `$CLIBD_KERNEL_BUILD_DIR`),
 named by a hash of the source, the shared headers (`csrc/*.cuh`) and the
 compiler flags, so the first call after a change rebuilds and every later
-call loads.  `build_libraries` starts one nvcc per source, all together.
-Nothing here runs at import: the CPU tests import every module on a host
+call loads.  `build_libraries` starts one nvcc per source, all together;
+`function` binds one C function of one library and `launch` calls an entry
+point on the current stream.  Nothing here runs at import: the CPU tests import every module on a host
 with no `nvcc`.
 """
 
@@ -22,11 +23,16 @@ import time
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the entry points' `dtype` argument
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_FUNCTIONS: dict = {}
 # per kernel source: {"seconds": build wall time (0.0 when loaded from the
 # cache), "log": nvcc's output (ptxas register/spill lines), "path": library}
 BUILD_INFO: Dict[str, dict] = {}
@@ -93,3 +99,30 @@ def load_library(name: str) -> ctypes.CDLL:
         build_libraries([name])
         _LOADED[name] = ctypes.CDLL(str(_library_path(name)))
     return _LOADED[name]
+
+
+def function(name: str, fn: str, argtypes, restype=ctypes.c_int):
+    """The C function `fn` of `csrc/<name>.cu` (built and loaded on first
+    use), declared with `argtypes` and `restype`; only the functions asked
+    for are bound, since each library exports its own."""
+    key = (name, fn)
+    if key not in _FUNCTIONS:
+        f = getattr(load_library(name), fn)
+        f.argtypes = list(argtypes)
+        f.restype = restype
+        _FUNCTIONS[key] = f
+    return _FUNCTIONS[key]
+
+
+def launch(what: str, name: str, fn: str, pointers: list, ints: list, device) -> None:
+    """Call the entry point `fn` of `csrc/<name>.cu` -- `pointers` (ints or
+    None), `ints`, then the current stream of `device` -- and raise with the
+    CUDA error's message when it returns one (a refused launch never runs,
+    and no later synchronize would report it)."""
+    f = function(name, fn, [ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(ints)
+                 + [ctypes.c_void_p])
+    with torch.cuda.device(device):
+        rc = f(*pointers, *ints, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        message = function(name, "clibd_cuda_error_string", [ctypes.c_int], ctypes.c_char_p)(rc)
+        raise RuntimeError(f"{what} kernel launch failed: {message.decode()}")

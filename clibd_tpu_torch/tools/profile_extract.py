@@ -1,15 +1,20 @@
 """Where the time of extraction, or of a train step, goes on one CUDA card.
 
-    python -m clibd_tpu_torch.tools.profile_extract [--out DIR]
-    python -m clibd_tpu_torch.tools.profile_extract --train [--out DIR]
+    python -m clibd_tpu_torch.tools.profile_extract [--out DIR] [--experiment YAML] [--fused]
+    python -m clibd_tpu_torch.tools.profile_extract --train [--out DIR] [--experiment YAML] [--fused]
 
-Drives the flagship tri-modal recipe (`EXPERIMENT`: ViT-B/16, BarcodeBERT,
-BERT-small at full width, bf16, batch 500, no LoRA) with weights from a
-seeded fresh init over `SyntheticSplit`s.  Extraction (the default) measures:
+Drives an experiment recipe -- by default the flagship tri-modal one
+(`EXPERIMENT`: ViT-B/16, BarcodeBERT, BERT-small at full width, bf16, batch
+500, no LoRA); `--experiment for_bioscan_1m/image_bind_style/
+with_bioclip_bind_to_image.yaml` is the BioCLIP one -- with weights from a
+seeded fresh init over `SyntheticSplit`s.  `--fused` turns on both opt-in
+kernels, the attention with its out-projection fused in and the fused MLP
+(`CLIBD_ATTN_FUSE_OUTPROJ=1`, `CLIBD_MLP_IMPL=pallas`).  Extraction (the
+default) measures:
 
 1. step: device ms per batch of the whole encode step and of each encoder,
-   by CUDA events (median of 5 after 2 warm-up runs), with the attention
-   kernel and with its plain version in its place;
+   by CUDA events (median of 5 after 2 warm-up runs), with the kernels and
+   with their plain versions in their place;
 2. extract: samples/s through `extract_split` over `BATCHES` full
    batches, host arrays to host embeddings, in the order kernel, plain,
    plain, kernel;
@@ -22,7 +27,7 @@ seeded fresh init over `SyntheticSplit`s.  Extraction (the default) measures:
 the one-cycle schedule) on one batch already on the card:
 
 1. step: device ms per train step by CUDA events (median of 3 after 1
-   warm-up step), with the attention kernels and with their plain versions
+   warm-up step), with the kernels and with their plain versions
    in their place, in the order kernels, plain, plain, kernels; the peak
    device memory of a step;
 2. trace: `torch.profiler` over `TRACE_STEPS` steps.  Device time by kernel
@@ -54,6 +59,8 @@ TRACE_STEPS = 2
 KERNEL_GROUPS = (
     ("flash_fwd", "attention kernel"),
     ("flash_bwd", "attention backward kernel"),
+    ("outproj_", "attention + out-projection kernel"),
+    ("mlp_bf16", "fused MLP kernel"),
     ("nvjet", "gemm"), ("gemm", "gemm"), ("cutlass", "gemm"), ("xmma", "gemm"),
     ("multi_tensor", "optimizer"),
     ("copy", "casts and copies"),
@@ -109,18 +116,23 @@ def trace_window(events: List[dict], name: str) -> Tuple[float, float]:
 
 
 @contextmanager
-def plain_attention():
-    """Send the attention operators to the kernels' plain versions on the
-    card, for a comparison; the port itself has no such switch."""
-    from ..ops import attention
+def plain_kernels():
+    """Send every kernel's operator to its plain version on the card, for a
+    comparison; the port itself has no such switch."""
+    from ..ops import attention, mlp
 
-    saved = attention._cuda_fwd, attention._cuda_bwd
-    attention._cuda_fwd = attention.flash_attention_qkv_reference
-    attention._cuda_bwd = attention.flash_attention_qkv_bwd_reference
+    swaps = [(attention, "_cuda_fwd", attention.flash_attention_qkv_reference),
+             (attention, "_cuda_bwd", attention.flash_attention_qkv_bwd_reference),
+             (attention, "_cuda_outproj", attention.flash_attention_qkv_outproj_reference),
+             (mlp, "_cuda_mlp", mlp.fused_mlp_reference)]
+    saved = [getattr(module, name) for module, name, _ in swaps]
+    for module, name, plain in swaps:
+        setattr(module, name, plain)
     try:
         yield
     finally:
-        attention._cuda_fwd, attention._cuda_bwd = saved
+        for (module, name, _), kernel in zip(swaps, saved):
+            setattr(module, name, kernel)
 
 
 def write_trace(prof, out: str, span: str, runs: int) -> dict:
@@ -142,7 +154,7 @@ def write_trace(prof, out: str, span: str, runs: int) -> dict:
             "device_ms_by_group": device_ms_by_group(events, window)}
 
 
-def profile_train(out: str, card: str, summary: dict) -> dict:
+def profile_train(out: str, card: str, summary: dict, experiment: str) -> dict:
     import torch
 
     from ..config import load_config
@@ -154,7 +166,7 @@ def profile_train(out: str, card: str, summary: dict) -> dict:
     from ..utils.profiling import cuda_ms
 
     device = torch.device("cuda")
-    mc = load_config(experiment=EXPERIMENT).model_config
+    mc = load_config(experiment=experiment).model_config
     model = init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed), device)
     B = mc.batch_size
     batch = to_device({k: v for k, v in next(SyntheticSplit("train", B, mc, seed=0).batches())
@@ -175,7 +187,7 @@ def profile_train(out: str, card: str, summary: dict) -> dict:
     summary["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     ms: Dict[str, List[float]] = {"kernels": [], "plain": []}
     for which in ("kernels", "plain", "plain", "kernels"):
-        with plain_attention() if which == "plain" else nullcontext():
+        with plain_kernels() if which == "plain" else nullcontext():
             ms[which].append(cuda_ms(run, warmup=1, iters=3))
         print(f"train step, {which}: {ms[which][-1]:.3f} ms = "
               f"{B / ms[which][-1] * 1e3:.2f} samples/s  [{card}]")
@@ -191,7 +203,7 @@ def profile_train(out: str, card: str, summary: dict) -> dict:
     return summary
 
 
-def main(argv=None) -> dict:
+def profile_extract(out: str, card: str, summary: dict, experiment: str) -> dict:
     import torch
 
     from ..config import load_config
@@ -201,25 +213,8 @@ def main(argv=None) -> dict:
     from ..models.clibd import encode_dna, encode_image, encode_language
     from ..utils.profiling import cuda_ms
 
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default="build/profile_extract")
-    ap.add_argument("--train", action="store_true", help="profile a train step instead")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise RuntimeError("profile_extract needs a CUDA card")
-    os.makedirs(args.out, exist_ok=True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     device = torch.device("cuda")
-    summary: dict = {"card": card, "experiment": EXPERIMENT,
-                     "torch": torch.__version__, "cuda": torch.version.cuda}
-    if args.train:
-        summary = profile_train(args.out, card, summary)
-        with open(os.path.join(args.out, "summary.json"), "w") as f:
-            json.dump(summary, f, indent=1)
-        print(json.dumps(summary))
-        return summary
-    mc = load_config(experiment=EXPERIMENT).model_config
+    mc = load_config(experiment=experiment).model_config
     model = init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed), device)
     B = mc.batch_size
     split = SyntheticSplit("profile", BATCHES * B, mc, seed=0)
@@ -237,7 +232,7 @@ def main(argv=None) -> dict:
 
     with torch.inference_mode():
         summary["step_ms"] = {k: cuda_ms(f, warmup=2, iters=5) for k, f in encoders().items()}
-        with plain_attention():
+        with plain_kernels():
             summary["step_ms_plain"] = {k: cuda_ms(f, warmup=2, iters=5)
                                         for k, f in encoders().items()}
     print(f"device ms per batch, kernel: {summary['step_ms']}  [{card}]")
@@ -245,7 +240,7 @@ def main(argv=None) -> dict:
 
     rates: Dict[str, List[float]] = {"kernel": [], "plain": []}
     for which in ("kernel", "plain", "plain", "kernel"):
-        ctx = plain_attention() if which == "plain" else nullcontext()
+        ctx = plain_kernels() if which == "plain" else nullcontext()
         with ctx:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -263,8 +258,35 @@ def main(argv=None) -> dict:
         with torch.profiler.record_function("extract_split"):
             extract_split(model, mc, short)
         torch.cuda.synchronize()
-    summary["trace"] = write_trace(prof, args.out, "extract_split", TRACE_BATCHES)
+    summary["trace"] = write_trace(prof, out, "extract_split", TRACE_BATCHES)
     print(f"trace of {TRACE_BATCHES} batches: {summary['trace']}  [{card}]")
+    return summary
+
+
+def main(argv=None) -> dict:
+    import torch
+
+    from ..models.layers import kernel_knobs
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="build/profile_extract")
+    ap.add_argument("--train", action="store_true", help="profile a train step instead")
+    ap.add_argument("--experiment", default=EXPERIMENT, help="experiment YAML (configs/...)")
+    ap.add_argument("--fused", action="store_true",
+                    help="fused out-projection and fused MLP kernels on")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_extract needs a CUDA card")
+    os.makedirs(args.out, exist_ok=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    summary: dict = {"card": card, "experiment": args.experiment, "fused": args.fused,
+                     "torch": torch.__version__, "cuda": torch.version.cuda}
+    with kernel_knobs(args.fused, "pallas" if args.fused else "xla"):
+        if args.train:
+            summary = profile_train(args.out, card, summary, args.experiment)
+        else:
+            summary = profile_extract(args.out, card, summary, args.experiment)
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps(summary))

@@ -240,8 +240,8 @@ def test_options_not_ported_raise(tmp_path):
     from clibd_tpu_torch.models.clibd import CLIBD
 
     cfg = tiny_cfg()
-    cfg.backbone = "open_clip"
-    with pytest.raises(NotImplementedError, match="CLIP backbone"):
+    cfg.image.input_type = "image_features"
+    with pytest.raises(NotImplementedError, match="MLP encoder"):
         CLIBD(cfg)
     with pytest.raises(NotImplementedError, match="int8"):
         port_knn.prepare_keys(np.ones((3, 4), np.float32), dtype="int8")
@@ -342,9 +342,15 @@ def test_device_idle_share_reads_the_trace():
 
 
 def test_wrapper_on_cpu_needs_no_cuda():
-    """A CPU tensor never touches the CUDA build: the plain version runs."""
-    from clibd_tpu_torch.ops import attention
+    """A CPU tensor never touches the CUDA build: the plain versions run."""
+    from clibd_tpu_torch.ops import attention, cuda_build, mlp
 
-    qkv = torch.randn(2, 5, 3 * 128, generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(0)
+    qkv = torch.randn(2, 5, 3 * 128, generator=g)
     out = attention.flash_attention_qkv(qkv, 2)
-    assert out.shape == (2, 5, 128) and attention._LIBS == {}
+    w, b = torch.randn(128, 128, generator=g), torch.randn(128, generator=g)
+    proj = attention.flash_attention_qkv_outproj(qkv, w, b, 2)
+    h = mlp.fused_mlp(out, torch.randn(128, 64, generator=g), torch.zeros(64),
+                      torch.randn(64, 128, generator=g), torch.zeros(128))
+    assert out.shape == proj.shape == h.shape == (2, 5, 128)
+    assert cuda_build._LOADED == {} and cuda_build._FUNCTIONS == {}

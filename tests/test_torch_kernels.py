@@ -6,10 +6,11 @@ has PyTorch for CUDA and no jax:
 
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda -q
 
-Each kernel (the attention forward and backward) is held against its plain
-PyTorch version (which the CPU tests hold against clibd_tpu) at the slices'
-shapes, and a tiny model on the card against the same model on the CPU, in
-extraction and in a training step.
+Each kernel (the attention forward and backward, the attention with its
+out-projection fused in, the fused MLP) is held against its plain PyTorch
+version (which the CPU tests hold against clibd_tpu) at the slices' shapes,
+and a tiny model on the card against the same model on the CPU, in
+extraction and in a training step, and with both opt-in kernels on.
 """
 
 import copy
@@ -20,12 +21,16 @@ import torch
 
 from clibd_tpu_torch.config import BertConfig, ExperimentConfig, ViTConfig
 from clibd_tpu_torch.models import clibd_apply, init_clibd_model
+from clibd_tpu_torch.models.layers import kernel_knobs
 from clibd_tpu_torch.ops.attention import (
     flash_attention_qkv,
     flash_attention_qkv_bwd,
     flash_attention_qkv_bwd_reference,
+    flash_attention_qkv_outproj,
+    flash_attention_qkv_outproj_reference,
     flash_attention_qkv_reference,
 )
+from clibd_tpu_torch.ops.mlp import fused_mlp, fused_mlp_reference
 
 NEG = np.finfo(np.float32).min
 # Both sides round P and V to bf16 after fp32 maths; a probability within
@@ -46,6 +51,11 @@ BF16_COSINE_MIN = 0.99
 # the bf16 rounding of the output itself; bounded relative to the part's
 # largest entry
 BWD_REL_TOL = 2e-2
+# out-projection and fused MLP against their plain versions, relative to the
+# output's largest entry: both round at the same points (P, ctx, h to bf16),
+# so they differ by rounding flips of values within float noise of a bf16
+# boundary and by the bf16 rounding of the output itself
+FUSED_REL_TOL = 2e-2
 
 
 @pytest.fixture
@@ -255,3 +265,147 @@ def test_tiny_train_step_on_the_card_matches_the_cpu(cuda_device):
         a = a.cpu().flatten()
         assert torch.isfinite(a).all()
         assert float((a - b.flatten()).abs().max()) <= 2e-2 * float(b.abs().max()) + 1e-6
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def _outproj_inputs(B, N, H, masked, seed, device, dtype):
+    qkv, mask = _inputs(B, N, H, masked, seed)
+    rng = np.random.default_rng(seed + 1)
+    D = H * 64
+    w = torch.from_numpy((rng.standard_normal((D, D)) / np.sqrt(D)).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal(D) * 0.1).astype(np.float32))
+    return (torch.from_numpy(qkv).to(device, dtype), w.to(device, dtype), b.to(device, dtype),
+            None if mask is None else torch.from_numpy(mask).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,masked", [(197, 12, False), (133, 12, False), (20, 8, True),
+                                         (33, 2, True)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_outproj_kernel_matches_plain_version(cuda_device, N, H, masked, dtype):
+    t, w, b, m = _outproj_inputs(8, N, H, masked, N + 3, cuda_device, dtype)
+    before = flash_attention_qkv_outproj.launches
+    got = flash_attention_qkv_outproj(t, w, b, H, m)
+    torch.cuda.synchronize()
+    assert flash_attention_qkv_outproj.launches == before + 1
+    assert got.dtype == dtype and got.shape == (8, N, H * 64)
+    assert torch.isfinite(got).all()
+    want = flash_attention_qkv_outproj_reference(t, w, b, H, m)
+    assert _rel(got, want) <= FUSED_REL_TOL
+    if masked:  # batch row 0 has every key masked
+        assert _rel(got[0], want[0]) <= FUSED_REL_TOL
+
+
+@pytest.mark.cuda
+def test_outproj_autograd_runs_the_kernels(cuda_device):
+    """grad of the out-projection operator on the card: one out-projection,
+    one forward (ctx for dW) and one backward launch; gradients for qkv,
+    W_out and the bias close to the same backward on the CPU."""
+    t, w, b, m = _outproj_inputs(4, 20, 8, True, 5, cuda_device, torch.float32)
+    g = torch.randn(4, 20, 512, device=cuda_device)
+    counts = [f.launches for f in (flash_attention_qkv_outproj, flash_attention_qkv,
+                                   flash_attention_qkv_bwd)]
+    leaves = [x.detach().requires_grad_() for x in (t, w, b)]
+    got = torch.autograd.grad(flash_attention_qkv_outproj(*leaves, 8, m), leaves, g)
+    torch.cuda.synchronize()
+    assert [f.launches - c for f, c in zip((flash_attention_qkv_outproj, flash_attention_qkv,
+                                            flash_attention_qkv_bwd), counts)] == [1, 1, 1]
+    cpu = [x.detach().cpu().requires_grad_() for x in (t, w, b)]
+    want = torch.autograd.grad(flash_attention_qkv_outproj(*cpu, 8, m.cpu()), cpu, g.cpu())
+    for a, e in zip(got, want):
+        assert _rel(a.cpu(), e) <= FUSED_REL_TOL
+
+
+def _mlp_inputs(R, D, Fd, seed, device, dtype):
+    rng = np.random.default_rng(seed)
+    arrays = (rng.standard_normal((R, D)), rng.standard_normal((D, Fd)) / np.sqrt(D),
+              rng.standard_normal(Fd) * 0.1, rng.standard_normal((Fd, D)) / np.sqrt(Fd),
+              rng.standard_normal(D) * 0.1)
+    return [torch.from_numpy(a.astype(np.float32)).to(device, dtype) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,D,Fd,activation", [
+    (8 * 197, 768, 3072, "gelu_tanh"), (8 * 133 + 5, 768, 3072, "gelu_tanh"),
+    (8 * 77, 512, 2048, "gelu_tanh"), (37, 256, 128, "gelu"), (37, 256, 128, "quick_gelu")])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_mlp_kernel_matches_plain_version(cuda_device, R, D, Fd, activation, dtype):
+    args = _mlp_inputs(R, D, Fd, R + D, cuda_device, dtype)
+    before = fused_mlp.launches
+    got = fused_mlp(*args, activation=activation)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches == before + 1
+    assert got.dtype == dtype and got.shape == (R, D) and torch.isfinite(got).all()
+    assert _rel(got, fused_mlp_reference(*args, activation)) <= FUSED_REL_TOL
+
+
+@pytest.mark.cuda
+def test_fused_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    before = flash_attention_qkv_outproj.launches, fused_mlp.launches
+    t, w, b, _ = _outproj_inputs(2, 5, 3, False, 0, cuda_device, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        flash_attention_qkv_outproj(t, w, b, 3)  # D = 192
+    t, w, b, _ = _outproj_inputs(2, 5, 2, False, 0, cuda_device, torch.bfloat16)
+    with pytest.raises(ValueError, match="out_w"):
+        flash_attention_qkv_outproj(t, w[:64], b, 2)
+    x, w1, b1, w2, b2 = _mlp_inputs(5, 384, 128, 0, cuda_device, torch.bfloat16)
+    with pytest.raises(ValueError, match="not taken"):
+        fused_mlp(x, w1, b1, w2, b2)
+    x, w1, b1, w2, b2 = _mlp_inputs(5, 256, 128, 0, cuda_device, torch.bfloat16)
+    with pytest.raises(TypeError, match="dtype"):
+        fused_mlp(x, w1.float(), b1, w2, b2)
+    assert (flash_attention_qkv_outproj.launches, fused_mlp.launches) == before
+
+
+def _tiny_clip_cfg():
+    cfg = ExperimentConfig()
+    cfg.backbone = "open_clip"
+    cfg.disable_lora = True
+    c = cfg.clip
+    c.image_size, c.patch_size, c.vision_hidden, c.vision_layers = 32, 16, 256, 2
+    c.vision_heads, c.vision_mlp = 4, 512
+    c.vocab_size, c.context_length, c.text_hidden, c.text_layers = 300, 16, 256, 2
+    c.text_heads, c.text_mlp, c.embed_dim = 4, 512, 64
+    cfg.output_dim = 64
+    cfg.dna.max_bp = 80
+    cfg.dna.bert = BertConfig(vocab_size=1027, hidden_size=256, num_layers=2, num_heads=4,
+                              intermediate_size=512, max_position_embeddings=40,
+                              with_mlm_head=True)
+    return cfg
+
+
+@pytest.mark.cuda
+def test_tiny_bioclip_with_fused_kernels_on_the_card_matches_the_cpu(cuda_device):
+    """clibd_apply of a 2-layer open_clip model with both opt-in kernels on:
+    4 out-projection launches (vision + DNA) and 6 fused-MLP launches (three
+    towers), and the embeddings close to the same model on the CPU."""
+    cfg = _tiny_clip_cfg()
+    cpu_model = init_clibd_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(cuda_device)
+    rng = np.random.default_rng(3)
+    ids = rng.integers(1, 298, (3, 16)).astype(np.int32)
+    ids[:, 0], ids[:, 9], ids[:, 10:] = 298, 299, 0
+    inputs = {"image": rng.integers(0, 256, (3, 32, 32, 3), dtype=np.uint8),
+              "dna": rng.integers(0, 1027, (3, 17)).astype(np.int32), "language": ids}
+
+    def run(model, device, dtype):
+        x = {k: torch.from_numpy(v).to(device) for k, v in inputs.items()}
+        with torch.inference_mode(), kernel_knobs(True, "pallas"):
+            out = clibd_apply(model, cfg, x["image"], x["dna"], {"input_ids": x["language"]},
+                              compute_dtype=dtype)
+        return {m: out[m].float().cpu() for m in ("image", "dna", "language")}
+
+    before = flash_attention_qkv_outproj.launches, fused_mlp.launches, flash_attention_qkv.launches
+    got32 = run(gpu_model, cuda_device, torch.float32)
+    after = flash_attention_qkv_outproj.launches, fused_mlp.launches, flash_attention_qkv.launches
+    assert [a - b for a, b in zip(after, before)] == [4, 6, 0]
+    want32 = run(cpu_model, "cpu", torch.float32)
+    got16 = run(gpu_model, cuda_device, torch.bfloat16)
+    want16 = run(cpu_model, "cpu", torch.bfloat16)
+    for m in want32:
+        assert float((got32[m] - want32[m]).abs().max()) <= EMB_ATOL, m
+        cos = torch.nn.functional.cosine_similarity(got16[m], want16[m], dim=-1)
+        assert float(cos.min()) >= BF16_COSINE_MIN, (m, cos)
