@@ -82,6 +82,28 @@ Phases, each of which raises on failure:
    0.99 per tensor).  Prints samples/s over the steps after the first and
    the peak device memory.
 
+10. probes: the kernels of the chip-probe harnesses, each against its plain
+   version, then timed beside the plain version, the closest library call
+   and the bound (CUDA events, median of 20):
+   - `scale_copy` on a seeded fp32 [8192, 2048] (and a 1027-element tail):
+     bit-exact; GB/s against 3.35 TB/s; library `torch.mul(x, 2.0)` and
+     `y.copy_(x)`;
+   - `tiled_matmul` (bf16 in, fp32 accumulator) at 1024^3 (the probe tile),
+     2048^3 (every tile, fp32 out) and 8192^3 (every tile, fp32 and bf16
+     out): max |kernel - plain| <= 1e-3 * max |plain| (fp32 out), 1e-2 *
+     max |plain| (bf16 out); TFLOP/s against 989 and cuBLAS bf16
+     `torch.matmul`; a shape off the tile raises and launches nothing;
+   - `attention_bhnd` (separate q, k, v) at B=256 N=197, B=64 N=133 and
+     B=64 N=20 (H=12): max |kernel - plain| <= 2e-2; SDPA on the same q/k/v;
+   - yardsticks for the fused-qkv experiment kernels still to port
+     (`tools/exp_flash.py`): SDPA forward and backward at B=256, H=12 on
+     N=197 and N=133, with their bounds.
+   Then the probes path: the three harnesses as a user runs them
+   (`clibd_tpu_torch.tools.exp_attn` all and extra, `exp_mxu`, `exp_mxu2`
+   with every variant), each printing its own lines; each of the three
+   kernels must launch in it, the four earlier ones not at all, and every
+   GEMM row the harnesses print must be within the tolerances above.
+
 Phases 3-5 run with both opt-in kernels off, as the flagship recipe does.
 The last three lines are the kernel summary JSON, the card line, and
 `{"ok": true, "device": {...}}`.
@@ -92,7 +114,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -119,16 +140,21 @@ SPLIT_ROWS = {"all_keys": 1100, "test_seen": 500, "test_unseen": 500}
 TRAIN_ROWS = {"train": 3000, "all_keys": 1100, "val_seen": 500, "val_unseen": 500}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores, published
+FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores, published
+PROBE_KERNELS = ("scale_copy", "tiled_gemm", "attention_bhnd")
+GEMM_REL_TOL = {"fp32": 1e-3, "bf16": 1e-2}  # max |kernel - plain| / max |plain|, by out dtype
+# (B, N) at H=12 for attention_bhnd: the harness's shape, then two smaller ones
+BHND_SHAPES = ((256, 197), (64, 133), (64, 20))
 
 
 def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def bound(nbytes: float, flops: float) -> tuple:
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS_PER_S) -> tuple:
     """(least ms the card could take, what bounds it) from the published
-    memory rate and bf16 peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    memory rate and the peak for the operations' type (bf16 by default)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -510,13 +536,18 @@ def rel_err(got, want) -> float:
 
 
 def kernel_counters():
-    from clibd_tpu_torch.ops.attention import (flash_attention_qkv, flash_attention_qkv_bwd,
+    from clibd_tpu_torch.ops.attention import (attention_bhnd, flash_attention_qkv,
+                                               flash_attention_qkv_bwd,
                                                flash_attention_qkv_outproj)
+    from clibd_tpu_torch.ops.elementwise import scale_copy
+    from clibd_tpu_torch.ops.gemm import tiled_matmul
     from clibd_tpu_torch.ops.mlp import fused_mlp
 
     return {"flash_attention_qkv": flash_attention_qkv,
             "flash_attention_qkv_bwd": flash_attention_qkv_bwd,
-            "flash_attention_qkv_outproj": flash_attention_qkv_outproj, "fused_mlp": fused_mlp}
+            "flash_attention_qkv_outproj": flash_attention_qkv_outproj, "fused_mlp": fused_mlp,
+            "scale_copy": scale_copy, "tiled_gemm": tiled_matmul,
+            "attention_bhnd": attention_bhnd}
 
 
 def reset_counts() -> None:
@@ -529,8 +560,11 @@ def read_counts() -> dict:
 
 
 def add_launches(entries: dict, path: str, counts: dict) -> None:
-    """Add one main-path run's launches to the summary entries."""
+    """Add one main-path run's launches to the summary entries (the kernels
+    that have one)."""
     for name, n in counts.items():
+        if name not in entries:
+            continue
         entries[name]["launches"] = (entries[name]["launches"] or 0) + n
         entries[name].setdefault("launches_by_path", {})[path] = n
 
@@ -722,7 +756,7 @@ def bioclip_eval_phase(card: str, entries: dict, device, split_rows: dict) -> No
     layers = (mc.clip.vision_layers, mc.dna.bert.num_layers, mc.clip.text_layers)
     expected = {"flash_attention_qkv": 0, "flash_attention_qkv_bwd": 0,
                 "flash_attention_qkv_outproj": (layers[0] + layers[1]) * n_batches,
-                "fused_mlp": sum(layers) * n_batches}
+                "fused_mlp": sum(layers) * n_batches, **dict.fromkeys(PROBE_KERNELS, 0)}
     print(f"BioCLIP eval launches over {n_batches} batches: {counts} (expected {expected})")
     if counts != expected:
         fail(f"BioCLIP eval launched {counts}, expected {expected}")
@@ -791,7 +825,7 @@ def bioclip_train_phase(card: str, entries: dict, device) -> None:
     n_l = (mc.clip.vision_layers, mc.dna.bert.num_layers, mc.clip.text_layers)
     expected = {"flash_attention_qkv": n_l[1], "flash_attention_qkv_bwd": n_l[1],
                 "flash_attention_qkv_outproj": n_l[0] + n_l[1],
-                "fused_mlp": sum(n_l) + n_l[1]}
+                "fused_mlp": sum(n_l) + n_l[1], **dict.fromkeys(PROBE_KERNELS, 0)}
     losses, per_step, times = [], [], []
     with kernel_knobs(True, "pallas"):
         batches = [to_device({k: v for k, v in bt.items() if k != "index"}, device)
@@ -851,6 +885,203 @@ def bioclip_train_phase(card: str, entries: dict, device) -> None:
     del model, optimizer
 
 
+def scale_copy_checks(card: str) -> dict:
+    import torch
+
+    from clibd_tpu_torch.ops.elementwise import scale_copy_cuda, scale_copy_reference
+    from clibd_tpu_torch.utils.profiling import cuda_ms
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((8192, 2048), dtype=np.float32)).cuda()
+    tail = torch.from_numpy(rng.standard_normal(1027, dtype=np.float32)).cuda()
+    for name, t in (("[8192, 2048]", x), ("1027-element tail", tail)):
+        exact = torch.equal(scale_copy_cuda(t), scale_copy_reference(t))
+        print(f"kernel scale_copy {name}: bit-exact against x * 2.0: {exact}")
+        if not exact:
+            fail(f"scale_copy differs from x * 2.0 on {name}")
+    y = torch.empty_like(x)
+    ms = cuda_ms(lambda: scale_copy_cuda(x))
+    plain_ms = cuda_ms(lambda: scale_copy_reference(x))
+    library_ms = cuda_ms(lambda: torch.mul(x, 2.0))
+    copy_ms = cuda_ms(lambda: y.copy_(x))
+    nbytes = 2 * x.nbytes
+    bound_ms, bound_by = bound(nbytes, x.numel(), FP32_FLOPS_PER_S)
+    print(f"time scale_copy fp32 [8192, 2048]: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s, "
+          f"{bound_ms / ms:.1%} of {HBM_BYTES_PER_S / 1e12} TB/s), plain {plain_ms:.4f} ms, "
+          f"library torch.mul {library_ms:.4f} ms ({nbytes / library_ms / 1e6:.1f} GB/s), "
+          f"y.copy_(x) {copy_ms:.4f} ms ({nbytes / copy_ms / 1e6:.1f} GB/s), bound "
+          f"{bound_ms:.4f} ms ({bound_by})  [{card}]")
+    shape = {"shape": "fp32 [8192, 2048]", "ms": ms, "plain_ms": plain_ms,
+             "library_ms": library_ms, "copy_ms": copy_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "max_abs_err": 0.0}
+    return kernel_entry("scale_copy", "clibd_tpu_torch/csrc/scale_copy.cu",
+                        "tools/exp_attn.py:35", [shape])
+
+
+def gemm_checks(card: str) -> dict:
+    import torch
+
+    from clibd_tpu_torch.ops.gemm import (TILES, tiled_matmul, tiled_matmul_cuda,
+                                          tiled_matmul_reference)
+    from clibd_tpu_torch.tools.exp_attn import PROBE_TILE
+    from clibd_tpu_torch.utils.profiling import cuda_ms
+
+    out_dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    rows = []
+    for size, tiles, outs in ((1024, (PROBE_TILE,), ("fp32",)), (2048, tuple(TILES), ("fp32",)),
+                              (8192, tuple(TILES), ("fp32", "bf16"))):
+        rng = np.random.default_rng(size)
+        a, b = (torch.from_numpy(rng.standard_normal((size, size), dtype=np.float32))
+                .to("cuda", torch.bfloat16) for _ in range(2))
+        library_ms = cuda_ms(lambda: torch.matmul(a, b))
+        flops = 2 * size ** 3
+        for out in outs:
+            dtype = out_dtypes[out]
+            want = tiled_matmul_reference(a, b, dtype).float()
+            plain_ms = cuda_ms(lambda: tiled_matmul_reference(a, b, dtype), iters=5)
+            tol = GEMM_REL_TOL[out] * float(want.abs().max())
+            nbytes = 2 * 2 * size * size + size * size * dtype.itemsize
+            bound_ms, bound_by = bound(nbytes, flops)
+            for tile in tiles:
+                got = tiled_matmul_cuda(a, b, tile, dtype).float()
+                err = float((got - want).abs().max())
+                del got
+                if err > tol:
+                    fail(f"tiled_gemm {tile} {out} out at {size}^3: max|kernel-plain| {err} > {tol}")
+                ms = cuda_ms(lambda: tiled_matmul_cuda(a, b, tile, dtype))
+                print(f"kernel tiled_gemm {size}^3 {tile} {out} out: max|kernel-plain| {err:.3e} "
+                      f"(tol {tol:.3e}); kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                      f"{bound_ms / ms:.1%} of the bound), plain {plain_ms:.4f} ms, cuBLAS bf16 "
+                      f"{library_ms:.4f} ms ({flops / library_ms / 1e9:.1f} TFLOP/s), bound "
+                      f"{bound_ms:.4f} ms ({bound_by})  [{card}]")
+                rows.append({"shape": f"{size}^3 {tile} {out} out", "M": size, "tile": tile,
+                             "out": out, "ms": ms, "plain_ms": plain_ms,
+                             "library_ms": library_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by, "max_abs_err": err})
+            del want
+        del a, b
+        torch.cuda.empty_cache()
+
+    # a shape off the tile is refused before any launch
+    a = torch.zeros(1000, 1024, device="cuda", dtype=torch.bfloat16)
+    b = torch.zeros(1024, 1024, device="cuda", dtype=torch.bfloat16)
+    before = tiled_matmul.launches
+    for what, x, y in (("M=1000", a, b), ("K=1000", b[:, :1000], a)):
+        try:
+            tiled_matmul_cuda(x.contiguous(), y.contiguous(), "t64x64x32")
+        except ValueError as e:
+            print(f"tiled_gemm refuses {what} off the 64x64x32 tile: {e}")
+        else:
+            fail(f"tiled_gemm took {what}, off the 64x64x32 tile")
+    if tiled_matmul.launches != before:
+        fail("a refused tiled_gemm call launched the kernel")
+    # headline: the fastest tile at 8192^3 with an fp32 out first
+    best = min((r for r in rows if r["M"] == 8192 and r["out"] == "fp32"), key=lambda r: r["ms"])
+    rows.remove(best)
+    entry = kernel_entry("tiled_gemm", "clibd_tpu_torch/csrc/tiled_gemm.cu",
+                         "tools/exp_attn.py:61, tools/exp_mxu.py:34, tools/exp_mxu2.py:39",
+                         [best] + rows)
+    return entry
+
+
+def attention_bhnd_checks(card: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from clibd_tpu_torch.ops.attention import attention_bhnd_cuda, attention_bhnd_reference
+    from clibd_tpu_torch.utils.profiling import cuda_ms
+
+    shapes = []
+    H = 12
+    for B, N in BHND_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(B + N)
+        q, k, v = (torch.randn(B, H, N, 64, generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        got = attention_bhnd_cuda(q, k, v).float()
+        err = float((got - attention_bhnd_reference(q, k, v).float()).abs().max())
+        if not torch.isfinite(got).all() or err > KERNEL_TOL:
+            fail(f"attention_bhnd disagrees with its plain version at B={B} N={N}: {err}")
+        del got
+        ms = cuda_ms(lambda: attention_bhnd_cuda(q, k, v))
+        plain_ms = cuda_ms(lambda: attention_bhnd_reference(q, k, v))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        flops = 4 * B * H * N * N * 64
+        bound_ms, bound_by = bound(4 * B * H * N * 64 * 2, flops)
+        print(f"kernel attention_bhnd B={B} H={H} N={N}: max|kernel-plain| {err:.3e} (tol "
+              f"{KERNEL_TOL}); kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{bound_ms / ms:.1%} of the bound), plain {plain_ms:.4f} ms, library (sdpa) "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
+        shapes.append({"shape": f"B={B} H={H} N={N}", "B": B, "N": N, "H": H, "ms": ms,
+                       "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "max_abs_err": err})
+        del q, k, v
+    torch.cuda.empty_cache()
+    return kernel_entry("attention_bhnd", "clibd_tpu_torch/csrc/attention_bhnd.cu",
+                        "tools/exp_attn.py:129", shapes)
+
+
+def exp_flash_yardsticks(card: str) -> dict:
+    """SDPA forward and backward, and the bounds, at the shapes of the
+    fused-qkv experiment kernels still to port (tools/exp_flash.py)."""
+    import torch
+
+    from clibd_tpu_torch.utils.profiling import cuda_ms
+
+    B, H = 256, 12
+    D = H * 64
+    out = {}
+    for N in (197, 133):
+        qkv, _ = make_qkv(B, N, H, False, seed=N)
+        leaf = qkv.detach().requires_grad_()
+        lib_out = library_attention(leaf, H, None)
+        dout = torch.randn_like(lib_out)
+        fwd_ms = cuda_ms(lambda: library_attention(qkv, H, None))
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaf, dout, retain_graph=True))
+        fwd_bound = bound(B * N * (3 * D + D) * 2, 4 * B * H * N * N * 64)
+        bwd_bound = bound(B * N * (3 * D + D + 3 * D) * 2, 10 * B * H * N * N * 64)
+        print(f"yardstick tools/exp_flash.py B={B} H={H} N={N}: sdpa forward {fwd_ms:.4f} ms "
+              f"(bound {fwd_bound[0]:.4f} ms, {fwd_bound[1]}), sdpa backward {bwd_ms:.4f} ms "
+              f"(bound {bwd_bound[0]:.4f} ms, {bwd_bound[1]})  [{card}]")
+        out[f"N={N}"] = {"sdpa_fwd_ms": fwd_ms, "fwd_bound_ms": fwd_bound[0],
+                         "sdpa_bwd_ms": bwd_ms, "bwd_bound_ms": bwd_bound[0]}
+        del qkv, leaf, lib_out, dout
+    torch.cuda.empty_cache()
+    return out
+
+
+def probe_kernels_phase(card: str) -> dict:
+    entries = {e["name"]: e for e in (scale_copy_checks(card), gemm_checks(card),
+                                      attention_bhnd_checks(card))}
+    print(json.dumps({"exp_flash_yardsticks": exp_flash_yardsticks(card)}))
+    return entries
+
+
+def probes_path_phase(card: str, entries: dict) -> None:
+    """The chip-probe harnesses as a user runs them: every launch of the
+    three probe kernels is counted, and the earlier kernels launch none."""
+    import torch
+
+    from clibd_tpu_torch.tools import exp_attn, exp_mxu, exp_mxu2
+
+    t0 = time.perf_counter()
+    reset_counts()
+    attn = exp_attn.main(["all"])
+    exp_attn.main(["extra"])
+    gemm_rows = [r for r in exp_mxu.main([]) + exp_mxu2.main([]) if "tile" in r]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"probes path: launches {counts} in {time.perf_counter() - t0:.1f} s  [{card}]")
+    if any(counts[k] == 0 for k in PROBE_KERNELS) or \
+            any(n for k, n in counts.items() if k not in PROBE_KERNELS):
+        fail(f"the probes path launched {counts}: each probe kernel at least once, no other")
+    for r in gemm_rows:
+        if r["maxerr"] > GEMM_REL_TOL[r["out"]] * r["max_plain"]:
+            fail(f"the harness's {r['name']} is off its plain version: maxerr {r['maxerr']}")
+    if not math.isfinite(attn["attention_bhnd_maxerr"]):
+        fail("exp_attn's attention_bhnd maxerr is not finite")
+    add_launches(entries, "probes", {k: counts[k] for k in PROBE_KERNELS})
+
+
 def main() -> int:
     import torch
 
@@ -859,9 +1090,9 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import clibd_tpu_torch  # noqa: F401  (fails where the repo is absent)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    from clibd_tpu_torch.utils.profiling import card_line
+
+    card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
@@ -869,8 +1100,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build_libraries(["flash_attention_qkv", "flash_attention_qkv_bwd",
-                     "flash_attention_qkv_outproj", "fused_mlp"])
-    print(f"build: all four kernel sources in parallel, {time.perf_counter() - t0:.2f} s wall")
+                     "flash_attention_qkv_outproj", "fused_mlp", "scale_copy", "tiled_gemm",
+                     "attention_bhnd"])
+    print(f"build: all seven kernel sources in parallel, {time.perf_counter() - t0:.2f} s wall")
     for name, info in BUILD_INFO.items():
         print(f"build {name}.cu: nvcc {info['seconds']:.2f} s -> {info['path']}")
         for line in info["log"].splitlines():
@@ -899,11 +1131,14 @@ def main() -> int:
     entries = {e["name"]: e for e in (fwd, bwd, outproj, mlp)}
     bioclip_eval_phase(card, entries, torch.device("cuda"), SPLIT_ROWS)
     bioclip_train_phase(card, entries, torch.device("cuda"))
+    probes = probe_kernels_phase(card)
+    entries.update(probes)
+    probes_path_phase(card, entries)
     if "jax" in sys.modules or any(m == "clibd_tpu" or m.startswith("clibd_tpu.")
                                    for m in sys.modules):
         fail("jax or the JAX package was imported: the port must run without them")
 
-    print(json.dumps({"kernels": [fwd, bwd, outproj, mlp]}))
+    print(json.dumps({"kernels": list(entries.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -41,6 +41,19 @@ accumulated in fp32, even for fp32 qkv.  Its backward is the TPU package's
 default one (`CLIBD_ATTN_BWD=pallas`): dctx = g . W_out^T into the backward
 kernel, ctx recomputed by the forward kernel for dW.
 
+`attention_bhnd(q, k, v)` is attention from separate q, k, v [B, H, N, 64]
+bf16 → [B, H, N, 64] in q's dtype, no mask: the port of the experiment
+`tools/exp_attn.py::make_pallas_attn` (`:125-162`), with the forward
+kernel's numerics (S in fp32 times hd^-1/2, fp32 row softmax, P rounded to
+bf16 after the normalisation, P.V accumulated in fp32).  On a CUDA tensor it
+launches `csrc/attention_bhnd.cu`, on a CPU tensor it runs
+`attention_bhnd_reference`; it has no backward.  The TPU script pads N to
+128 * ceil(N / 128) in device memory and gives the pad keys -1e30: their
+weights come out exactly 0, so the port pads nothing and masks the keys
+past N inside the kernel.  `make_pallas_attn`'s `np_pad` and `fuse_heads`
+arguments are unused in the JAX code itself and have no counterpart, nor
+has its batch block `bb` (one CTA per (batch, head) here).
+
 Deliberately absent (TPU-only): `vmem_safe_block_b` (a model of the 16 MB
 VMEM), `block_b` batch blocking, `_seq_pad`, `ATTN_BWD_GROUP` and the
 `CLIBD_ATTN_NPAD16/PHASED/FWD_GROUP/FWD_BPHASE` statement-order knobs, and
@@ -213,6 +226,44 @@ def flash_attention_qkv_outproj_cuda(qkv: torch.Tensor, out_w: torch.Tensor, out
     return out
 
 
+def attention_bhnd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the separate-q/k/v kernel, q, k, v
+    [B, H, N, hd]: bf16 values multiplied in fp32 (exact products)."""
+    p = _probs(q, k, 1.0 / math.sqrt(q.shape[-1]), None).to(torch.bfloat16)
+    return torch.matmul(p.float(), v.to(torch.bfloat16).float()).to(q.dtype)
+
+
+def attention_bhnd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Launch the separate-q/k/v kernel → o [B, H, N, 64] in q's dtype."""
+    what = "attention_bhnd"
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"{what}: no kernel for q, k, v on {q.device}, {k.device}, {v.device}")
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{what}: q {q.dtype}, k {k.dtype}, v {v.dtype} (bf16 only)")
+    if q.dim() != 4 or q.shape[-1] != HEAD_DIM or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
+                         f"are not one [B, H, N, {HEAD_DIM}] (head dim must be {HEAD_DIM})")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{what}: q, k and v must be contiguous and 16-byte aligned")
+    B, H, N, _ = q.shape
+    max_n = function(what, "clibd_flash_attention_max_n", [])()
+    if N > max_n:
+        raise ValueError(f"{what}: N={N} exceeds the kernel's {max_n} keys")
+    out = torch.empty_like(q)
+    launch(what, what, "clibd_attention_bhnd",
+           [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()], [B * H, N], q.device)
+    attention_bhnd.launches += 1
+    return out
+
+
+def attention_bhnd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q.k^T / sqrt(hd)).v from separate q, k, v [B, H, N, 64]: the
+    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        return attention_bhnd_reference(q, k, v)
+    return attention_bhnd_cuda(q, k, v)
+
+
 # What each operator runs on a CUDA tensor.  Module attributes, so that a
 # measurement (`tools/profile_extract.plain_kernels`) can send the operators
 # to the plain versions on the card for a comparison.
@@ -334,3 +385,4 @@ def flash_attention_qkv_outproj(qkv: torch.Tensor, out_w: torch.Tensor, out_b: t
 flash_attention_qkv.launches = 0
 flash_attention_qkv_bwd.launches = 0
 flash_attention_qkv_outproj.launches = 0
+attention_bhnd.launches = 0

@@ -114,15 +114,16 @@ def function(name: str, fn: str, argtypes, restype=ctypes.c_int):
     return _FUNCTIONS[key]
 
 
-def launch(what: str, name: str, fn: str, pointers: list, ints: list, device) -> None:
+def launch(what: str, name: str, fn: str, pointers: list, ints: list, device,
+           floats: list = ()) -> None:
     """Call the entry point `fn` of `csrc/<name>.cu` -- `pointers` (ints or
-    None), `ints`, then the current stream of `device` -- and raise with the
-    CUDA error's message when it returns one (a refused launch never runs,
-    and no later synchronize would report it)."""
+    None), `ints`, `floats`, then the current stream of `device` -- and raise
+    with the CUDA error's message when it returns one (a refused launch never
+    runs, and no later synchronize would report it)."""
     f = function(name, fn, [ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(ints)
-                 + [ctypes.c_void_p])
+                 + [ctypes.c_float] * len(floats) + [ctypes.c_void_p])
     with torch.cuda.device(device):
-        rc = f(*pointers, *ints, torch.cuda.current_stream(device).cuda_stream)
+        rc = f(*pointers, *ints, *floats, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         message = function(name, "clibd_cuda_error_string", [ctypes.c_int], ctypes.c_char_p)(rc)
         raise RuntimeError(f"{what} kernel launch failed: {message.decode()}")

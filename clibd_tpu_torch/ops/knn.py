@@ -39,15 +39,17 @@ def prepare_keys(keys, device: torch.device | str = "cuda", dtype: str = "float3
 
 
 def knn_search(queries, keys, k: int = 5, query_chunk: int = 4096, normalize: bool = True,
-               keys_normalized: bool = False,
-               selector: str = "exact") -> Tuple[np.ndarray, np.ndarray]:
+               keys_normalized: bool = False, selector: str = "exact",
+               device: torch.device | str = "cuda") -> Tuple[np.ndarray, np.ndarray]:
     """→ (similarities [N, k] fp32, indices [N, k] int64), sorted descending.
 
-    Runs on the device of `keys` when it is a tensor, else on the CPU.
+    Runs where a tensor input lies (keys first, then queries); numpy inputs
+    go to `device`, the card unless the caller asks for the CPU.
     keys_normalized=True: keys came from prepare_keys."""
     if selector != "exact":
         raise NotImplementedError(f"selector={selector!r} {_LATER}")
-    device = keys.device if isinstance(keys, torch.Tensor) else torch.device("cpu")
+    tensors = [x for x in (keys, queries) if isinstance(x, torch.Tensor)]
+    device = tensors[0].device if tensors else torch.device(device)
     queries = _as_tensor(queries, device)
     keys = _as_tensor(keys, device)
     if normalize:
@@ -68,21 +70,23 @@ def knn_search(queries, keys, k: int = 5, query_chunk: int = 4096, normalize: bo
 
 
 def find_k_closest_records(query_feature, keys_feature, key_file_names, k: int = 5,
-                           query_chunk: int = 4096):
+                           query_chunk: int = 4096, device: torch.device | str = "cuda"):
     """File-name lookups (reference util/util.py:224-234): raw inner product,
     not cosine, as the reference feeds raw features to IndexFlatIP here.
-    → (names [N, k] object array, similarities)."""
+    → (names [N, k] object array, similarities).  Runs as `knn_search`."""
     sims, indices = knn_search(query_feature, keys_feature, k=k, query_chunk=query_chunk,
-                               normalize=False)
+                               normalize=False, device=device)
     names = np.asarray(key_file_names, dtype=object)[indices]
     return names, sims
 
 
 def make_prediction(query_feature, keys_feature, keys_label, with_similarity: bool = False,
-                    with_indices: bool = False, max_k: int = 5, query_chunk: int = 4096):
+                    with_indices: bool = False, max_k: int = 5, query_chunk: int = 4096,
+                    device: torch.device | str = "cuda"):
     """Per-query {level: [k labels]} dicts (reference util/util.py:521-553),
-    optionally with similarities / indices."""
-    sims, indices = knn_search(query_feature, keys_feature, k=max_k, query_chunk=query_chunk)
+    optionally with similarities / indices.  Runs as `knn_search`."""
+    sims, indices = knn_search(query_feature, keys_feature, k=max_k, query_chunk=query_chunk,
+                               device=device)
     levels = ("order", "family", "genus", "species")
     pred_list = [{level: [keys_label[i][level] for i in row] for level in levels}
                  for row in indices]

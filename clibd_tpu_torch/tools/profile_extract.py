@@ -44,7 +44,6 @@ import argparse
 import gzip
 import json
 import os
-import subprocess
 import tempfile
 import time
 from contextlib import contextmanager, nullcontext
@@ -267,6 +266,7 @@ def main(argv=None) -> dict:
     import torch
 
     from ..models.layers import kernel_knobs
+    from ..utils.profiling import card_line
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile_extract")
@@ -278,8 +278,7 @@ def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_extract needs a CUDA card")
     os.makedirs(args.out, exist_ok=True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     summary: dict = {"card": card, "experiment": args.experiment, "fused": args.fused,
                      "torch": torch.__version__, "cuda": torch.version.cuda}
     with kernel_knobs(args.fused, "pallas" if args.fused else "xla"):

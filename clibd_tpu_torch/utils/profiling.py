@@ -1,5 +1,6 @@
 """Timing: the port of `PhaseTimer` and `StepTimer` in
-`clibd_tpu/utils/profiling.py`, and `cuda_ms`, device time by CUDA events.
+`clibd_tpu/utils/profiling.py`, `cuda_ms`, device time by CUDA events, and
+`card_line`, the card that a time was taken on.
 
 A phase ends, and a step is ticked, with `torch.cuda.synchronize(device)`
 when the timer's device is CUDA, so the time of asynchronous kernels lands in
@@ -9,21 +10,31 @@ the phase or step that launched them and not in the next one.
 from __future__ import annotations
 
 import statistics
+import subprocess
 import time
 from typing import Dict, List, Optional
 
 import torch
 
 
+# cycles of the spin kernel queued ahead of each timed run (~0.1 ms on an
+# H100), longer than the host takes to enqueue a wrapper's launch
+_SPIN_CYCLES = 200_000
+
+
 def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     """Median device time in ms of fn() on the current CUDA stream, over
-    `iters` runs after `warmup` runs, each between two CUDA events."""
+    `iters` runs after `warmup` runs, each between two CUDA events.  A spin
+    kernel queued ahead of each start event keeps the card busy while the
+    host enqueues fn's work, so a run's time is the device's, not the host's
+    launch latency (which would otherwise dominate a call of tens of us)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(_SPIN_CYCLES)
         start.record()
         fn()
         stop.record()
@@ -32,11 +43,19 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(times)
 
 
+def card_line() -> str:
+    """The card's name and power limit, as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` prints them (first card)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
 class StepTimer:
     """Steady-state step time and samples/s, the first `warmup_steps` steps
     excluded (`profiling.py:29-57`).  Each tick waits for the card."""
 
-    def __init__(self, warmup_steps: int = 2, device: torch.device | str = "cpu"):
+    def __init__(self, warmup_steps: int = 2, device: torch.device | str = "cuda"):
         self.warmup_steps = warmup_steps
         self.device = torch.device(device)
         self.times: List[float] = []
@@ -73,7 +92,7 @@ class PhaseTimer:
     extract → write cache → kNN grid → plots → report); `report()` prints one
     line per phase plus the total."""
 
-    def __init__(self, device: torch.device | str = "cpu"):
+    def __init__(self, device: torch.device | str = "cuda"):
         self.device = torch.device(device)
         self.phases: List[tuple] = []
 

@@ -167,17 +167,17 @@ def test_knn_search_matches_jax(rng):
     k = rng.standard_normal((53, 16)).astype(np.float32)
     want_s, want_i = jax_knn.knn_search(q, k, k=5, query_chunk=8)
     for chunk in (1, 8, 4096):
-        got_s, got_i = port_knn.knn_search(q, k, k=5, query_chunk=chunk)
+        got_s, got_i = port_knn.knn_search(q, k, k=5, query_chunk=chunk, device="cpu")
         np.testing.assert_array_equal(got_i, want_i)
         np.testing.assert_allclose(got_s, want_s, rtol=1e-6, atol=1e-6)
     names = [f"key_{i}" for i in range(53)]
-    got_n, got_s = port_knn.find_k_closest_records(q, k, names, k=3)
+    got_n, got_s = port_knn.find_k_closest_records(q, k, names, k=3, device="cpu")
     want_n, want_s = jax_knn.find_k_closest_records(q, k, names, k=3)
     np.testing.assert_array_equal(got_n, want_n)
     np.testing.assert_allclose(got_s, want_s, rtol=1e-5, atol=1e-5)
     labels = [{"order": f"o{i % 2}", "family": f"f{i % 3}", "genus": f"g{i % 5}",
                "species": f"s{i}"} for i in range(53)]
-    assert port_knn.make_prediction(q, k, labels, max_k=3) == \
+    assert port_knn.make_prediction(q, k, labels, max_k=3, device="cpu") == \
         jax_knn.make_prediction(q, k, labels, max_k=3)
     prepared = port_knn.prepare_keys(k, device="cpu")
     np.testing.assert_allclose(prepared.norm(dim=1).numpy(), 1, atol=1e-6)
@@ -275,7 +275,10 @@ def test_port_imports_no_jax():
     assert "imported" in proc.stdout
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "clibd_tpu_torch/tools/profile_extract.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "clibd_tpu_torch/tools/profile_extract.py",
+                                    "clibd_tpu_torch/tools/exp_attn.py",
+                                    "clibd_tpu_torch/tools/exp_mxu.py",
+                                    "clibd_tpu_torch/tools/exp_mxu2.py"])
 def test_card_scripts_name_only_the_port(script):
     """The scripts that drive the port on the card import neither jax nor a
     `clibd_tpu` module; what they reuse of it they reach through the port."""

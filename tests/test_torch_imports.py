@@ -34,7 +34,8 @@ def _absolute_imports(path: str):
 
 def test_the_walk_covers_the_port():
     assert "chip_smoke.py" in PORT_FILES
-    assert "clibd_tpu_torch/tools/profile_extract.py" in PORT_FILES
+    for tool in ("profile_extract", "exp_attn", "exp_mxu", "exp_mxu2"):
+        assert f"clibd_tpu_torch/tools/{tool}.py" in PORT_FILES
     assert "clibd_tpu_torch/engine/train.py" in PORT_FILES
     assert len(PORT_FILES) >= 45, PORT_FILES
 
@@ -57,15 +58,21 @@ def _entry_points():
     from clibd_tpu_torch.engine.evaluate import inference_and_eval
     from clibd_tpu_torch.engine.train import Trainer
     from clibd_tpu_torch.models import init_clibd_model, load_model_npz, model_from_jax
-    from clibd_tpu_torch.ops.knn import prepare_keys
+    from clibd_tpu_torch.ops.knn import (find_k_closest_records, knn_search, make_prediction,
+                                         prepare_keys)
+    from clibd_tpu_torch.utils.profiling import PhaseTimer, StepTimer
 
     return {"init_clibd_model": init_clibd_model, "model_from_jax": model_from_jax,
             "load_model_npz": load_model_npz, "inference_and_eval": inference_and_eval,
-            "prepare_keys": prepare_keys, "Trainer": Trainer.__init__}
+            "prepare_keys": prepare_keys, "Trainer": Trainer.__init__, "knn_search": knn_search,
+            "find_k_closest_records": find_k_closest_records, "make_prediction": make_prediction,
+            "StepTimer": StepTimer.__init__, "PhaseTimer": PhaseTimer.__init__}
 
 
 @pytest.mark.parametrize("name", ["init_clibd_model", "model_from_jax", "load_model_npz",
-                                  "inference_and_eval", "prepare_keys", "Trainer"])
+                                  "inference_and_eval", "prepare_keys", "Trainer", "knn_search",
+                                  "find_k_closest_records", "make_prediction", "StepTimer",
+                                  "PhaseTimer"])
 def test_entry_point_defaults_to_cuda(name):
     fn = _entry_points()[name]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -91,3 +98,30 @@ def test_a_missing_card_is_an_error():
         return
     with pytest.raises((AssertionError, RuntimeError)):
         prepare_keys(keys)
+
+
+@pytest.mark.parametrize("call", ["knn_search", "make_prediction", "StepTimer", "PhaseTimer"])
+def test_numpy_inputs_and_timers_go_to_the_card(call):
+    """kNN on numpy inputs and the timers' synchronisation go to the card
+    unless told otherwise: without one they raise instead of running on the
+    CPU."""
+    import numpy as np
+
+    from clibd_tpu_torch.ops.knn import knn_search, make_prediction
+    from clibd_tpu_torch.utils.profiling import PhaseTimer, StepTimer
+
+    def one_phase():
+        with PhaseTimer().phase("x"):
+            pass
+
+    q = np.eye(3, 4, dtype=np.float32)
+    labels = [dict.fromkeys(("order", "family", "genus", "species"), "x")] * 3
+    run = {"knn_search": lambda: knn_search(q, q, k=2),
+           "make_prediction": lambda: make_prediction(q, q, labels, max_k=2),
+           "StepTimer": lambda: StepTimer(warmup_steps=0).tick(),
+           "PhaseTimer": one_phase}[call]
+    if torch.cuda.is_available():
+        run()
+        return
+    with pytest.raises((AssertionError, RuntimeError)):
+        run()

@@ -7,8 +7,9 @@ has PyTorch for CUDA and no jax:
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda -q
 
 Each kernel (the attention forward and backward, the attention with its
-out-projection fused in, the fused MLP) is held against its plain PyTorch
-version (which the CPU tests hold against clibd_tpu) at the slices' shapes,
+out-projection fused in, the fused MLP, and the chip-probe kernels: the
+scale copy, the tiled GEMM at every tile, the attention from separate
+q, k, v) is held against its plain PyTorch version (which the CPU tests hold against clibd_tpu) at the slices' shapes,
 and a tiny model on the card against the same model on the CPU, in
 extraction and in a training step, and with both opt-in kernels on.
 """
@@ -22,7 +23,10 @@ import torch
 from clibd_tpu_torch.config import BertConfig, ExperimentConfig, ViTConfig
 from clibd_tpu_torch.models import clibd_apply, init_clibd_model
 from clibd_tpu_torch.models.layers import kernel_knobs
+from clibd_tpu_torch.ops import attention, elementwise, gemm
 from clibd_tpu_torch.ops.attention import (
+    attention_bhnd,
+    attention_bhnd_reference,
     flash_attention_qkv,
     flash_attention_qkv_bwd,
     flash_attention_qkv_bwd_reference,
@@ -30,6 +34,8 @@ from clibd_tpu_torch.ops.attention import (
     flash_attention_qkv_outproj_reference,
     flash_attention_qkv_reference,
 )
+from clibd_tpu_torch.ops.elementwise import scale_copy
+from clibd_tpu_torch.ops.gemm import OUT_DTYPES, TILES, tiled_matmul, tiled_matmul_reference
 from clibd_tpu_torch.ops.mlp import fused_mlp, fused_mlp_reference
 
 NEG = np.finfo(np.float32).min
@@ -409,3 +415,100 @@ def test_tiny_bioclip_with_fused_kernels_on_the_card_matches_the_cpu(cuda_device
         assert float((got32[m] - want32[m]).abs().max()) <= EMB_ATOL, m
         cos = torch.nn.functional.cosine_similarity(got16[m], want16[m], dim=-1)
         assert float(cos.min()) >= BF16_COSINE_MIN, (m, cos)
+
+
+# GEMM against its plain version, relative to max |plain|: exact bf16
+# products on both sides, fp32 sums in another order; a bf16 out adds one
+# rounding that such a difference can flip
+GEMM_REL_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8192 * 2048, 4099, 3])
+def test_scale_copy_kernel_is_exact(cuda_device, n):
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(n, dtype=np.float32))
+    x = x.to(cuda_device)
+    before = scale_copy.launches
+    got = scale_copy(x, 2.0)
+    torch.cuda.synchronize()
+    assert scale_copy.launches == before + 1
+    assert torch.equal(got, x * 2.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", list(TILES))
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES, ids=["fp32", "bf16"])
+def test_tiled_gemm_kernel_matches_plain_version(cuda_device, tile, out_dtype):
+    bm, bn, bk = TILES[tile][:3]
+    M, N, K = 2 * bm, 3 * bn, 5 * bk  # several CTAs each way and a K loop longer than the ring
+    rng = np.random.default_rng(bm + bn + bk)
+    a, b = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(cuda_device,
+                                                                           torch.bfloat16)
+            for s in ((M, K), (K, N)))
+    before = tiled_matmul.launches
+    got = tiled_matmul(a, b, tile, out_dtype)
+    torch.cuda.synchronize()
+    assert tiled_matmul.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    want = tiled_matmul_reference(a, b, out_dtype).float()
+    assert float((got.float() - want).abs().max()) <= GEMM_REL_TOL[out_dtype] * float(
+        want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(4, 197), (4, 133), (4, 20), (2, 256)])
+def test_attention_bhnd_kernel_matches_plain_version(cuda_device, B, N):
+    rng = np.random.default_rng(N)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, 12, N, 64), dtype=np.float32))
+               .to(cuda_device, torch.bfloat16) for _ in range(3))
+    before = attention_bhnd.launches
+    got = attention_bhnd(q, k, v)
+    torch.cuda.synchronize()
+    assert attention_bhnd.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert float((got.float() - attention_bhnd_reference(q, k, v).float()).abs().max()) \
+        <= FP32_ATOL
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    before = scale_copy.launches, tiled_matmul.launches, attention_bhnd.launches
+    z = torch.zeros(1000, 1024, device=cuda_device, dtype=torch.bfloat16)
+    sq = torch.zeros(1024, 1024, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of the tile"):
+        tiled_matmul(z, sq, "t64x64x32")
+    with pytest.raises(ValueError, match="multiples of the tile"):
+        tiled_matmul(sq[:, :1000].contiguous(), z, "t64x64x32")
+    with pytest.raises(ValueError, match="contiguous"):
+        tiled_matmul(sq.t(), sq, "t64x64x32")
+    with pytest.raises(TypeError, match="fp32 only"):
+        scale_copy(torch.zeros(8, device=cuda_device, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        scale_copy(torch.zeros(8, 8, device=cuda_device).t())
+    q = torch.zeros(1, 2, 20, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="exceeds"):
+        attention_bhnd(*(torch.zeros(1, 1, 300, 64, device=cuda_device, dtype=torch.bfloat16),) * 3)
+    with pytest.raises(ValueError, match="head dim"):
+        attention_bhnd(q[..., :32], q[..., :32], q[..., :32])
+    with pytest.raises(TypeError, match="bf16 only"):
+        attention_bhnd(q.float(), q.float(), q.float())
+    assert (scale_copy.launches, tiled_matmul.launches, attention_bhnd.launches) == before
+
+
+@pytest.mark.cuda
+def test_probe_kernels_have_no_fallback(cuda_device, monkeypatch):
+    """On the card each probe op launches its kernel or raises: with the
+    kernel's entry point failing, the call raises instead of running the
+    plain version."""
+    def refuse(what, *args, **kwargs):
+        raise RuntimeError(f"{what} kernel launch failed: refused for the test")
+
+    for module in (elementwise, gemm, attention):
+        monkeypatch.setattr(module, "launch", refuse)
+    sq = torch.zeros(64, 64, device=cuda_device, dtype=torch.bfloat16)
+    q = torch.zeros(1, 1, 20, 64, device=cuda_device, dtype=torch.bfloat16)
+    for call in (lambda: scale_copy(torch.zeros(16, device=cuda_device)),
+                 lambda: tiled_matmul(sq, sq, "t64x64x32"),
+                 lambda: attention_bhnd(q, q, q)):
+        with pytest.raises(RuntimeError, match="refused for the test"):
+            call()
