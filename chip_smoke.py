@@ -94,15 +94,28 @@ Phases, each of which raises on failure:
      max |plain| (bf16 out); TFLOP/s against 989 and cuBLAS bf16
      `torch.matmul`; a shape off the tile raises and launches nothing;
    - `attention_bhnd` (separate q, k, v) at B=256 N=197, B=64 N=133 and
-     B=64 N=20 (H=12): max |kernel - plain| <= 2e-2; SDPA on the same q/k/v;
-   - yardsticks for the fused-qkv experiment kernels still to port
-     (`tools/exp_flash.py`): SDPA forward and backward at B=256, H=12 on
-     N=197 and N=133, with their bounds.
+     B=64 N=20 (H=12): max |kernel - plain| <= 2e-2; SDPA on the same q/k/v.
    Then the probes path: the three harnesses as a user runs them
    (`clibd_tpu_torch.tools.exp_attn` all and extra, `exp_mxu`, `exp_mxu2`
    with every variant), each printing its own lines; each of the three
    kernels must launch in it, the four earlier ones not at all, and every
    GEMM row the harnesses print must be within the tolerances above.
+11. flash experiments: the kernels of `tools/exp_flash.py`'s schedules, each
+   against its plain version at H=12 on N=197 unmasked and N=133 with a
+   random key mask and one fully masked batch row, at B=5 and B=256:
+   - `flash_attention_qkv_phased` (its largest head group that fits) and
+     `flash_attention_qkv_batched`: max |kernel - plain| <= 2e-2;
+   - `flash_attention_qkv_bwd_phased`: max |kernel - plain| <= 2e-2 *
+     max |plain| per part (dq, dk, dv), and the same against the backward
+     kernel's output;
+   then kernel, the production kernel it reschedules (`v0`), plain
+   version, SDPA (forward or backward) and bound timed at B=256; shapes each wrapper refuses (a head group past the shared
+   memory, fp32, N=250 for the backward) raise and launch nothing.  Then
+   the flash experiments path: `clibd_tpu_torch.tools.exp_flash` parity,
+   bwd_parity, time, bwd_time and fwd_group as a user runs them; each of
+   the three kernels must launch, the forward and backward kernels only as
+   the harness's `v0` (46 and 48 launches), no other kernel, and every
+   parity row must be OK.
 
 Phases 3-5 run with both opt-in kernels off, as the flagship recipe does.
 The last three lines are the kernel summary JSON, the card line, and
@@ -142,6 +155,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores, published
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores, published
 PROBE_KERNELS = ("scale_copy", "tiled_gemm", "attention_bhnd")
+EXP_FLASH_KERNELS = ("flash_attention_qkv_phased", "flash_attention_qkv_batched",
+                     "flash_attention_qkv_bwd_phased")
+# (N, masked) at H=12 for the experiment kernels: the JAX script's two towers
+EXP_FLASH_SHAPES = ((197, False), (133, True))
 GEMM_REL_TOL = {"fp32": 1e-3, "bf16": 1e-2}  # max |kernel - plain| / max |plain|, by out dtype
 # (B, N) at H=12 for attention_bhnd: the harness's shape, then two smaller ones
 BHND_SHAPES = ((256, 197), (64, 133), (64, 20))
@@ -174,14 +191,10 @@ def make_qkv(B, N, H, masked, seed):
 
 def library_attention(qkv, H, mask):
     """The closest single PyTorch call, for timing only: scaled dot-product
-    attention on head-split views of qkv."""
-    import torch.nn.functional as F
+    attention on head-split views of qkv (`tools/exp_flash.sdpa`)."""
+    from clibd_tpu_torch.tools.exp_flash import sdpa
 
-    B, N, three_d = qkv.shape
-    D = three_d // 3
-    q, k, v = (t.view(B, N, H, 64).transpose(1, 2) for t in qkv.split(D, dim=-1))
-    bias = None if mask is None else mask[:, None, None, :].to(qkv.dtype)
-    return F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+    return sdpa(qkv, H, mask)
 
 
 def kernel_entry(name, source, replaces, shapes):
@@ -537,8 +550,11 @@ def rel_err(got, want) -> float:
 
 def kernel_counters():
     from clibd_tpu_torch.ops.attention import (attention_bhnd, flash_attention_qkv,
+                                               flash_attention_qkv_batched,
                                                flash_attention_qkv_bwd,
-                                               flash_attention_qkv_outproj)
+                                               flash_attention_qkv_bwd_phased,
+                                               flash_attention_qkv_outproj,
+                                               flash_attention_qkv_phased)
     from clibd_tpu_torch.ops.elementwise import scale_copy
     from clibd_tpu_torch.ops.gemm import tiled_matmul
     from clibd_tpu_torch.ops.mlp import fused_mlp
@@ -547,7 +563,10 @@ def kernel_counters():
             "flash_attention_qkv_bwd": flash_attention_qkv_bwd,
             "flash_attention_qkv_outproj": flash_attention_qkv_outproj, "fused_mlp": fused_mlp,
             "scale_copy": scale_copy, "tiled_gemm": tiled_matmul,
-            "attention_bhnd": attention_bhnd}
+            "attention_bhnd": attention_bhnd,
+            "flash_attention_qkv_phased": flash_attention_qkv_phased,
+            "flash_attention_qkv_batched": flash_attention_qkv_batched,
+            "flash_attention_qkv_bwd_phased": flash_attention_qkv_bwd_phased}
 
 
 def reset_counts() -> None:
@@ -756,7 +775,8 @@ def bioclip_eval_phase(card: str, entries: dict, device, split_rows: dict) -> No
     layers = (mc.clip.vision_layers, mc.dna.bert.num_layers, mc.clip.text_layers)
     expected = {"flash_attention_qkv": 0, "flash_attention_qkv_bwd": 0,
                 "flash_attention_qkv_outproj": (layers[0] + layers[1]) * n_batches,
-                "fused_mlp": sum(layers) * n_batches, **dict.fromkeys(PROBE_KERNELS, 0)}
+                "fused_mlp": sum(layers) * n_batches,
+                **dict.fromkeys(PROBE_KERNELS + EXP_FLASH_KERNELS, 0)}
     print(f"BioCLIP eval launches over {n_batches} batches: {counts} (expected {expected})")
     if counts != expected:
         fail(f"BioCLIP eval launched {counts}, expected {expected}")
@@ -825,7 +845,8 @@ def bioclip_train_phase(card: str, entries: dict, device) -> None:
     n_l = (mc.clip.vision_layers, mc.dna.bert.num_layers, mc.clip.text_layers)
     expected = {"flash_attention_qkv": n_l[1], "flash_attention_qkv_bwd": n_l[1],
                 "flash_attention_qkv_outproj": n_l[0] + n_l[1],
-                "fused_mlp": sum(n_l) + n_l[1], **dict.fromkeys(PROBE_KERNELS, 0)}
+                "fused_mlp": sum(n_l) + n_l[1],
+                **dict.fromkeys(PROBE_KERNELS + EXP_FLASH_KERNELS, 0)}
     losses, per_step, times = [], [], []
     with kernel_knobs(True, "pallas"):
         batches = [to_device({k: v for k, v in bt.items() if k != "index"}, device)
@@ -1020,40 +1041,9 @@ def attention_bhnd_checks(card: str) -> dict:
                         "tools/exp_attn.py:129", shapes)
 
 
-def exp_flash_yardsticks(card: str) -> dict:
-    """SDPA forward and backward, and the bounds, at the shapes of the
-    fused-qkv experiment kernels still to port (tools/exp_flash.py)."""
-    import torch
-
-    from clibd_tpu_torch.utils.profiling import cuda_ms
-
-    B, H = 256, 12
-    D = H * 64
-    out = {}
-    for N in (197, 133):
-        qkv, _ = make_qkv(B, N, H, False, seed=N)
-        leaf = qkv.detach().requires_grad_()
-        lib_out = library_attention(leaf, H, None)
-        dout = torch.randn_like(lib_out)
-        fwd_ms = cuda_ms(lambda: library_attention(qkv, H, None))
-        bwd_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaf, dout, retain_graph=True))
-        fwd_bound = bound(B * N * (3 * D + D) * 2, 4 * B * H * N * N * 64)
-        bwd_bound = bound(B * N * (3 * D + D + 3 * D) * 2, 10 * B * H * N * N * 64)
-        print(f"yardstick tools/exp_flash.py B={B} H={H} N={N}: sdpa forward {fwd_ms:.4f} ms "
-              f"(bound {fwd_bound[0]:.4f} ms, {fwd_bound[1]}), sdpa backward {bwd_ms:.4f} ms "
-              f"(bound {bwd_bound[0]:.4f} ms, {bwd_bound[1]})  [{card}]")
-        out[f"N={N}"] = {"sdpa_fwd_ms": fwd_ms, "fwd_bound_ms": fwd_bound[0],
-                         "sdpa_bwd_ms": bwd_ms, "bwd_bound_ms": bwd_bound[0]}
-        del qkv, leaf, lib_out, dout
-    torch.cuda.empty_cache()
-    return out
-
-
 def probe_kernels_phase(card: str) -> dict:
-    entries = {e["name"]: e for e in (scale_copy_checks(card), gemm_checks(card),
-                                      attention_bhnd_checks(card))}
-    print(json.dumps({"exp_flash_yardsticks": exp_flash_yardsticks(card)}))
-    return entries
+    return {e["name"]: e for e in (scale_copy_checks(card), gemm_checks(card),
+                                   attention_bhnd_checks(card))}
 
 
 def probes_path_phase(card: str, entries: dict) -> None:
@@ -1082,6 +1072,146 @@ def probes_path_phase(card: str, entries: dict) -> None:
     add_launches(entries, "probes", {k: counts[k] for k in PROBE_KERNELS})
 
 
+def exp_flash_kernels_phase(card: str) -> dict:
+    """Phase 11: the three experiment kernels against their plain versions
+    (and the phased backward against the backward kernel), timed beside the
+    plain version, SDPA and the bound; refused shapes launch nothing."""
+    import torch
+
+    from clibd_tpu_torch.ops.attention import (
+        flash_attention_qkv_batched_cuda,
+        flash_attention_qkv_bwd_cuda,
+        flash_attention_qkv_bwd_phased_cuda,
+        flash_attention_qkv_bwd_reference,
+        flash_attention_qkv_cuda,
+        flash_attention_qkv_phased_cuda,
+        flash_attention_qkv_reference,
+    )
+    from clibd_tpu_torch.utils.profiling import cuda_ms
+
+    H, D = 12, 768
+    fwd = {"flash_attention_qkv_phased": flash_attention_qkv_phased_cuda,
+           "flash_attention_qkv_batched": flash_attention_qkv_batched_cuda}
+    shapes = {name: [] for name in EXP_FLASH_KERNELS}
+    for N, masked in EXP_FLASH_SHAPES:
+        err = dict.fromkeys(EXP_FLASH_KERNELS, 0.0)
+        for B in (5, 256):
+            qkv, mask = make_qkv(B, N, H, masked, seed=N + B + 3)
+            g = torch.Generator(device="cuda").manual_seed(N + B)
+            dout = torch.randn(B, N, D, generator=g, device="cuda").to(torch.bfloat16)
+            want = flash_attention_qkv_reference(qkv, H, mask).float()
+            for name, fn in fwd.items():
+                got = fn(qkv, H, mask).float()
+                torch.cuda.synchronize()
+                e = float((got - want).abs().max())
+                print(f"kernel {name} B={B} N={N} mask={masked}: max|kernel-plain| {e:.3e} "
+                      f"(tol {KERNEL_TOL})")
+                if not torch.isfinite(got).all() or e > KERNEL_TOL:
+                    fail(f"{name} disagrees with its plain version at B={B} N={N}: {e}")
+                err[name] = max(err[name], e)
+            got = flash_attention_qkv_bwd_phased_cuda(qkv, dout, H, mask)
+            plain = flash_attention_qkv_bwd_reference(qkv, dout, H, mask)
+            v0 = flash_attention_qkv_bwd_cuda(qkv, dout, H, mask)
+            torch.cuda.synchronize()
+            rel = [rel_err(got[..., i * D:(i + 1) * D], plain[..., i * D:(i + 1) * D])
+                   for i in range(3)]
+            rel_v0 = [rel_err(got[..., i * D:(i + 1) * D], v0[..., i * D:(i + 1) * D])
+                      for i in range(3)]
+            print(f"kernel flash_attention_qkv_bwd_phased B={B} N={N} mask={masked}: "
+                  f"max|kernel-plain|/max|plain| dq {rel[0]:.3e} dk {rel[1]:.3e} dv {rel[2]:.3e}; "
+                  f"against the backward kernel dq {rel_v0[0]:.3e} dk {rel_v0[1]:.3e} dv "
+                  f"{rel_v0[2]:.3e} (tol {BWD_REL_TOL})")
+            if not torch.isfinite(got).all() or max(rel + rel_v0) > BWD_REL_TOL:
+                fail(f"the phased backward disagrees at B={B} N={N}: {rel}, {rel_v0}")
+            err["flash_attention_qkv_bwd_phased"] = max(
+                err["flash_attention_qkv_bwd_phased"], float((got.float() - plain.float()).abs().max()))
+            del got, plain, v0, want
+        mask_bytes = B * N * 4 if masked else 0
+        fwd_bound = bound(B * N * (3 * D + D) * 2 + mask_bytes, 4 * B * H * N * N * 64)
+        bwd_bound = bound(B * N * (3 * D + D + 3 * D) * 2 + mask_bytes, 10 * B * H * N * N * 64)
+        leaf = qkv.detach().requires_grad_()
+        lib_out = library_attention(leaf, H, mask)
+        lib_grad = dout.view(B, N, H, 64).transpose(1, 2)
+        # each kernel beside its plain version, the library call and the
+        # production kernel it reschedules (v0), on the same inputs
+        v0_fwd = cuda_ms(lambda: flash_attention_qkv_cuda(qkv, H, mask))
+        v0_bwd = cuda_ms(lambda: flash_attention_qkv_bwd_cuda(qkv, dout, H, mask))
+        timed = (
+            ("flash_attention_qkv_phased", lambda: flash_attention_qkv_phased_cuda(qkv, H, mask),
+             lambda: flash_attention_qkv_reference(qkv, H, mask),
+             lambda: library_attention(qkv, H, mask), fwd_bound, "sdpa", v0_fwd),
+            ("flash_attention_qkv_batched", lambda: flash_attention_qkv_batched_cuda(qkv, H, mask),
+             lambda: flash_attention_qkv_reference(qkv, H, mask),
+             lambda: library_attention(qkv, H, mask), fwd_bound, "sdpa", v0_fwd),
+            ("flash_attention_qkv_bwd_phased",
+             lambda: flash_attention_qkv_bwd_phased_cuda(qkv, dout, H, mask),
+             lambda: flash_attention_qkv_bwd_reference(qkv, dout, H, mask),
+             lambda: torch.autograd.grad(lib_out, leaf, lib_grad, retain_graph=True), bwd_bound,
+             "sdpa backward", v0_bwd))
+        for name, kernel, plain_fn, library, (bound_ms, bound_by), lib_name, v0_ms in timed:
+            ms, plain_ms, library_ms = cuda_ms(kernel), cuda_ms(plain_fn), cuda_ms(library)
+            print(f"time {name} B={B} N={N} mask={masked}: kernel {ms:.4f} ms, v0 {v0_ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, library ({lib_name}) {library_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by})  [{card}]")
+            shapes[name].append({"shape": f"B={B} H={H} N={N} mask={masked}", "B": B, "N": N,
+                                 "H": H, "ms": ms, "v0_ms": v0_ms, "plain_ms": plain_ms,
+                                 "library_ms": library_ms, "bound_ms": bound_ms,
+                                 "bound_by": bound_by, "max_abs_err": err[name]})
+        del qkv, mask, dout, leaf, lib_out, lib_grad
+    torch.cuda.empty_cache()
+
+    # shapes the wrappers refuse raise before any launch
+    before = read_counts()
+    z197 = torch.zeros(2, 197, 3 * D, device="cuda", dtype=torch.bfloat16)
+    z250 = torch.zeros(1, 250, 3 * 128, device="cuda", dtype=torch.bfloat16)
+    refusals = (
+        ("phased, 3 heads per phase at N=197", ValueError,
+         lambda: flash_attention_qkv_phased_cuda(z197, H, None, 3)),
+        ("phased, 5 heads per phase", ValueError,
+         lambda: flash_attention_qkv_phased_cuda(z197, H, None, 5)),
+        ("batched, fp32", TypeError, lambda: flash_attention_qkv_batched_cuda(z197.float(), H)),
+        ("phased backward, N=250", ValueError,
+         lambda: flash_attention_qkv_bwd_phased_cuda(z250, z250[..., :128], 2)))
+    for what, error, call in refusals:
+        try:
+            call()
+        except error as e:
+            print(f"refused: {what}: {e}")
+        else:
+            fail(f"the wrapper took {what}")
+    if read_counts() != before:
+        fail("a refused experiment-kernel call launched a kernel")
+    return {name: kernel_entry(name, f"clibd_tpu_torch/csrc/{name}.cu", replaces, shapes[name])
+            for name, replaces in zip(EXP_FLASH_KERNELS, ("tools/exp_flash.py:51",
+                                                          "tools/exp_flash.py:80",
+                                                          "tools/exp_flash.py:157"))}
+
+
+def flash_experiments_path_phase(card: str, entries: dict) -> None:
+    """The flash experiments harness as a user runs it, every mode: each
+    experiment kernel launches, the forward and backward kernels only as its
+    `v0` (23 timed runs at each of the two shapes, and the backward once per
+    shape in bwd_parity), no other kernel."""
+    import torch
+
+    from clibd_tpu_torch.tools import exp_flash
+
+    t0 = time.perf_counter()
+    reset_counts()
+    rows = [r for mode in exp_flash.MODES for r in exp_flash.main([mode])]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"flash experiments path: launches {counts} in {time.perf_counter() - t0:.1f} s  [{card}]")
+    v0 = {"flash_attention_qkv": 46, "flash_attention_qkv_bwd": 48}
+    if any(counts[k] == 0 for k in EXP_FLASH_KERNELS) or any(
+            n != v0.get(k, 0) for k, n in counts.items() if k not in EXP_FLASH_KERNELS):
+        fail(f"the flash experiments path launched {counts}: each experiment kernel at least "
+             f"once, the forward and backward kernels {v0}, no other")
+    if not all(r["ok"] for r in rows if "ok" in r):
+        fail("a parity row of the flash experiments harness is not OK")
+    add_launches(entries, "exp_flash", {k: counts[k] for k in EXP_FLASH_KERNELS})
+
+
 def main() -> int:
     import torch
 
@@ -1101,8 +1231,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build_libraries(["flash_attention_qkv", "flash_attention_qkv_bwd",
                      "flash_attention_qkv_outproj", "fused_mlp", "scale_copy", "tiled_gemm",
-                     "attention_bhnd"])
-    print(f"build: all seven kernel sources in parallel, {time.perf_counter() - t0:.2f} s wall")
+                     "attention_bhnd", *EXP_FLASH_KERNELS])
+    print(f"build: all ten kernel sources in parallel, {time.perf_counter() - t0:.2f} s wall")
     for name, info in BUILD_INFO.items():
         print(f"build {name}.cu: nvcc {info['seconds']:.2f} s -> {info['path']}")
         for line in info["log"].splitlines():
@@ -1134,6 +1264,8 @@ def main() -> int:
     probes = probe_kernels_phase(card)
     entries.update(probes)
     probes_path_phase(card, entries)
+    entries.update(exp_flash_kernels_phase(card))
+    flash_experiments_path_phase(card, entries)
     if "jax" in sys.modules or any(m == "clibd_tpu" or m.startswith("clibd_tpu.")
                                    for m in sys.modules):
         fail("jax or the JAX package was imported: the port must run without them")

@@ -118,12 +118,13 @@ int clibd_attention_bhnd(const void* q, const void* k, const void* v, void* out,
     return (int)cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf((float)HD);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int kt = (N + 15) / 16;
-  if (kt <= 2) return (int)launch<2>(q, k, v, out, BH, N, scale, s);
-  if (kt <= 4) return (int)launch<4>(q, k, v, out, BH, N, scale, s);
-  if (kt <= 9) return (int)launch<9>(q, k, v, out, BH, N, scale, s);
-  if (kt <= 13) return (int)launch<13>(q, k, v, out, BH, N, scale, s);
-  return (int)launch<16>(q, k, v, out, BH, N, scale, s);
+  switch (kt_instance(N)) {
+    case 2: return (int)launch<2>(q, k, v, out, BH, N, scale, s);
+    case 4: return (int)launch<4>(q, k, v, out, BH, N, scale, s);
+    case 9: return (int)launch<9>(q, k, v, out, BH, N, scale, s);
+    case 13: return (int)launch<13>(q, k, v, out, BH, N, scale, s);
+    default: return (int)launch<16>(q, k, v, out, BH, N, scale, s);
+  }
 }
 
 const char* clibd_cuda_error_string(int code) {

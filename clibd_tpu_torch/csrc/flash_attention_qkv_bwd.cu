@@ -465,12 +465,13 @@ int clibd_flash_attention_qkv_bwd(const void* qkv, const void* dout, const float
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_f32(qkv, dout, mask, dqkv, B, N, H, scale, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  const int kt = (N + 15) / 16;
-  if (kt <= 2) return (int)launch_bf16<2>(qkv, dout, mask, dqkv, B, N, H, scale, s);
-  if (kt <= 4) return (int)launch_bf16<4>(qkv, dout, mask, dqkv, B, N, H, scale, s);
-  if (kt <= 9) return (int)launch_bf16<9>(qkv, dout, mask, dqkv, B, N, H, scale, s);
-  if (kt <= 13) return (int)launch_bf16<13>(qkv, dout, mask, dqkv, B, N, H, scale, s);
-  return (int)launch_bf16<16>(qkv, dout, mask, dqkv, B, N, H, scale, s);
+  switch (kt_instance(N)) {
+    case 2: return (int)launch_bf16<2>(qkv, dout, mask, dqkv, B, N, H, scale, s);
+    case 4: return (int)launch_bf16<4>(qkv, dout, mask, dqkv, B, N, H, scale, s);
+    case 9: return (int)launch_bf16<9>(qkv, dout, mask, dqkv, B, N, H, scale, s);
+    case 13: return (int)launch_bf16<13>(qkv, dout, mask, dqkv, B, N, H, scale, s);
+    default: return (int)launch_bf16<16>(qkv, dout, mask, dqkv, B, N, H, scale, s);
+  }
 }
 
 const char* clibd_cuda_error_string(int code) {

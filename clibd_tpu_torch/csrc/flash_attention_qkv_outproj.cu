@@ -23,11 +23,12 @@
 // shared memory a CTA can have, so the queries are tiled instead:
 //  * one CTA per (batch, 64 query rows), 8 warps; warp w takes rows
 //    16*(w%4) .. +16 of the tile;
-//  * attention, one head pair at a time: K and V^T of heads h and h+1 are
-//    staged in shared memory (as the forward kernel stages one head), warps
-//    0-3 attend over head h and warps 4-7 over head h+1 exactly as the
-//    forward kernel does (the whole 16 x Npad score block in registers), and
-//    each writes its bf16 context into the CTA's [64, D] context tile;
+//  * attention, one head pair at a time (flash_common.cuh's
+//    attend_heads_to_ctx, shared with flash_attention_qkv_batched.cu): K and
+//    V of heads h and h+1 are copied into shared memory by cp.async, warps
+//    0-3 attend over head h and warps 4-7 over head h+1 as the forward
+//    kernel does (the whole 16 x Npad score block in registers), and each
+//    writes its bf16 context into the CTA's [64, D] context tile;
 //  * projection: W_out is streamed through shared memory in [128, 128] bf16
 //    chunks with cp.async, double-buffered in the space the K/V tiles used;
 //    warp w multiplies its 16 context rows by the chunk's column half w/4
@@ -37,8 +38,8 @@
 //    attention phase with S exact in fp32, one head at a time, and the same
 //    projection (the context is bf16 in both, as in the TPU kernel).
 // Shared memory: the context tile, 64 x (D+8) bf16 (99 KB at D=768), plus the
-// larger of two heads' K/V^T (115 KB at N=197) and two W chunks (70 KB): 215 KB
-// at the ViT shape, so one CTA per SM.  Left on the table: wgmma and TMA, a
+// larger of two heads' K and V (120 KB at N=197) and two W chunks (70 KB):
+// 219 KB at the ViT shape, so one CTA per SM.  Left on the table: wgmma and TMA, a
 // tile that fits two CTAs per SM, the K/V restaging of every query tile (4
 // tiles per batch element at N=197), W_out re-read from L2 by every CTA.
 
@@ -55,11 +56,6 @@ constexpr int KC = 128;    // W_out chunk: k rows
 constexpr int NC = 128;    // W_out chunk: output columns (64 per warp)
 constexpr int WS = NC + 8; // W_out chunk row stride in bf16: conflict-free ldmatrix
 
-// bytes of one head's K (row stride HD+8) and V^T (row stride Npad+8), bf16
-__host__ __device__ constexpr size_t kv_bytes(int npad) {
-  return (size_t)(npad * (HD + 8) + HD * (npad + 8)) * 2;
-}
-
 // bytes of the fp32 attention scratch: K [N][HD+1], V [N][HD], per warp q[HD]
 // and p[N]
 __host__ __device__ constexpr size_t f32_attn_bytes(int n) {
@@ -67,8 +63,6 @@ __host__ __device__ constexpr size_t f32_attn_bytes(int n) {
 }
 
 constexpr size_t W_BYTES = 2 * (size_t)KC * WS * 2;  // two W_out chunks
-
-__host__ __device__ constexpr size_t ctx_bytes(int D) { return (size_t)QROWS * (D + 8) * 2; }
 
 // ---------------------------------------------------------------------------
 // Projection: out[q0 + r, :] = ctx[r, :] . W + bias for the CTA's rows below N.
@@ -160,14 +154,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 outproj_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ mask,
                     const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
                     __nv_bfloat16* __restrict__ out, int N, int H, float scale) {
-  constexpr int NPAD = KT * 16;
-  constexpr int KS = HD + 8;    // K row stride
-  constexpr int VS = NPAD + 8;  // V^T row stride
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int D = H * HD;
-  const int CS = D + 8;
   __nv_bfloat16* ctx = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  unsigned char* region = smem_raw + ctx_bytes(D);
+  unsigned char* region = smem_raw + ctx_tile_bytes(D);
 
   const int qtiles = (N + QROWS - 1) / QROWS;
   const int b = blockIdx.x / qtiles;
@@ -177,49 +167,8 @@ outproj_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restri
   const __nv_bfloat16* base = qkv + (long)b * N * rs;
   const float* mrow = mask ? mask + (long)b * N : nullptr;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int mt = warp % 4;   // the warp's 16-row tile
-  const int grp = warp / 4;  // which head of the pair
-  const bool live = mt * 16 < rows;
-
   zero_dead_tiles(ctx, rows, D);
-  for (int h0 = 0; h0 < H; h0 += 2) {
-    __syncthreads();  // the previous pair's K/V are no longer read
-    for (int idx = threadIdx.x; idx < 2 * NPAD * (HD / 8); idx += THREADS) {
-      const int gi = idx / (NPAD * (HD / 8));
-      const int rem = idx % (NPAD * (HD / 8));
-      const int r = rem / (HD / 8), c = (rem % (HD / 8)) * 8;
-      const int h = h0 + gi;
-      __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(region + gi * kv_bytes(NPAD));
-      __nv_bfloat16* Vt = Ks + NPAD * KS;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-      if (r < N && h < H) {
-        kv = *reinterpret_cast<const uint4*>(base + r * rs + D + h * HD + c);
-        vv = *reinterpret_cast<const uint4*>(base + r * rs + 2 * D + h * HD + c);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * KS + c) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) Vt[(c + i) * VS + r] = ve[i];
-    }
-    __syncthreads();
-    const int h = h0 + grp;
-    if (!live || h >= H) continue;
-    const __nv_bfloat16* Ks = reinterpret_cast<const __nv_bfloat16*>(region + grp * kv_bytes(NPAD));
-    const __nv_bfloat16* Vt = Ks + NPAD * KS;
-    float o[HD / 8][4];
-    attend_rows_bf16<KT>(o, base + h * HD, rs, Ks, Vt, mrow, N, q0 + mt * 16, scale, g, t);
-    __nv_bfloat16* c0 = ctx + (mt * 16 + g) * CS + h * HD + t * 2;
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(c0 + dt * 8) = __floats2bfloat162_rn(o[dt][0], o[dt][1]);
-      *reinterpret_cast<__nv_bfloat162*>(c0 + 8 * CS + dt * 8) =
-          __floats2bfloat162_rn(o[dt][2], o[dt][3]);
-    }
-  }
-  __syncthreads();  // the context tile is complete; the K/V region is free
+  attend_heads_to_ctx<KT, WARPS / 4, 1>(ctx, region, base, rs, mrow, N, H, q0, rows, scale);
   project(ctx, reinterpret_cast<__nv_bfloat16*>(region), w, bias, out, (long)b * N + q0, rows, D);
 }
 
@@ -235,7 +184,7 @@ outproj_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ mask
   const int D = H * HD;
   const int CS = D + 8;
   __nv_bfloat16* ctx = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  unsigned char* region = smem_raw + ctx_bytes(D);
+  unsigned char* region = smem_raw + ctx_tile_bytes(D);
   float* Ks = reinterpret_cast<float*>(region);  // [N][HD + 1]
   float* Vs = Ks + N * (HD + 1);                 // [N][HD], rounded to bf16
   float* Qs = Vs + N * HD;                       // [WARPS][HD]
@@ -278,18 +227,12 @@ outproj_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ mask
   project(ctx, reinterpret_cast<__nv_bfloat16*>(region), w, bias, out, (long)b * N + q0, rows, D);
 }
 
-// the key-tile count of the bf16 kernel instance that takes N keys
-int kt_for(int N) {
-  const int kt = (N + 15) / 16;
-  return kt <= 2 ? 2 : kt <= 4 ? 4 : kt <= 9 ? 9 : kt <= 13 ? 13 : 16;
-}
-
 // shared memory of a launch, or 0 where the shapes are not taken
 size_t smem_bytes(int N, int H, int dtype) {
   const int D = H * HD;
   if (N < 1 || N > MAX_N || H < 2 || D % KC) return 0;
-  const size_t attn = dtype == 1 ? 2 * kv_bytes(kt_for(N) * 16) : f32_attn_bytes(N);
-  return ctx_bytes(D) + (attn > W_BYTES ? attn : W_BYTES);
+  const size_t attn = dtype == 1 ? 2 * kv_rows_bytes(kt_instance(N) * 16) : f32_attn_bytes(N);
+  return ctx_tile_bytes(D) + (attn > W_BYTES ? attn : W_BYTES);
 }
 
 template <int KT>
@@ -340,7 +283,7 @@ int clibd_flash_attention_qkv_outproj(const void* qkv, const float* mask, const 
     return (int)cudaGetLastError();
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  switch (kt_for(N)) {
+  switch (kt_instance(N)) {
     case 2: return (int)launch_bf16<2>(qkv, mask, w, bias, out, B, N, H, smem, s);
     case 4: return (int)launch_bf16<4>(qkv, mask, w, bias, out, B, N, H, smem, s);
     case 9: return (int)launch_bf16<9>(qkv, mask, w, bias, out, B, N, H, smem, s);

@@ -15,6 +15,13 @@ namespace clibd {
 constexpr int HD = 64;      // head dim the kernels are written for
 constexpr int MAX_N = 256;  // longest sequence: 16 key tiles of 16
 
+// the key-tile count (16 keys a tile) of the kernel instance that takes N
+// keys, for kernels instantiated at KT = 2, 4, 9, 13 and 16
+inline int kt_instance(int N) {
+  const int kt = (N + 15) / 16;
+  return kt <= 2 ? 2 : kt <= 4 ? 4 : kt <= 9 ? 9 : kt <= 13 ? 13 : 16;
+}
+
 // D += A.B, m16n8k16, bf16 in, fp32 accumulate.  A fragment: rows g and g+8,
 // columns 2t..2t+1 and 2t+8..2t+9 (g = lane/4, t = lane%4); B fragment:
 // k rows 2t..2t+1 and 2t+8..2t+9 of column g; C/D: rows g, g+8, columns
@@ -139,11 +146,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 // normalisation, o = P.V accumulated in fp32 (o[dt] holds output columns
 // dt*8 + 2t, +1 of both rows).  q comes straight from device memory (`qg`:
 // the head's q columns of row 0, row stride `rs`; rows past N read as 0); K
-// (row stride HD+8) and V^T (row stride 16*KT+8) are staged in shared
-// memory, zero past N.  The whole 16 x 16*KT score block stays in
-// registers, and the score accumulators of key tile kt are the A fragment
-// of P for the P.V product.
-template <int KT>
+// (row stride HD+8) and V are staged in shared memory, zero past N: V^T
+// (row stride 16*KT+8), or, with V_ROWS, V itself (row stride HD+8, read
+// by ldmatrix.trans), the layout cp.async can copy.  The whole 16 x 16*KT
+// score block stays in registers, and the score accumulators of key tile kt
+// are the A fragment of P for the P.V product.
+template <int KT, bool V_ROWS = false>
 __device__ __forceinline__ void attend_rows_bf16(float (&o)[HD / 8][4], const __nv_bfloat16* qg,
                                                  long rs, const __nv_bfloat16* Ks,
                                                  const __nv_bfloat16* Vt, const float* mrow, int N,
@@ -206,11 +214,106 @@ __device__ __forceinline__ void attend_rows_bf16(float (&o)[HD / 8][4], const __
     pa[1] = pack_bf16x2(s[2 * kt][2] / l1, s[2 * kt][3] / l1);
     pa[2] = pack_bf16x2(s[2 * kt + 1][0] / l0, s[2 * kt + 1][1] / l0);
     pa[3] = pack_bf16x2(s[2 * kt + 1][2] / l1, s[2 * kt + 1][3] / l1);
+    if constexpr (V_ROWS) {
+      mma_kmajor<HD / 8>(o, pa, Vt, HD + 8, kt * 16, 0, g * 4 + t);
+    } else {
 #pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      const __nv_bfloat16* vr = Vt + (dt * 8 + g) * VS + kt * 16 + t * 2;
-      mma_bf16_16816(o[dt], pa, ld_u32(vr), ld_u32(vr + 8));
+      for (int dt = 0; dt < HD / 8; ++dt) {
+        const __nv_bfloat16* vr = Vt + (dt * 8 + g) * VS + kt * 16 + t * 2;
+        mma_bf16_16816(o[dt], pa, ld_u32(vr), ld_u32(vr + 8));
+      }
     }
+  }
+}
+
+// bytes of one head's K and V, each row-major at row stride HD+8 in bf16,
+// for npad keys: one buffer of attend_heads_to_ctx's ring
+__host__ __device__ constexpr size_t kv_rows_bytes(int npad) {
+  return (size_t)2 * npad * (HD + 8) * sizeof(__nv_bfloat16);
+}
+
+// bytes of a [64, D] bf16 context tile at row stride D+8
+__host__ __device__ constexpr size_t ctx_tile_bytes(int D) {
+  return (size_t)64 * (D + 8) * sizeof(__nv_bfloat16);
+}
+
+// Every head's attention for the query rows q0 .. q0+rows-1 (rows <= 64) of
+// one batch element, into the bf16 context tile `ctx` ([64][D+8] in shared
+// memory) at column h*HD.  `base` is the element's fused qkv (row stride
+// `rs`), `mrow` its key mask or null.  The heads go GROUP at a time over
+// 4*GROUP warps: warp w attends over head h0 + w/4 for the 16-row tile w%4
+// (attend_rows_bf16, V row-major).  Each group's K and V are copied by
+// cp.async into a ring of STAGES buffers of GROUP heads at `kv`
+// (STAGES*GROUP*kv_rows_bytes(16*KT) bytes); with two stages the next
+// group's copies are in flight while this group computes.  Keys N .. 16*KT-1
+// are zero in every buffer.  Returns after a barrier: the tile is complete
+// and `kv` is free.
+template <int KT, int GROUP, int STAGES>
+__device__ __forceinline__ void attend_heads_to_ctx(__nv_bfloat16* ctx, unsigned char* kv,
+                                                    const __nv_bfloat16* base, long rs,
+                                                    const float* mrow, int N, int H, int q0,
+                                                    int rows, float scale) {
+  constexpr int NPAD = KT * 16;
+  constexpr int KS = HD + 8;
+  constexpr int THREADS = GROUP * 128;
+  constexpr int CHUNKS = HD / 8;  // 16-byte pieces of a head's row
+  const int D = H * HD;
+  const int CS = D + 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp % 4, grp = warp / 4;
+  // K of buffer `buf` (= stage * GROUP + head in group); V follows it
+  auto k_of = [&](int buf) {
+    return reinterpret_cast<__nv_bfloat16*>(kv + buf * kv_rows_bytes(NPAD));
+  };
+
+  const int pad = NPAD - N;
+  for (int idx = threadIdx.x; idx < STAGES * GROUP * 2 * pad * CHUNKS; idx += THREADS) {
+    const int c = (idx % CHUNKS) * 8;
+    const int r = N + (idx / CHUNKS) % pad;
+    const int half = idx / CHUNKS / pad;  // (buffer, K or V)
+    *reinterpret_cast<uint4*>(k_of(half / 2) + (half % 2) * NPAD * KS + r * KS + c) =
+        make_uint4(0, 0, 0, 0);
+  }
+  auto issue = [&](int i) {  // group i's K and V into stage i % STAGES
+    for (int idx = threadIdx.x; idx < GROUP * 2 * N * CHUNKS; idx += THREADS) {
+      const int c = (idx % CHUNKS) * 8;
+      const int r = (idx / CHUNKS) % N;
+      const int half = idx / CHUNKS / N;  // (head in group, K or V)
+      const int h = i * GROUP + half / 2;
+      if (h < H)
+        cp_async16(k_of((i % STAGES) * GROUP + half / 2) + (half % 2) * NPAD * KS + r * KS + c,
+                   base + r * rs + (1 + half % 2) * D + h * HD + c);
+    }
+    cp_async_commit();
+  };
+
+  const int groups = (H + GROUP - 1) / GROUP;
+  issue(0);
+  for (int i = 0; i < groups; ++i) {
+    if (STAGES > 1 && i + 1 < groups) {
+      issue(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // group i's K and V have landed, for every thread
+    const int h = i * GROUP + grp;
+    if (mt * 16 < rows && h < H) {
+      const __nv_bfloat16* Ks = k_of((i % STAGES) * GROUP + grp);
+      float o[HD / 8][4];
+      attend_rows_bf16<KT, true>(o, base + h * HD, rs, Ks, Ks + NPAD * KS, mrow, N, q0 + mt * 16,
+                                 scale, g, t);
+      __nv_bfloat16* c0 = ctx + (mt * 16 + g) * CS + h * HD + t * 2;
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt) {
+        *reinterpret_cast<__nv_bfloat162*>(c0 + dt * 8) = __floats2bfloat162_rn(o[dt][0], o[dt][1]);
+        *reinterpret_cast<__nv_bfloat162*>(c0 + 8 * CS + dt * 8) =
+            __floats2bfloat162_rn(o[dt][2], o[dt][3]);
+      }
+    }
+    __syncthreads();  // this stage's buffers are no longer read
+    if (STAGES == 1 && i + 1 < groups) issue(i + 1);
   }
 }
 

@@ -54,6 +54,28 @@ past N inside the kernel.  `make_pallas_attn`'s `np_pad` and `fuse_heads`
 arguments are unused in the JAX code itself and have no counterpart, nor
 has its batch block `bb` (one CTA per (batch, head) here).
 
+`flash_attention_qkv_phased`, `flash_attention_qkv_batched` and
+`flash_attention_qkv_bwd_phased` are the ports of the experiment kernels of
+`tools/exp_flash.py` (`_phased_kernel`, `_batched_kernel`,
+`_phased_bwd_kernel`): the forward and the backward above in other
+schedules (`csrc/flash_attention_qkv_phased.cu`: a CTA per (batch, 64 query
+rows, G heads), S of the G heads in shared memory, then the softmaxes, then
+P.V; `csrc/flash_attention_qkv_batched.cu`: a CTA per (batch, 64 query
+rows) walking every head with the next head's K and V in flight;
+`csrc/flash_attention_qkv_bwd_phased.cu`: Pb and dS of a (batch, head) kept
+in shared memory so S and dP are computed once).  Each computes what its
+JAX variant does, so its plain version is the forward's or the backward's
+(`flash_attention_qkv_reference`, `flash_attention_qkv_bwd_reference`), and
+a CPU tensor runs that.  They take bf16 only (TypeError otherwise), have no
+autograd (the JAX variants have none) and are used by nothing but the
+experiment harness `tools/exp_flash.py`.  `heads_per_phase` is the phased
+kernel's G: None takes the largest that fits the card's shared memory, 0
+all the heads; the wrapper asks the library what a G needs and raises
+before launching when it does not fit.  The backward takes N <= 208 (its
+Pb and dS fill the shared memory there).  The JAX script's batch block
+`block_b` has no counterpart: the grids run over batch elements and query
+tiles.
+
 Deliberately absent (TPU-only): `vmem_safe_block_b` (a model of the 16 MB
 VMEM), `block_b` batch blocking, `_seq_pad`, `ATTN_BWD_GROUP` and the
 `CLIBD_ATTN_NPAD16/PHASED/FWD_GROUP/FWD_BPHASE` statement-order knobs, and
@@ -211,11 +233,8 @@ def flash_attention_qkv_outproj_cuda(qkv: torch.Tensor, out_w: torch.Tensor, out
     code = DTYPE_CODE[qkv.dtype]
     smem = function(what, "clibd_flash_outproj_smem_bytes", [ctypes.c_int] * 3,
                     ctypes.c_long)(N, num_heads, code)
-    limit = torch.cuda.get_device_properties(qkv.device).shared_memory_per_block_optin
-    if not 0 < smem <= limit:
-        raise ValueError(f"{what}: N={N}, {num_heads} heads, {qkv.dtype} needs "
-                         f"{smem or 'an unsupported amount of'} bytes of shared memory "
-                         f"(D must be a multiple of 128; the card gives {limit})")
+    _check_smem(what, smem, smem_limit(qkv.device),
+                f"N={N}, {num_heads} heads, {qkv.dtype} (D must be a multiple of 128)")
     w = out_w.to(torch.bfloat16).contiguous()
     b = out_b.to(torch.float32).contiguous()
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
@@ -224,6 +243,137 @@ def flash_attention_qkv_outproj_cuda(qkv: torch.Tensor, out_w: torch.Tensor, out
            [B, N, num_heads, code], qkv.device)
     flash_attention_qkv_outproj.launches += 1
     return out
+
+
+def _check_bf16_args(what: str, qkv: torch.Tensor, num_heads: int,
+                     mask_row: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """`_check_cuda_args` for the kernels that take bf16 only."""
+    if qkv.device.type == "cuda" and qkv.dtype != torch.bfloat16:
+        raise TypeError(f"{what}: dtype {qkv.dtype} (bf16 only)")
+    return _check_cuda_args(what, qkv, num_heads, mask_row)
+
+
+def smem_limit(device) -> int:
+    """Shared memory a CTA may opt in to on the card."""
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+
+
+def _check_smem(what: str, smem: int, limit: int, shapes: str) -> None:
+    if not 0 < smem <= limit:
+        raise ValueError(f"{what}: {shapes} needs {smem or 'an unsupported amount of'} bytes of "
+                         f"shared memory, the card gives {limit}")
+
+
+def phased_smem_bytes(N: int, num_heads: int, heads_per_phase: int) -> int:
+    """Shared memory a launch of the phased forward kernel at (N, H, G)
+    needs, as its library computes it; 0 where the kernel does not take the
+    shapes (G not one of 1, 2, 3, 4, 6, 8, 12 dividing H, or N above 256)."""
+    return function("flash_attention_qkv_phased", "clibd_flash_phased_smem_bytes",
+                    [ctypes.c_int] * 3, ctypes.c_long)(N, num_heads, heads_per_phase)
+
+
+def phased_heads(N: int, num_heads: int, heads_per_phase: Optional[int], limit: int) -> int:
+    """The phased kernel's G: `heads_per_phase`, with 0 meaning all the
+    heads, or for None the largest G whose shared memory fits `limit`."""
+    if heads_per_phase is not None:
+        return heads_per_phase or num_heads
+    for G in range(num_heads, 0, -1):
+        if 0 < phased_smem_bytes(N, num_heads, G) <= limit:
+            return G
+    raise ValueError(f"flash_attention_qkv_phased: no head group fits N={N} in {limit} bytes")
+
+
+def _check_heads_per_phase(num_heads: int, heads_per_phase: Optional[int]) -> None:
+    if heads_per_phase is not None and (heads_per_phase < 0 or
+                                        (heads_per_phase and num_heads % heads_per_phase)):
+        raise ValueError(f"flash_attention_qkv_phased: {heads_per_phase} heads per phase do not "
+                         f"divide {num_heads} heads")
+
+
+def flash_attention_qkv_phased_cuda(qkv: torch.Tensor, num_heads: int,
+                                    mask_row: Optional[torch.Tensor] = None,
+                                    heads_per_phase: Optional[int] = None) -> torch.Tensor:
+    """Launch the phased forward kernel → ctx [B, N, D]."""
+    what = "flash_attention_qkv_phased"
+    _check_heads_per_phase(num_heads, heads_per_phase)
+    mask_row = _check_bf16_args(what, qkv, num_heads, mask_row)
+    B, N, three_d = qkv.shape
+    limit = smem_limit(qkv.device)
+    G = phased_heads(N, num_heads, heads_per_phase, limit)
+    _check_smem(what, phased_smem_bytes(N, num_heads, G), limit,
+                f"N={N} with {G} of {num_heads} heads per phase")
+    out = torch.empty((B, N, three_d // 3), dtype=qkv.dtype, device=qkv.device)
+    launch(what, what, "clibd_flash_attention_qkv_phased",
+           [qkv.data_ptr(), _ptr(mask_row), out.data_ptr()], [B, N, num_heads, G], qkv.device)
+    flash_attention_qkv_phased.launches += 1
+    return out
+
+
+def flash_attention_qkv_batched_cuda(qkv: torch.Tensor, num_heads: int,
+                                     mask_row: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the batched forward kernel → ctx [B, N, D]."""
+    what = "flash_attention_qkv_batched"
+    mask_row = _check_bf16_args(what, qkv, num_heads, mask_row)
+    B, N, three_d = qkv.shape
+    smem = function(what, "clibd_flash_batched_smem_bytes", [ctypes.c_int] * 2,
+                    ctypes.c_long)(N, num_heads)
+    _check_smem(what, smem, smem_limit(qkv.device), f"N={N} with {num_heads} heads")
+    out = torch.empty((B, N, three_d // 3), dtype=qkv.dtype, device=qkv.device)
+    launch(what, what, "clibd_flash_attention_qkv_batched",
+           [qkv.data_ptr(), _ptr(mask_row), out.data_ptr()], [B, N, num_heads], qkv.device)
+    flash_attention_qkv_batched.launches += 1
+    return out
+
+
+def flash_attention_qkv_bwd_phased_cuda(qkv: torch.Tensor, dout: torch.Tensor, num_heads: int,
+                                        mask_row: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the phased backward kernel → dqkv [B, N, 3D]."""
+    what = "flash_attention_qkv_bwd_phased"
+    mask_row = _check_bf16_args(what, qkv, num_heads, mask_row)
+    B, N, three_d = qkv.shape
+    dout = dout.to(qkv.dtype).contiguous()
+    if dout.shape != (B, N, three_d // 3) or dout.device != qkv.device or dout.data_ptr() % 16:
+        raise ValueError(f"{what}: dout {tuple(dout.shape)} on {dout.device} is not a 16-byte "
+                         f"aligned [{B}, {N}, {three_d // 3}] on {qkv.device}")
+    smem = function(what, "clibd_flash_bwd_phased_smem_bytes", [ctypes.c_int], ctypes.c_long)(N)
+    _check_smem(what, smem, smem_limit(qkv.device), f"N={N} (it takes N <= 208)")
+    dqkv = torch.empty_like(qkv)
+    launch(what, what, "clibd_flash_attention_qkv_bwd_phased",
+           [qkv.data_ptr(), dout.data_ptr(), _ptr(mask_row), dqkv.data_ptr()],
+           [B, N, num_heads], qkv.device)
+    flash_attention_qkv_bwd_phased.launches += 1
+    return dqkv
+
+
+def flash_attention_qkv_phased(qkv: torch.Tensor, num_heads: int,
+                               mask_row: Optional[torch.Tensor] = None,
+                               heads_per_phase: Optional[int] = None) -> torch.Tensor:
+    """The forward phased across groups of `heads_per_phase` heads → ctx
+    [B, N, D]: the kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if qkv.device.type == "cpu":
+        _check_heads_per_phase(num_heads, heads_per_phase)
+        return flash_attention_qkv_reference(qkv, num_heads, mask_row)
+    return flash_attention_qkv_phased_cuda(qkv, num_heads, mask_row, heads_per_phase)
+
+
+def flash_attention_qkv_batched(qkv: torch.Tensor, num_heads: int,
+                                mask_row: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The forward with every head of a query tile in one CTA → ctx
+    [B, N, D]: the kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if qkv.device.type == "cpu":
+        return flash_attention_qkv_reference(qkv, num_heads, mask_row)
+    return flash_attention_qkv_batched_cuda(qkv, num_heads, mask_row)
+
+
+def flash_attention_qkv_bwd_phased(qkv: torch.Tensor, dout: torch.Tensor, num_heads: int,
+                                   mask_row: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The backward with Pb and dS kept on chip → dqkv [B, N, 3D]: the
+    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if qkv.device.type == "cpu":
+        return flash_attention_qkv_bwd_reference(qkv, dout, num_heads, mask_row)
+    return flash_attention_qkv_bwd_phased_cuda(qkv, dout, num_heads, mask_row)
 
 
 def attention_bhnd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -386,3 +536,6 @@ flash_attention_qkv.launches = 0
 flash_attention_qkv_bwd.launches = 0
 flash_attention_qkv_outproj.launches = 0
 attention_bhnd.launches = 0
+flash_attention_qkv_phased.launches = 0
+flash_attention_qkv_batched.launches = 0
+flash_attention_qkv_bwd_phased.launches = 0

@@ -9,7 +9,8 @@ has PyTorch for CUDA and no jax:
 Each kernel (the attention forward and backward, the attention with its
 out-projection fused in, the fused MLP, and the chip-probe kernels: the
 scale copy, the tiled GEMM at every tile, the attention from separate
-q, k, v) is held against its plain PyTorch version (which the CPU tests hold against clibd_tpu) at the slices' shapes,
+q, k, v; the fused-qkv schedules of tools/exp_flash.py: the phased and
+batched forwards, the phased backward) is held against its plain PyTorch version (which the CPU tests hold against clibd_tpu) at the slices' shapes,
 and a tiny model on the card against the same model on the CPU, in
 extraction and in a training step, and with both opt-in kernels on.
 """
@@ -28,11 +29,15 @@ from clibd_tpu_torch.ops.attention import (
     attention_bhnd,
     attention_bhnd_reference,
     flash_attention_qkv,
+    flash_attention_qkv_batched,
     flash_attention_qkv_bwd,
+    flash_attention_qkv_bwd_phased,
     flash_attention_qkv_bwd_reference,
     flash_attention_qkv_outproj,
     flash_attention_qkv_outproj_reference,
+    flash_attention_qkv_phased,
     flash_attention_qkv_reference,
+    phased_smem_bytes,
 )
 from clibd_tpu_torch.ops.elementwise import scale_copy
 from clibd_tpu_torch.ops.gemm import OUT_DTYPES, TILES, tiled_matmul, tiled_matmul_reference
@@ -510,5 +515,102 @@ def test_probe_kernels_have_no_fallback(cuda_device, monkeypatch):
     for call in (lambda: scale_copy(torch.zeros(16, device=cuda_device)),
                  lambda: tiled_matmul(sq, sq, "t64x64x32"),
                  lambda: attention_bhnd(q, q, q)):
+        with pytest.raises(RuntimeError, match="refused for the test"):
+            call()
+
+
+EXP_FLASH_SHAPES = [(197, 12, False), (133, 12, True), (20, 8, True), (37, 2, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,masked", EXP_FLASH_SHAPES)
+@pytest.mark.parametrize("variant", ["phased", "batched"])
+def test_exp_flash_forward_kernels_match_plain_version(cuda_device, variant, N, H, masked):
+    op = {"phased": flash_attention_qkv_phased, "batched": flash_attention_qkv_batched}[variant]
+    qkv, mask = _inputs(4, N, H, masked, seed=N + 2)
+    t = torch.from_numpy(qkv).to(cuda_device, torch.bfloat16)
+    m = None if mask is None else torch.from_numpy(mask).to(cuda_device)
+    before = op.launches
+    got = op(t, H, m)
+    torch.cuda.synchronize()
+    assert op.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (4, N, H * 64)
+    want = flash_attention_qkv_reference(t, H, m).float()
+    assert float((got.float() - want).abs().max()) <= BF16_ATOL
+
+
+@pytest.mark.cuda
+def test_phased_forward_takes_every_group_that_fits(cuda_device):
+    """At N=20 every head group of 12 heads fits: each agrees with the plain
+    version; None picks the largest that fits (all 12 here)."""
+    qkv, mask = _inputs(3, 20, 12, True, seed=11)
+    t = torch.from_numpy(qkv).to(cuda_device, torch.bfloat16)
+    m = torch.from_numpy(mask).to(cuda_device)
+    want = flash_attention_qkv_reference(t, 12, m).float()
+    limit = torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
+    for G in (1, 2, 3, 4, 6, 12, 0, None):
+        assert 0 < phased_smem_bytes(20, 12, G or 12) <= limit
+        got = flash_attention_qkv_phased(t, 12, m, G)
+        assert float((got.float() - want).abs().max()) <= BF16_ATOL, G
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,masked", EXP_FLASH_SHAPES)
+def test_bwd_phased_kernel_matches_plain_version_and_bwd_kernel(cuda_device, N, H, masked):
+    qkv, mask = _inputs(4, N, H, masked, seed=N + 3)
+    dout = np.random.default_rng(N + 4).standard_normal((4, N, H * 64)).astype(np.float32)
+    t = torch.from_numpy(qkv).to(cuda_device, torch.bfloat16)
+    g = torch.from_numpy(dout).to(cuda_device, torch.bfloat16)
+    m = None if mask is None else torch.from_numpy(mask).to(cuda_device)
+    before = flash_attention_qkv_bwd_phased.launches
+    got = flash_attention_qkv_bwd_phased(t, g, H, m)
+    torch.cuda.synchronize()
+    assert flash_attention_qkv_bwd_phased.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == t.shape and torch.isfinite(got).all()
+    assert max(_parts_err(got, flash_attention_qkv_bwd_reference(t, g, H, m), H)) <= BWD_REL_TOL
+    assert max(_parts_err(got, flash_attention_qkv_bwd(t, g, H, m), H)) <= BWD_REL_TOL
+
+
+@pytest.mark.cuda
+def test_exp_flash_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    counted = (flash_attention_qkv_phased, flash_attention_qkv_batched,
+               flash_attention_qkv_bwd_phased)
+    before = [f.launches for f in counted]
+    z197 = torch.zeros(2, 197, 3 * 768, device=cuda_device, dtype=torch.bfloat16)
+    z256 = torch.zeros(1, 256, 3 * 768, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        flash_attention_qkv_phased(z197, 12, None, 3)  # 3 heads of S tiles at 208 keys
+    with pytest.raises(ValueError, match="divide"):
+        flash_attention_qkv_phased(z197, 12, None, 5)
+    with pytest.raises(ValueError, match="shared memory"):
+        flash_attention_qkv_batched(z256, 12)  # the context tile and two stages at 256 keys
+    with pytest.raises(ValueError, match="shared memory"):
+        flash_attention_qkv_bwd_phased(z256, z256[..., :768], 12)  # N past 208
+    for call in (lambda: flash_attention_qkv_phased(z197.float(), 12),
+                 lambda: flash_attention_qkv_batched(z197.float(), 12),
+                 lambda: flash_attention_qkv_bwd_phased(z197.float(), z197[..., :768].float(), 12)):
+        with pytest.raises(TypeError, match="bf16 only"):
+            call()
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_qkv_batched(torch.zeros(2, 5, 3 * 96, device=cuda_device,
+                                                dtype=torch.bfloat16), 1)
+    with pytest.raises(ValueError, match="mask"):
+        flash_attention_qkv_phased(z197, 12, torch.zeros(2, 197))
+    assert [f.launches for f in counted] == before
+
+
+@pytest.mark.cuda
+def test_exp_flash_kernels_have_no_fallback(cuda_device, monkeypatch):
+    """On the card each experiment op launches its kernel or raises: with the
+    kernel's entry point failing, the call raises instead of running the
+    plain version."""
+    def refuse(what, *args, **kwargs):
+        raise RuntimeError(f"{what} kernel launch failed: refused for the test")
+
+    monkeypatch.setattr(attention, "launch", refuse)
+    t = torch.zeros(1, 20, 3 * 128, device=cuda_device, dtype=torch.bfloat16)
+    for call in (lambda: flash_attention_qkv_phased(t, 2),
+                 lambda: flash_attention_qkv_batched(t, 2),
+                 lambda: flash_attention_qkv_bwd_phased(t, t[..., :128], 2)):
         with pytest.raises(RuntimeError, match="refused for the test"):
             call()
