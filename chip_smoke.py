@@ -10,14 +10,18 @@ Phases, each of which raises on failure:
 2. build: compiles every CUDA kernel of the paths from `clibd_tpu_torch/csrc`
    into `build/kernels/` (one nvcc per source, all started together) and
    prints each build's time and ptxas' register and spill lines.
-3. kernels, each against its plain PyTorch version at the three shapes of
+3. kernels, each against its plain PyTorch version at the four shapes of
    the paths (ViT N=197 H=12, BarcodeBERT N=133 H=12, BERT-small N=20 H=8
-   with a random key mask and one fully masked batch row), bf16, at B=64 and
-   at the main path's B=500; then kernel, plain version and the closest
-   PyTorch library call timed at B=500 with CUDA events (median of 20 runs
-   after 3 warm-up runs):
+   and the overlap-tokenizer BarcodeBERT N=657 H=12, the last two with a
+   random key mask and one fully masked batch row), bf16, at B=64 and at the
+   main path's B=500 (N=657: B=64 only, where the plain version's
+   [B, H, N, N] fp32 intermediates take 1.3 GB, not 10); then kernel and
+   the closest PyTorch library call timed at B=500, the plain version at
+   the batch it was compared at, with CUDA events (median of 20 runs after
+   3 warm-up runs):
    - `flash_attention_qkv` (forward): max |kernel - plain| <= 2e-2; the
-     fully masked row is the mean of V;
+     fully masked row is the mean of V; N=300, which the kernels refused
+     before they streamed the keys, is taken and agrees;
    - `flash_attention_qkv_bwd` (backward): max |kernel - plain| <=
      2e-2 * max |plain| for each of dq, dk, dv; and at B=16,
      `torch.autograd.grad` through the attention operator equals the
@@ -31,7 +35,11 @@ Phases, each of which raises on failure:
    finite and unit-norm, that the grid has entries, that the forward kernel
    ran 28 times per batch (12 ViT + 12 BarcodeBERT + 4 text layers), and
    that on 8 samples the bf16 path agrees with the fp32 path (cosine >= 0.99
-   per row).
+   per row).  The same, labelled "overlap", for the BIOSCAN-5M new
+   BarcodeBERT recipe (for_bioscan_5m/barcodeBERT_trained_with_5m/
+   image_dna_text_seed_42_new_barcodeBERT_5M.yaml: the overlap tokenizer,
+   k=4 stride 1, so the DNA tower has N=657 with a key mask; same widths,
+   bf16, batch 500), after phase 5's flagship run.
 5. train slice: the same recipe (remat "attn") through the port's
    `Trainer` with epochs=2 and eval_skip_epoch=-1, over a synthetic train
    split of 3000 rows (6 steps per epoch) and all_keys 1100, val_seen 500,
@@ -44,13 +52,19 @@ Phases, each of which raises on failure:
    samples the bf16 gradients through the kernels agree with those through
    the plain versions on the card (cosine >= 0.99 per parameter tensor).
    Prints train samples/s over the steps after each epoch's first
-   (CUDA-synchronised) and the peak device memory.
+   (CUDA-synchronised) and the peak device memory.  Then the overlap recipe
+   through phase 4 and through this phase with epochs=1 over a train split
+   of 2000 rows (4 steps, one eval), the same checks (28 forward and 28
+   backward launches per step: 12 ViT + 12 DNA at N=657 + 4 text).  Last,
+   kNN on the card with every key three times: the indices of equal scores
+   in index order for k = 1..8, as jax.lax.top_k gives them.
 
 6. out-projection kernel: `flash_attention_qkv_outproj` (attention with the
-   out-projection fused in) against its plain version at the same three
-   shapes, with a random W_out and bias, at B=64 and B=500 (the fully masked
-   row included): max |kernel - plain| <= 2e-2 * max |plain|; kernel, plain
-   version and the library yardstick (SDPA, then addmm) timed at B=500; and
+   out-projection fused in) against its plain version at the same four
+   shapes, with a random W_out and bias, at B=64 and B=500 (N=657: B=64; the
+   fully masked row included): max |kernel - plain| <= 2e-2 * max |plain|;
+   kernel and the library yardstick (SDPA, then addmm) timed at B=500, the
+   plain version at the batch it was compared at; and
    at B=16 `torch.autograd.grad` through the operator, for qkv, W_out and
    the bias, equals the composed backward (W_out^T product, the backward
    kernel, the forward kernel's ctx for dW).
@@ -137,8 +151,14 @@ import numpy as np
 KERNEL_TOL = 2e-2      # forward, max |kernel - plain| on unit-scale inputs: ~1 bf16 ulp of P x |V|
 BWD_REL_TOL = 2e-2     # backward, per part, relative to the part's max |plain|
 COSINE_MIN = 0.99      # bf16 vs fp32 path per embedding row; kernel vs plain gradients per tensor
-SHAPES = (("vit", 197, 12, False), ("barcode_bert", 133, 12, False), ("bert_small", 20, 8, True))
+SHAPES = (("vit", 197, 12, False), ("barcode_bert", 133, 12, False), ("bert_small", 20, 8, True),
+          ("barcode_bert_overlap", 657, 12, True))
+# the plain versions' [B, H, N, N] fp32 intermediates take 10 GB each at
+# B=500 and N=657: past LONG_N they are compared and timed at PLAIN_B_LONG
+LONG_N, PLAIN_B_LONG = 256, 64
 EXPERIMENT = "for_bioscan_1m/final_experiments/image_dna_text_seed_42.yaml"
+OVERLAP = ("for_bioscan_5m/barcodeBERT_trained_with_5m/"
+           "image_dna_text_seed_42_new_barcodeBERT_5M.yaml")
 BIOCLIP = "for_bioscan_1m/image_bind_style/with_bioclip_bind_to_image.yaml"
 REL_TOL = 2e-2         # out-projection and fused MLP: max |kernel - plain| / max |plain|
 # fused MLP (name, R, D, F, activation): the BioCLIP towers' shapes at batch 500
@@ -151,6 +171,8 @@ MLP_EXTRA = tuple((f"vit R={r} {act}", r, 768, 3072, act)
 BIOCLIP_TRAIN_STEPS = 4
 SPLIT_ROWS = {"all_keys": 1100, "test_seen": 500, "test_unseen": 500}
 TRAIN_ROWS = {"train": 3000, "all_keys": 1100, "val_seen": 500, "val_unseen": 500}
+# the overlap path: 4 steps of batch 500 and one eval
+OVERLAP_TRAIN_ROWS = {"train": 2000, "all_keys": 1100, "val_seen": 500, "val_unseen": 500}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores, published
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores, published
@@ -189,6 +211,16 @@ def make_qkv(B, N, H, masked, seed):
     return qkv, mask
 
 
+def plain_batch(N: int) -> int:
+    """The batch the plain version is compared and timed at for N keys."""
+    return PLAIN_B_LONG if N > LONG_N else 500
+
+
+def head(x, n):
+    """The first n rows of an array or tensor, or of each one in a dict."""
+    return {k: head(v, n) for k, v in x.items()} if isinstance(x, dict) else x[:n]
+
+
 def library_attention(qkv, H, mask):
     """The closest single PyTorch call, for timing only: scaled dot-product
     attention on head-split views of qkv (`tools/exp_flash.sdpa`)."""
@@ -214,44 +246,52 @@ def forward_kernel_phase(card: str) -> dict:
                                                flash_attention_qkv_reference)
     from clibd_tpu_torch.utils.profiling import cuda_ms
 
+    def check(qkv, mask, H, what):
+        """max |kernel - plain|, failing past KERNEL_TOL; the fully masked
+        row (batch row 0 of a masked input) must be the mean of V."""
+        N = qkv.shape[1]
+        got = flash_attention_qkv_cuda(qkv, H, mask).float()
+        want = flash_attention_qkv_reference(qkv, H, mask).float()
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"forward kernel output not finite at {what}")
+        err = float((got - want).abs().max())
+        if mask is not None:
+            v = qkv[0, :, 2 * H * 64:].float()
+            err_uniform = float((got[0] - v.mean(0, keepdim=True).expand(N, -1)).abs().max())
+            if err_uniform > KERNEL_TOL:
+                fail(f"fully masked row not uniform at {what}: max|Δ| {err_uniform}")
+        print(f"kernel flash_attention_qkv {what}: max|kernel-plain| {err:.3e} (tol {KERNEL_TOL})")
+        if err > KERNEL_TOL:
+            fail(f"forward kernel disagrees with its plain version at {what}: {err} > {KERNEL_TOL}")
+        return err
+
     shapes = []
     for name, N, H, masked in SHAPES:
-        err = 0.0
-        for B in (64, 500):  # 500: the main path's batch
+        err, plain_B = 0.0, plain_batch(N)
+        for B in sorted({64, plain_B}):  # 500: the main path's batch
             qkv, mask = make_qkv(B, N, H, masked, seed=N + B)
-            got = flash_attention_qkv_cuda(qkv, H, mask).float()
-            want = flash_attention_qkv_reference(qkv, H, mask).float()
-            torch.cuda.synchronize()
-            if not torch.isfinite(got).all():
-                fail(f"forward kernel output not finite at {name} B={B}")
-            err_b = float((got - want).abs().max())
-            if masked:  # the fully masked row is the mean of V over every key
-                v = qkv[0, :, 2 * H * 64:].float()
-                uni = v.mean(0, keepdim=True).expand(N, -1)
-                err_uniform = float((got[0] - uni).abs().max())
-                if err_uniform > KERNEL_TOL:
-                    fail(f"fully masked row not uniform: max|Δ| {err_uniform}")
-            print(f"kernel flash_attention_qkv {name} B={B} N={N} H={H} mask={masked}: "
-                  f"max|kernel-plain| {err_b:.3e} (tol {KERNEL_TOL})")
-            if err_b > KERNEL_TOL:
-                fail(f"forward kernel disagrees with its plain version at {name} B={B}: "
-                     f"{err_b} > {KERNEL_TOL}")
-            err = max(err, err_b)
-            del got, want
+            err = max(err, check(qkv, mask, H, f"{name} B={B} N={N} H={H} mask={masked}"))
+            if B == plain_B:
+                plain_ms = cuda_ms(lambda: flash_attention_qkv_reference(qkv, H, mask))
+        if plain_B != 500:
+            qkv, mask = make_qkv(500, N, H, masked, seed=N + 500)
         ms = cuda_ms(lambda: flash_attention_qkv_cuda(qkv, H, mask))
-        plain_ms = cuda_ms(lambda: flash_attention_qkv_reference(qkv, H, mask))
         library_ms = cuda_ms(lambda: library_attention(qkv, H, mask))
         D = H * 64
         flops = 4 * 500 * H * N * N * 64
         nbytes = 500 * N * (3 * D + D) * 2 + (500 * N * 4 if masked else 0)
         bound_ms, bound_by = bound(nbytes, flops)
         print(f"time flash_attention_qkv {name} B=500: kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms (B={plain_B}), "
               f"library (sdpa) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
         shapes.append({"shape": name, "B": 500, "N": N, "H": H, "ms": ms, "plain_ms": plain_ms,
-                       "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                       "max_abs_err": err})
+                       "plain_B": plain_B, "library_ms": library_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "max_abs_err": err})
         del qkv, mask
+    # past the whole-row kernels' 256 keys: the key-tiled kernel takes any N
+    qkv, mask = make_qkv(4, 300, 12, True, seed=300)
+    check(qkv, mask, 12, "B=4 N=300 H=12 mask=True (taken: any N)")
     torch.cuda.empty_cache()
     return kernel_entry("flash_attention_qkv", "clibd_tpu_torch/csrc/flash_attention_qkv.cu",
                         "clibd_tpu/ops/pallas/attention.py:143", shapes)
@@ -270,11 +310,15 @@ def backward_kernel_phase(card: str) -> dict:
     shapes = []
     for name, N, H, masked in SHAPES:
         D = H * 64
-        err = 0.0
-        for B in (64, 500):
+        err, plain_B = 0.0, plain_batch(N)
+
+        def inputs(B):
             qkv, mask = make_qkv(B, N, H, masked, seed=N + B + 1)
             g = torch.Generator(device="cuda").manual_seed(N * B)
-            dout = torch.randn(B, N, D, generator=g, device="cuda").to(torch.bfloat16)
+            return qkv, mask, torch.randn(B, N, D, generator=g, device="cuda").to(torch.bfloat16)
+
+        for B in sorted({64, plain_B}):
+            qkv, mask, dout = inputs(B)
             got = flash_attention_qkv_bwd_cuda(qkv, dout, H, mask).float()
             want = flash_attention_qkv_bwd_reference(qkv, dout, H, mask).float()
             torch.cuda.synchronize()
@@ -291,8 +335,11 @@ def backward_kernel_phase(card: str) -> dict:
             if max(rel) > BWD_REL_TOL:
                 fail(f"backward kernel disagrees with its plain version at {name} B={B}: {rel}")
             del got, want
+            if B == plain_B:
+                plain_ms = cuda_ms(lambda: flash_attention_qkv_bwd_reference(qkv, dout, H, mask))
+        if plain_B != 500:
+            qkv, mask, dout = inputs(500)
         ms = cuda_ms(lambda: flash_attention_qkv_bwd_cuda(qkv, dout, H, mask))
-        plain_ms = cuda_ms(lambda: flash_attention_qkv_bwd_reference(qkv, dout, H, mask))
         leaf = qkv.detach().requires_grad_()
         lib_out = library_attention(leaf, H, mask)
         library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaf, dout.view(500, N, H, 64)
@@ -301,12 +348,12 @@ def backward_kernel_phase(card: str) -> dict:
         nbytes = 500 * N * (3 * D + D + 3 * D) * 2 + (500 * N * 4 if masked else 0)
         bound_ms, bound_by = bound(nbytes, flops)
         print(f"time flash_attention_qkv_bwd {name} B=500: kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms (B={plain_B}), "
               f"library (sdpa backward) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
               f"  [{card}]")
         shapes.append({"shape": name, "B": 500, "N": N, "H": H, "ms": ms, "plain_ms": plain_ms,
-                       "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                       "max_abs_err": err})
+                       "plain_B": plain_B, "library_ms": library_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "max_abs_err": err})
         del qkv, mask, dout, leaf, lib_out
     torch.cuda.empty_cache()
 
@@ -323,27 +370,56 @@ def backward_kernel_phase(card: str) -> dict:
                         "clibd_tpu/ops/pallas/attention.py:229", shapes)
 
 
-def eval_slice_phase(card: str, fwd_entry: dict, mc, device, split_rows: dict) -> None:
+def knn_ties_phase(card: str) -> None:
+    """kNN on the card with exact ties: 7 distinct rows, each three times
+    (keys i, i + 7, i + 14), and k from 1 to 8, so ties straddle the k-th
+    place.  The indices must be jax.lax.top_k's: of equal scores the lower
+    key index first, here a stable sort of the card's own scores."""
+    import torch
+
+    from clibd_tpu_torch.models.clibd import l2_normalize
+    from clibd_tpu_torch.ops.knn import knn_search
+
+    rng = np.random.default_rng(7)
+    rows = rng.standard_normal((7, 768)).astype(np.float32)
+    keys = torch.from_numpy(np.concatenate([rows, rows, rows])).cuda()
+    queries = torch.from_numpy(np.concatenate([rows[[0, 3, 6]],
+                                               rng.standard_normal((4, 768)).astype(np.float32)]))
+    q = queries.cuda()
+    padded = torch.cat([l2_normalize(q), q.new_zeros(1, 768)])  # 8 rows, as knn_search pads
+    scores = torch.matmul(padded, l2_normalize(keys).T)[:7].cpu().numpy()
+    for k in range(1, 9):
+        _, idx = knn_search(q, keys, k=k, query_chunk=8)
+        want = np.argsort(-scores, axis=1, kind="stable")[:, :k]
+        if not np.array_equal(idx, want):
+            fail(f"kNN on the card breaks ties out of index order at k={k}: {idx} against {want}")
+        if k == 3 and idx[:3].tolist() != [[0, 7, 14], [3, 10, 17], [6, 13, 20]]:
+            fail(f"a query equal to a key does not find its three copies in index order: {idx}")
+    print(f"kNN with tied keys on the card: lower index first for k = 1..8  [{card}]")
+
+
+def eval_slice_phase(card: str, label: str, mc, device, split_rows: dict) -> dict:
+    """Extraction of three synthetic splits and the kNN grid through the
+    recipe `mc` with the opt-in kernels off → the kernel launches of the
+    extraction."""
     import torch
 
     from clibd_tpu_torch.data import SyntheticSplit
     from clibd_tpu_torch.engine.evaluate import format_results, inference_and_eval
     from clibd_tpu_torch.engine.extract import extract_split, make_encode_step, to_device
     from clibd_tpu_torch.models import clibd_apply, init_clibd_model
-    from clibd_tpu_torch.ops.attention import flash_attention_qkv, flash_attention_qkv_bwd
 
     t0 = time.perf_counter()
     model = init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed), device)
     splits = {name: SyntheticSplit(name, n, mc, seed=i)
               for i, (name, n) in enumerate(split_rows.items())}
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"eval slice set-up: {n_params / 1e6:.1f} M params, synthetic splits "
+    print(f"{label} eval set-up: {n_params / 1e6:.1f} M params, synthetic splits "
           f"{ {k: len(v.ids()) for k, v in splits.items()} } in {time.perf_counter() - t0:.1f} s")
 
     # warm-up: 8 samples through the bf16 path (cuBLAS handles, kernel load)
     b = next(splits["test_seen"].batches())
-    small = to_device({"image": b["image"][:8], "dna": b["dna"][:8],
-                       "language": {k: v[:8] for k, v in b["language"].items()}}, device)
+    small = to_device({m: head(b[m], 8) for m in ("image", "dna", "language")}, device)
     make_encode_step(mc, model, torch.bfloat16)(small)
     torch.cuda.synchronize()
 
@@ -354,18 +430,18 @@ def eval_slice_phase(card: str, fwd_entry: dict, mc, device, split_rows: dict) -
     unseen_dict = extract_split(model, mc, splits["test_unseen"])
     torch.cuda.synchronize()
     t_extract = time.perf_counter() - t0
-    launches = flash_attention_qkv.launches
+    counts = read_counts()
+    launches = counts["flash_attention_qkv"]
     n_batches = sum(len(s) for s in splits.values())
     n_rows = sum(split_rows.values())
     per_batch = (mc.image.vit.num_layers + mc.dna.bert.num_layers
                  + mc.language.bert.num_layers)
-    print(f"flash_attention_qkv launches in the eval slice: {launches} "
+    print(f"flash_attention_qkv launches in the {label} eval: {launches} "
           f"(expected {per_batch} x {n_batches} batches = {per_batch * n_batches})")
-    others = {k: v for k, v in read_counts().items() if k != "flash_attention_qkv"}
+    others = {k: v for k, v in counts.items() if k != "flash_attention_qkv"}
     if launches != per_batch * n_batches or any(others.values()):
-        fail(f"eval path launched the forward kernel {launches} times, expected "
+        fail(f"{label} eval launched the forward kernel {launches} times, expected "
              f"{per_batch * n_batches}, and the others {others}")
-    fwd_entry["launches"] = launches
 
     t0 = time.perf_counter()
     acc_dict, _, _ = inference_and_eval(keys_dict, seen_dict, unseen_dict, k_list=[1, 3, 5],
@@ -374,9 +450,9 @@ def eval_slice_phase(card: str, fwd_entry: dict, mc, device, split_rows: dict) -
     t_knn = time.perf_counter() - t0
     table, csv_rows, _, _ = format_results(acc_dict, [1, 3, 5], "I,D,T")
     if len(csv_rows) < 2 or not acc_dict:
-        fail("the kNN grid is empty")
+        fail(f"the {label} kNN grid is empty")
     lines = table.splitlines()
-    print(f"kNN grid: {len(csv_rows) - 1} rows; the table's head:")
+    print(f"{label} kNN grid: {len(csv_rows) - 1} rows; the table's head:")
     print("\n".join(lines[:6]))
 
     for name, d in (("all_keys", keys_dict), ("test_seen", seen_dict),
@@ -391,10 +467,10 @@ def eval_slice_phase(card: str, fwd_entry: dict, mc, device, split_rows: dict) -
     if keys_dict["all_key_features"].shape != (3 * split_rows["all_keys"], mc.output_dim):
         fail(f"all_key_features shape {keys_dict['all_key_features'].shape}")
 
-    print(f"extraction: {n_rows} samples in {t_extract:.3f} s = {n_rows / t_extract:.2f} "
-          f"samples/s (bf16, batch {mc.batch_size}, tri-modal, {n_batches} batches incl. "
-          f"ragged)  [{card}]")
-    print(f"kNN grid + metrics: {t_knn:.3f} s  [{card}]")
+    print(f"{label} extraction: {n_rows} samples in {t_extract:.3f} s = "
+          f"{n_rows / t_extract:.2f} samples/s (bf16, batch {mc.batch_size}, tri-modal, "
+          f"{n_batches} batches incl. ragged)  [{card}]")
+    print(f"{label} kNN grid + metrics: {t_knn:.3f} s  [{card}]")
 
     # bf16 kernel path against the fp32 path on the 8 warm-up samples
     with torch.inference_mode():
@@ -404,12 +480,17 @@ def eval_slice_phase(card: str, fwd_entry: dict, mc, device, split_rows: dict) -
                          compute_dtype=torch.float32)
     for m in ("image", "dna", "language"):
         cos = (lo[m] * hi[m]).sum(-1) / (lo[m].norm(dim=-1) * hi[m].norm(dim=-1))
-        print(f"bf16 vs fp32 path, {m}: min cosine {float(cos.min()):.6f} (need >= {COSINE_MIN})")
+        print(f"{label} bf16 vs fp32 path, {m}: min cosine {float(cos.min()):.6f} "
+              f"(need >= {COSINE_MIN})")
         if float(cos.min()) < COSINE_MIN:
-            fail(f"bf16 path disagrees with the fp32 path for {m}")
+            fail(f"{label}: bf16 path disagrees with the fp32 path for {m}")
+    return counts
 
 
-def train_slice_phase(card: str, fwd_entry: dict, bwd_entry: dict, gcfg, device) -> None:
+def train_slice_phase(card: str, label: str, gcfg, device, train_rows: dict) -> dict:
+    """The recipe's `Trainer` over synthetic splits with the opt-in kernels
+    off, then a fixed-batch descent and the gradients against the plain
+    versions → the kernel launches of the fit (steps and evals)."""
     import torch
 
     from clibd_tpu_torch.data import SyntheticSplit
@@ -428,11 +509,11 @@ def train_slice_phase(card: str, fwd_entry: dict, bwd_entry: dict, gcfg, device)
     mc = gcfg.model_config
     t0 = time.perf_counter()
     splits = {name: SyntheticSplit(name, n, mc, seed=10 + i)
-              for i, (name, n) in enumerate(TRAIN_ROWS.items())}
+              for i, (name, n) in enumerate(train_rows.items())}
     model = init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed), device)
     trainable = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     n_trainable = sum(p.numel() for _, p in trainable)
-    print(f"train slice set-up: {len(trainable)} trainable tensors, {n_trainable / 1e6:.1f} M "
+    print(f"{label} train set-up: {len(trainable)} trainable tensors, {n_trainable / 1e6:.1f} M "
           f"params, remat={mc.remat} policy={mc.remat_policy!r}, splits "
           f"{ {k: len(v.ids()) for k, v in splits.items()} } in {time.perf_counter() - t0:.1f} s")
 
@@ -458,8 +539,8 @@ def train_slice_phase(card: str, fwd_entry: dict, bwd_entry: dict, gcfg, device)
                 if bad:
                     fail(f"after the first step {len(bad)} trainable tensors have no finite "
                          f"nonzero gradient: {bad[:8]}")
-                print(f"first step: all {len(trainable)} trainable tensors have a finite, nonzero "
-                      f"gradient")
+                print(f"{label} first step: all {len(trainable)} trainable tensors have a finite, "
+                      f"nonzero gradient")
             return loss
 
         trainer.step_fn = counted_step
@@ -473,21 +554,23 @@ def train_slice_phase(card: str, fwd_entry: dict, bwd_entry: dict, gcfg, device)
         trainer.close()
         n_layers = mc.image.vit.num_layers + mc.dna.bert.num_layers + mc.language.bert.num_layers
         steps = mc.epochs * len(splits["train"])
-        print(f"kernel launches per train step (forward, backward): {sorted(set(per_step))} over "
-              f"{len(per_step)} steps (expected ({n_layers}, {n_layers}) x {steps})")
-        fused = {k: read_counts()[k] for k in ("flash_attention_qkv_outproj", "fused_mlp")}
+        counts = read_counts()  # train steps and evals
+        print(f"{label} kernel launches per train step (forward, backward): "
+              f"{sorted(set(per_step))} over {len(per_step)} steps (expected ({n_layers}, "
+              f"{n_layers}) x {steps})")
+        others = {k: n for k, n in counts.items()
+                  if k not in ("flash_attention_qkv", "flash_attention_qkv_bwd")}
         if len(per_step) != steps or set(per_step) != {(n_layers, n_layers)} \
-                or any(fused.values()):
-            fail(f"train steps launched {per_step}, expected ({n_layers}, {n_layers}) x {steps}, "
-                 f"and the opt-in kernels {fused}, expected none")
-        bwd_entry["launches"] = flash_attention_qkv_bwd.launches
-        fwd_entry["launches"] += flash_attention_qkv.launches  # train steps and both evals
+                or any(others.values()):
+            fail(f"{label} train steps launched {per_step}, expected ({n_layers}, {n_layers}) x "
+                 f"{steps}, and the other kernels {others}, expected none")
         losses = [d["loss"] for d in logs if "loss" in d]
         if len(losses) != steps or not all(math.isfinite(v) for v in losses):
             fail(f"train losses {losses}")
         grids = [d for d in logs if any("||top-" in k for k in d)]
-        if len(history["overall_acc"]) != 2 or len(grids) != 2 or not all(grids):
-            fail(f"expected two evals with a grid each: {history['overall_acc']}")
+        if len(history["overall_acc"]) != mc.epochs or len(grids) != mc.epochs or not all(grids):
+            fail(f"{label}: expected {mc.epochs} evals with a grid each: "
+                 f"{history['overall_acc']}")
         for sub in ("last", "best"):
             if not os.path.exists(os.path.join(out_dir, sub, "params.npz")):
                 fail(f"{sub}/ was not written")
@@ -498,9 +581,11 @@ def train_slice_phase(card: str, fwd_entry: dict, bwd_entry: dict, gcfg, device)
         del reloaded
     rates = [d["throughput/samples_per_sec_per_chip"] for d in logs
              if "throughput/samples_per_sec_per_chip" in d]
-    print(f"train losses: {[round(v, 4) for v in losses]}")
-    print(f"evals: overall_acc {history['overall_acc']}, best epoch {history['best_epoch']}")
-    print(f"train: {steps} steps of batch {mc.batch_size} + 2 evals in {t_fit:.2f} s; samples/s "
+    print(f"{label} train losses: {[round(v, 4) for v in losses]}")
+    print(f"{label} evals: overall_acc {history['overall_acc']}, best epoch "
+          f"{history['best_epoch']}")
+    print(f"{label} train: {steps} steps of batch {mc.batch_size} + {mc.epochs} evals in "
+          f"{t_fit:.2f} s; samples/s "
           f"over the steps after each epoch's first (CUDA-synchronised): "
           f"{[round(r, 2) for r in rates]}, mean {sum(rates) / len(rates):.2f}; peak device "
           f"memory {peak_gb:.2f} GiB  [{card}]")
@@ -516,16 +601,13 @@ def train_slice_phase(card: str, fwd_entry: dict, bwd_entry: dict, gcfg, device)
     fixed_losses = [float(step(fixed, batch_generator(device, 0, 0, 0))) for _ in range(5)]
     with torch.no_grad():
         fixed_losses.append(float(loss_fn(fixed, batch_generator(device, 0, 0, 0))))
-    print(f"fixed batch, constant LR 5e-5: losses {[round(v, 5) for v in fixed_losses]}")
+    print(f"{label} fixed batch, constant LR 5e-5: losses {[round(v, 5) for v in fixed_losses]}")
     if not fixed_losses[-1] < fixed_losses[0]:
-        fail("5 steps on a fixed batch did not lower its loss")
+        fail(f"{label}: 5 steps on a fixed batch did not lower its loss")
     opt.zero_grad(set_to_none=True)
 
     # kernels against the plain versions on the card: bf16 gradients, 16 samples
-    small = to_device({"image": fixed["image"][:16].cpu().numpy(),
-                       "dna": fixed["dna"][:16].cpu().numpy(),
-                       "language": {k: v[:16].cpu().numpy() for k, v in fixed["language"].items()},
-                       "label": fixed["label"][:16].cpu().numpy()}, device)
+    small = {k: head(fixed[k], 16) for k in ("image", "dna", "language", "label")}
     params = [p for _, p in trainable]
 
     def grads():
@@ -537,11 +619,12 @@ def train_slice_phase(card: str, fwd_entry: dict, bwd_entry: dict, gcfg, device)
         with_plain = grads()
     cos = [float((a * b).sum() / (a.norm() * b.norm())) for a, b in zip(with_kernels, with_plain)]
     worst = min(range(len(cos)), key=cos.__getitem__)
-    print(f"bf16 gradients, kernels vs plain versions on the card (16 samples): min cosine "
+    print(f"{label} bf16 gradients, kernels vs plain versions on the card (16 samples): min cosine "
           f"{cos[worst]:.6f} at {trainable[worst][0]} over {len(cos)} tensors "
           f"(need >= {COSINE_MIN})")
     if not all(c >= COSINE_MIN for c in cos):
-        fail("gradients through the kernels disagree with the plain versions")
+        fail(f"{label}: gradients through the kernels disagree with the plain versions")
+    return counts
 
 
 def rel_err(got, want) -> float:
@@ -615,8 +698,8 @@ def outproj_kernel_phase(card: str) -> dict:
     for name, N, H, masked in SHAPES:
         D = H * 64
         w, b = weights(D, seed=N)
-        err = 0.0
-        for B in (64, 500):
+        err, plain_B = 0.0, plain_batch(N)
+        for B in sorted({64, plain_B}):
             qkv, mask = make_qkv(B, N, H, masked, seed=N + B + 2)
             got = flash_attention_qkv_outproj_cuda(qkv, w, b, H, mask)
             want = flash_attention_qkv_outproj_reference(qkv, w, b, H, mask)
@@ -631,18 +714,22 @@ def outproj_kernel_phase(card: str) -> dict:
                 fail(f"out-projection kernel disagrees with its plain version at {name} B={B}")
             err = max(err, float((got.float() - want.float()).abs().max()))
             del got, want
+            if B == plain_B:
+                plain_ms = cuda_ms(lambda: flash_attention_qkv_outproj_reference(qkv, w, b, H,
+                                                                                 mask))
+        if plain_B != 500:
+            qkv, mask = make_qkv(500, N, H, masked, seed=N + 502)
         ms = cuda_ms(lambda: flash_attention_qkv_outproj_cuda(qkv, w, b, H, mask))
-        plain_ms = cuda_ms(lambda: flash_attention_qkv_outproj_reference(qkv, w, b, H, mask))
         library_ms = cuda_ms(lambda: library(qkv, w, b, H, mask))
         flops = 4 * 500 * H * N * N * 64 + 2 * 500 * N * D * D
         nbytes = 500 * N * (3 * D + D) * 2 + (D * D + D) * 2 + (500 * N * 4 if masked else 0)
         bound_ms, bound_by = bound(nbytes, flops)
         print(f"time flash_attention_qkv_outproj {name} B=500: kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library (sdpa + "
-              f"addmm) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
+              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms (B={plain_B}), library "
+              f"(sdpa + addmm) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
         shapes.append({"shape": name, "B": 500, "N": N, "H": H, "ms": ms, "plain_ms": plain_ms,
-                       "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                       "max_abs_err": err})
+                       "plain_B": plain_B, "library_ms": library_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "max_abs_err": err})
         del qkv, mask
     torch.cuda.empty_cache()
 
@@ -719,6 +806,24 @@ def fused_mlp_kernel_phase(card: str) -> dict:
     torch.cuda.empty_cache()
     return kernel_entry("fused_mlp", "clibd_tpu_torch/csrc/fused_mlp.cu",
                         "clibd_tpu/ops/pallas/mlp.py:49", shapes)
+
+
+def recipe_config(experiment: str, epochs: int):
+    """A tri-modal full fine-tune recipe (bf16, batch 500, remat "attn"), set
+    to `epochs` epochs with an eval after each."""
+    from clibd_tpu_torch.config import load_config
+
+    gcfg = load_config(experiment=experiment, overrides=[f"model_config.epochs={epochs}",
+                                                         "model_config.eval_skip_epoch=-1"])
+    mc = gcfg.model_config
+    if not (mc.amp and mc.disable_lora and mc.batch_size == 500 and mc.image.enable
+            and mc.dna.enable and mc.language.enable and mc.remat and mc.remat_policy == "attn"):
+        fail(f"{experiment} is not a bf16 tri-modal full fine-tune recipe at batch 500 "
+             "with remat 'attn'")
+    if experiment == OVERLAP and (mc.dna.tokenizer, mc.dna.kmer, mc.dna.stride, mc.dna.max_bp) \
+            != ("overlap", 4, 1, 660):
+        fail(f"{OVERLAP} is not the overlap tokenizer at k=4, stride 1, 660 bp (N=657)")
+    return gcfg
 
 
 def bioclip_config():
@@ -1241,24 +1346,22 @@ def main() -> int:
 
     fwd = forward_kernel_phase(card)
     bwd = backward_kernel_phase(card)
-    from clibd_tpu_torch.config import load_config
+    entries = {e["name"]: e for e in (fwd, bwd)}
     from clibd_tpu_torch.models.layers import kernel_knobs
 
-    gcfg = load_config(experiment=EXPERIMENT,
-                       overrides=["model_config.epochs=2", "model_config.eval_skip_epoch=-1"])
-    mc = gcfg.model_config
-    if not (mc.amp and mc.disable_lora and mc.batch_size == 500 and mc.image.enable
-            and mc.dna.enable and mc.language.enable and mc.remat and mc.remat_policy == "attn"):
-        fail(f"{EXPERIMENT} is not the bf16 tri-modal full fine-tune recipe at batch 500 "
-             "with remat 'attn'")
+    cuda = torch.device("cuda")
     with kernel_knobs(False, "xla"):
-        eval_slice_phase(card, fwd, mc, torch.device("cuda"), SPLIT_ROWS)
-        train_slice_phase(card, fwd, bwd, gcfg, torch.device("cuda"))
-    for entry in (fwd, bwd):
-        entry["launches_by_path"] = {"flagship_eval_and_train": entry["launches"]}
+        for label, path, experiment, epochs, train_rows in (
+                ("flagship", "flagship_eval_and_train", EXPERIMENT, 2, TRAIN_ROWS),
+                ("overlap", "overlap_eval_and_train", OVERLAP, 1, OVERLAP_TRAIN_ROWS)):
+            gcfg = recipe_config(experiment, epochs)
+            counts = eval_slice_phase(card, label, gcfg.model_config, cuda, SPLIT_ROWS)
+            fit = train_slice_phase(card, label, gcfg, cuda, train_rows)
+            add_launches(entries, path, {k: counts[k] + fit[k] for k in counts})
+    knn_ties_phase(card)
     outproj = outproj_kernel_phase(card)
     mlp = fused_mlp_kernel_phase(card)
-    entries = {e["name"]: e for e in (fwd, bwd, outproj, mlp)}
+    entries.update({e["name"]: e for e in (outproj, mlp)})
     bioclip_eval_phase(card, entries, torch.device("cuda"), SPLIT_ROWS)
     bioclip_train_phase(card, entries, torch.device("cuda"))
     probes = probe_kernels_phase(card)

@@ -21,8 +21,7 @@
 // Each warp keeps its 16-row chain in registers (attend_rows_bf16, as the
 // forward kernel), writes its bf16 context into the CTA's [64, D] tile, and
 // the tile leaves as whole rows (16-byte stores, D*2 contiguous bytes per
-// row).  The head loop is flash_common.cuh's attend_heads_to_ctx, shared
-// with flash_attention_qkv_outproj.cu (one stage of a head pair there).
+// row).  The head loop is attend_heads_to_ctx below.
 //
 // Shared memory at N=197 (208 keys), D=768: the context tile 64 x 776 bf16
 // (99,328 B) plus two buffers of one head's K and V at row stride 72
@@ -45,6 +44,92 @@ constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int QROWS = 64;
 constexpr int STAGES = 2;
+
+// bytes of one head's K and V, each row-major at row stride HD+8 in bf16,
+// for npad keys: one buffer of attend_heads_to_ctx's ring
+__host__ __device__ constexpr size_t kv_rows_bytes(int npad) {
+  return (size_t)2 * npad * (HD + 8) * sizeof(__nv_bfloat16);
+}
+
+// Every head's attention for the query rows q0 .. q0+rows-1 (rows <= 64) of
+// one batch element, into the bf16 context tile `ctx` ([64][D+8] in shared
+// memory) at column h*HD.  `base` is the element's fused qkv (row stride
+// `rs`), `mrow` its key mask or null.  The heads go GROUP at a time over
+// 4*GROUP warps: warp w attends over head h0 + w/4 for the 16-row tile w%4
+// (attend_rows_bf16, V row-major).  Each group's K and V are copied by
+// cp.async into a ring of STAGES buffers of GROUP heads at `kv`
+// (STAGES*GROUP*kv_rows_bytes(16*KT) bytes); with two stages the next
+// group's copies are in flight while this group computes.  Keys N .. 16*KT-1
+// are zero in every buffer.  Returns after a barrier: the tile is complete
+// and `kv` is free.
+template <int KT, int GROUP, int STAGES>
+__device__ __forceinline__ void attend_heads_to_ctx(__nv_bfloat16* ctx, unsigned char* kv,
+                                                    const __nv_bfloat16* base, long rs,
+                                                    const float* mrow, int N, int H, int q0,
+                                                    int rows, float scale) {
+  constexpr int NPAD = KT * 16;
+  constexpr int KS = HD + 8;
+  constexpr int THREADS = GROUP * 128;
+  constexpr int CHUNKS = HD / 8;  // 16-byte pieces of a head's row
+  const int D = H * HD;
+  const int CS = D + 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp % 4, grp = warp / 4;
+  // K of buffer `buf` (= stage * GROUP + head in group); V follows it
+  auto k_of = [&](int buf) {
+    return reinterpret_cast<__nv_bfloat16*>(kv + buf * kv_rows_bytes(NPAD));
+  };
+
+  const int pad = NPAD - N;
+  for (int idx = threadIdx.x; idx < STAGES * GROUP * 2 * pad * CHUNKS; idx += THREADS) {
+    const int c = (idx % CHUNKS) * 8;
+    const int r = N + (idx / CHUNKS) % pad;
+    const int half = idx / CHUNKS / pad;  // (buffer, K or V)
+    *reinterpret_cast<uint4*>(k_of(half / 2) + (half % 2) * NPAD * KS + r * KS + c) =
+        make_uint4(0, 0, 0, 0);
+  }
+  auto issue = [&](int i) {  // group i's K and V into stage i % STAGES
+    for (int idx = threadIdx.x; idx < GROUP * 2 * N * CHUNKS; idx += THREADS) {
+      const int c = (idx % CHUNKS) * 8;
+      const int r = (idx / CHUNKS) % N;
+      const int half = idx / CHUNKS / N;  // (head in group, K or V)
+      const int h = i * GROUP + half / 2;
+      if (h < H)
+        cp_async16(k_of((i % STAGES) * GROUP + half / 2) + (half % 2) * NPAD * KS + r * KS + c,
+                   base + r * rs + (1 + half % 2) * D + h * HD + c);
+    }
+    cp_async_commit();
+  };
+
+  const int groups = (H + GROUP - 1) / GROUP;
+  issue(0);
+  for (int i = 0; i < groups; ++i) {
+    if (STAGES > 1 && i + 1 < groups) {
+      issue(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // group i's K and V have landed, for every thread
+    const int h = i * GROUP + grp;
+    if (mt * 16 < rows && h < H) {
+      const __nv_bfloat16* Ks = k_of((i % STAGES) * GROUP + grp);
+      float o[HD / 8][4];
+      attend_rows_bf16<KT, true>(o, base + h * HD, rs, Ks, Ks + NPAD * KS, mrow, N, q0 + mt * 16,
+                                 scale, g, t);
+      __nv_bfloat16* c0 = ctx + (mt * 16 + g) * CS + h * HD + t * 2;
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt) {
+        *reinterpret_cast<__nv_bfloat162*>(c0 + dt * 8) = __floats2bfloat162_rn(o[dt][0], o[dt][1]);
+        *reinterpret_cast<__nv_bfloat162*>(c0 + 8 * CS + dt * 8) =
+            __floats2bfloat162_rn(o[dt][2], o[dt][3]);
+      }
+    }
+    __syncthreads();  // this stage's buffers are no longer read
+    if (STAGES == 1 && i + 1 < groups) issue(i + 1);
+  }
+}
 
 // shared memory of a launch with npad keys and D = 64*H
 size_t smem_bytes(int npad, int H) {

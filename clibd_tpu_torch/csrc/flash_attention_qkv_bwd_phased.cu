@@ -122,27 +122,6 @@ __device__ __forceinline__ void mma_kmajor_swz(float (&acc)[HD / 8][4], const ui
   }
 }
 
-// store a 16 x 64 fp32 accumulator as bf16 rows row0 + g and row0 + g + 8
-// (those below N) at dst (row stride rs)
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long rs, const float (&acc)[HD / 8][4],
-                                           int row0, int N, int g, int t) {
-  const int r0 = row0 + g, r1 = r0 + 8;
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-    if (r0 < N)
-      *reinterpret_cast<__nv_bfloat162*>(dst + r0 * rs + dt * 8 + t * 2) =
-          __floats2bfloat162_rn(acc[dt][0], acc[dt][1]);
-    if (r1 < N)
-      *reinterpret_cast<__nv_bfloat162*>(dst + r1 * rs + dt * 8 + t * 2) =
-          __floats2bfloat162_rn(acc[dt][2], acc[dt][3]);
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[HD / 8][4]) {
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-}
-
 template <int KT>
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_phased_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ dout,

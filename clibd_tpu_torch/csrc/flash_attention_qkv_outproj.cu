@@ -2,13 +2,13 @@
 // out-projection fused in, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel
-// clibd_tpu/ops/pallas/attention.py::_flash_outproj_kernel.  Same arithmetic:
+// clibd_tpu/ops/pallas/attention.py::_flash_outproj_kernel.  Same function:
 // per (batch, head) the attention of flash_attention_qkv.cu (S = q.k^T / 8 in
-// fp32 plus the optional [B, N] key mask, the exact fp32 row softmax, P rounded
-// to bf16 after the normalisation, V read as bf16, P.V accumulated in fp32),
-// the context rounded to bf16, then out = ctx . bf16(W_out) accumulated in fp32
-// plus the fp32 bias, cast to qkv's dtype.  The context never reaches device
-// memory: it lives in shared memory between the two phases.
+// fp32 plus the optional [B, N] key mask, the fp32 row softmax, P rounded to
+// bf16, V read as bf16, P.V accumulated in fp32), the context rounded to
+// bf16, then out = ctx . bf16(W_out) accumulated in fp32 plus the fp32 bias,
+// cast to qkv's dtype.  The context never reaches device memory: it lives in
+// shared memory between the two phases.  It takes any N >= 1.
 //
 // What bounds it on an H100: the bytes are qkv read and out written (8*B*N*D
 // bytes in bf16: 606 MB at the ViT shape B=500 N=197 D=768, 0.181 ms at
@@ -18,30 +18,32 @@
 // nor the tensor cores alone would bound a good kernel.  Unfused, the
 // context costs a [B, N, D] write and read (303 MB) on top.
 //
-// Design (a first, simple one).  The TPU kernel keeps a whole batch element's
-// [N, D] bf16 context in VMEM (296 KB at N=197, D=768), more than the 227 KB of
-// shared memory a CTA can have, so the queries are tiled instead:
+// Design.  The TPU kernel keeps a whole batch element's [N, D] bf16 context
+// in VMEM (296 KB at N=197, D=768), more than the 227 KB of shared memory a
+// CTA can have, so the queries are tiled instead:
 //  * one CTA per (batch, 64 query rows), 8 warps; warp w takes rows
 //    16*(w%4) .. +16 of the tile;
-//  * attention, one head pair at a time (flash_common.cuh's
-//    attend_heads_to_ctx, shared with flash_attention_qkv_batched.cu): K and
-//    V of heads h and h+1 are copied into shared memory by cp.async, warps
-//    0-3 attend over head h and warps 4-7 over head h+1 as the forward
-//    kernel does (the whole 16 x Npad score block in registers), and each
-//    writes its bf16 context into the CTA's [64, D] context tile;
+//  * attention, one head pair at a time, through the forward kernel's
+//    key-tiled core (flash_common.cuh's attend_head_group<2>): the K and V of
+//    heads h and h+1 stream in tiles of 64 keys through a two-stage cp.async
+//    ring, warps 0-3 attend over head h and warps 4-7 over head h+1 with an
+//    online softmax, and each writes its bf16 context into the CTA's [64, D]
+//    context tile.  No row of keys is held, so any N is taken; P is rounded
+//    to bf16 before the division by the row sum, as in the forward kernel;
 //  * projection: W_out is streamed through shared memory in [128, 128] bf16
 //    chunks with cp.async, double-buffered in the space the K/V tiles used;
 //    warp w multiplies its 16 context rows by the chunk's column half w/4
 //    with mma.sync (B operand by ldmatrix.trans), accumulating in fp32 over
 //    the D/128 chunks of a column block, then adds the bias and stores;
-//  * fp32 qkv (precision checks, not the bf16 main path) takes a SIMT
-//    attention phase with S exact in fp32, one head at a time, and the same
-//    projection (the context is bf16 in both, as in the TPU kernel).
-// Shared memory: the context tile, 64 x (D+8) bf16 (99 KB at D=768), plus the
-// larger of two heads' K and V (120 KB at N=197) and two W chunks (70 KB):
-// 219 KB at the ViT shape, so one CTA per SM.  Left on the table: wgmma and TMA, a
-// tile that fits two CTAs per SM, the K/V restaging of every query tile (4
-// tiles per batch element at N=197), W_out re-read from L2 by every CTA.
+//  * fp32 qkv (precision checks, not the bf16 main path) takes the forward
+//    kernel's SIMT core with S exact in fp32 (attend_head_f32), one head at a
+//    time, and the same projection (the context is bf16 in both, as in the
+//    TPU kernel).
+// Shared memory: the context tile, 64 x (D+8) bf16 (99 KB at D=768), plus
+// the larger of the two-stage ring (2 x (2 heads' K and V tiles + the key
+// row) = 74 KB) and two W chunks (70 KB): 173 KB at D=768, so one CTA per
+// SM.  Left on the table: wgmma and TMA, a tile that fits two CTAs per SM,
+// the K/V re-read of every query tile, W_out re-read from L2 by every CTA.
 
 #include "flash_common.cuh"
 
@@ -55,12 +57,6 @@ constexpr int QROWS = 64;  // query rows per CTA: 4 tiles of 16
 constexpr int KC = 128;    // W_out chunk: k rows
 constexpr int NC = 128;    // W_out chunk: output columns (64 per warp)
 constexpr int WS = NC + 8; // W_out chunk row stride in bf16: conflict-free ldmatrix
-
-// bytes of the fp32 attention scratch: K [N][HD+1], V [N][HD], per warp q[HD]
-// and p[N]
-__host__ __device__ constexpr size_t f32_attn_bytes(int n) {
-  return (size_t)(n * (HD + 1) + n * HD + WARPS * HD + WARPS * n) * 4;
-}
 
 constexpr size_t W_BYTES = 2 * (size_t)KC * WS * 2;  // two W_out chunks
 
@@ -136,45 +132,68 @@ __device__ void project(const __nv_bfloat16* ctx, __nv_bfloat16* wbuf,
   }
 }
 
-// zero the context rows of 16-row tiles that lie wholly past N, so the
-// projection multiplies no stale shared memory
-__device__ __forceinline__ void zero_dead_tiles(__nv_bfloat16* ctx, int rows, int D) {
+// zero the context rows at or past N, so the projection multiplies no stale
+// shared memory
+__device__ __forceinline__ void zero_dead_rows(__nv_bfloat16* ctx, int rows, int D) {
   const int CS = D + 8;
-  for (int idx = threadIdx.x; idx < QROWS * (D / 8); idx += THREADS) {
-    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    if ((r / 16) * 16 >= rows) *reinterpret_cast<uint4*>(ctx + r * CS + c) = make_uint4(0, 0, 0, 0);
+  for (int idx = threadIdx.x; idx < (QROWS - rows) * (D / 8); idx += THREADS) {
+    const int r = rows + idx / (D / 8), c = (idx % (D / 8)) * 8;
+    *reinterpret_cast<uint4*>(ctx + r * CS + c) = make_uint4(0, 0, 0, 0);
   }
 }
 
+// (batch, first query row, live rows) of this CTA
+struct Tile {
+  int b, q0, rows;
+};
+
+__device__ __forceinline__ Tile cta_tile(int N) {
+  const int qtiles = (N + QROWS - 1) / QROWS;
+  const int q0 = (blockIdx.x % qtiles) * QROWS;
+  return {(int)(blockIdx.x / qtiles), q0, min(QROWS, N - q0)};
+}
+
 // ---------------------------------------------------------------------------
-// bf16: tensor-core attention.  KT = number of 16-key tiles (Npad = 16*KT).
+// bf16: tensor-core attention, two heads at a time.
 // ---------------------------------------------------------------------------
-template <int KT>
 __global__ void __launch_bounds__(THREADS, 1)
 outproj_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ mask,
                     const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
                     __nv_bfloat16* __restrict__ out, int N, int H, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int D = H * HD;
+  const int CS = D + 8;
   __nv_bfloat16* ctx = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   unsigned char* region = smem_raw + ctx_tile_bytes(D);
-
-  const int qtiles = (N + QROWS - 1) / QROWS;
-  const int b = blockIdx.x / qtiles;
-  const int q0 = (blockIdx.x % qtiles) * QROWS;
-  const int rows = min(QROWS, N - q0);
+  const Tile c = cta_tile(N);
   const long rs = 3L * D;
-  const __nv_bfloat16* base = qkv + (long)b * N * rs;
-  const float* mrow = mask ? mask + (long)b * N : nullptr;
+  const __nv_bfloat16* base = qkv + (long)c.b * N * rs;
+  const float* mrow = mask ? mask + (long)c.b * N : nullptr;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
 
-  zero_dead_tiles(ctx, rows, D);
-  attend_heads_to_ctx<KT, WARPS / 4, 1>(ctx, region, base, rs, mrow, N, H, q0, rows, scale);
-  project(ctx, reinterpret_cast<__nv_bfloat16*>(region), w, bias, out, (long)b * N + q0, rows, D);
+  for (int h0 = 0; h0 < H; h0 += WARPS / 4) {
+    float o[HD / 8][4];
+    attend_head_group<WARPS / 4>(o, region, base, rs, D, H, h0, N, c.q0, mrow, scale);
+    const int h = h0 + warp / 4;
+    if (h < H) {
+      __nv_bfloat16* c0 = ctx + ((warp % 4) * 16 + g) * CS + h * HD + t * 2;
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt) {
+        *reinterpret_cast<__nv_bfloat162*>(c0 + dt * 8) = __floats2bfloat162_rn(o[dt][0], o[dt][1]);
+        *reinterpret_cast<__nv_bfloat162*>(c0 + 8 * CS + dt * 8) =
+            __floats2bfloat162_rn(o[dt][2], o[dt][3]);
+      }
+    }
+  }
+  __syncthreads();  // the context tile is complete
+  project(ctx, reinterpret_cast<__nv_bfloat16*>(region), w, bias, out, (long)c.b * N + c.q0,
+          c.rows, D);
 }
 
 // ---------------------------------------------------------------------------
-// fp32: SIMT attention with S exact in fp32 (one warp per query row, as
-// flash_attention_qkv.cu's fp32 kernel), then the same bf16 projection.
+// fp32: SIMT attention with S exact in fp32, one head at a time, then the
+// same bf16 projection.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(THREADS, 1)
 outproj_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
@@ -185,67 +204,29 @@ outproj_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ mask
   const int CS = D + 8;
   __nv_bfloat16* ctx = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   unsigned char* region = smem_raw + ctx_tile_bytes(D);
-  float* Ks = reinterpret_cast<float*>(region);  // [N][HD + 1]
-  float* Vs = Ks + N * (HD + 1);                 // [N][HD], rounded to bf16
-  float* Qs = Vs + N * HD;                       // [WARPS][HD]
-  float* Ps = Qs + WARPS * HD;                   // [WARPS][N]
-
-  const int qtiles = (N + QROWS - 1) / QROWS;
-  const int b = blockIdx.x / qtiles;
-  const int q0 = (blockIdx.x % qtiles) * QROWS;
-  const int rows = min(QROWS, N - q0);
+  const Tile c = cta_tile(N);
   const long rs = 3L * D;
-  const float* base = qkv + (long)b * N * rs;
-  const float* mrow = mask ? mask + (long)b * N : nullptr;
-  const int warp = threadIdx.x / 32;
+  const float* base = qkv + (long)c.b * N * rs;
+  const float* mrow = mask ? mask + (long)c.b * N : nullptr;
   const int lane = threadIdx.x % 32;
-  float* qs = Qs + warp * HD;
-  float* ps = Ps + warp * N;
 
-  zero_dead_tiles(ctx, rows, D);
-  // rows past N inside a live tile: zero context (never stored)
-  for (int idx = threadIdx.x; idx < QROWS * D; idx += THREADS) {
-    const int r = idx / D;
-    if (r >= rows && (r / 16) * 16 < rows) ctx[r * CS + idx % D] = __float2bfloat16_rn(0.f);
-  }
-  for (int h = 0; h < H; ++h) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < N * HD; idx += THREADS) {
-      const int r = idx / HD, c = idx % HD;
-      Ks[r * (HD + 1) + c] = base[r * rs + D + h * HD + c];
-      Vs[r * HD + c] = bf16_round(base[r * rs + 2 * D + h * HD + c]);
-    }
-    __syncthreads();
-    for (int r = warp; r < rows; r += WARPS) {
-      const float2 o = attend_row_f32(base + (long)(q0 + r) * rs + h * HD, Ks, Vs, qs, ps, mrow,
-                                      N, scale, lane);
-      ctx[r * CS + h * HD + lane] = __float2bfloat16_rn(o.x);
-      ctx[r * CS + h * HD + lane + 32] = __float2bfloat16_rn(o.y);
-    }
-  }
-  __syncthreads();
-  project(ctx, reinterpret_cast<__nv_bfloat16*>(region), w, bias, out, (long)b * N + q0, rows, D);
+  zero_dead_rows(ctx, c.rows, D);
+  for (int h = 0; h < H; ++h)
+    attend_head_f32<WARPS>(reinterpret_cast<float*>(region), base, rs, D, h, N, c.q0, mrow, scale,
+                           [&](int r, float o0, float o1) {
+                             ctx[r * CS + h * HD + lane] = __float2bfloat16_rn(o0);
+                             ctx[r * CS + h * HD + lane + 32] = __float2bfloat16_rn(o1);
+                           });
+  project(ctx, reinterpret_cast<__nv_bfloat16*>(region), w, bias, out, (long)c.b * N + c.q0,
+          c.rows, D);
 }
 
 // shared memory of a launch, or 0 where the shapes are not taken
 size_t smem_bytes(int N, int H, int dtype) {
   const int D = H * HD;
-  if (N < 1 || N > MAX_N || H < 2 || D % KC) return 0;
-  const size_t attn = dtype == 1 ? 2 * kv_rows_bytes(kt_instance(N) * 16) : f32_attn_bytes(N);
+  if (N < 1 || H < 2 || D % KC) return 0;
+  const size_t attn = dtype == 1 ? 2 * group_stage_bytes(WARPS / 4) : f32_attn_bytes(WARPS);
   return ctx_tile_bytes(D) + (attn > W_BYTES ? attn : W_BYTES);
-}
-
-template <int KT>
-cudaError_t launch_bf16(const void* qkv, const float* mask, const void* w, const float* bias,
-                        void* out, int B, int N, int H, size_t smem, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(outproj_bf16_kernel<KT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const long grid = (long)B * ((N + QROWS - 1) / QROWS);
-  outproj_bf16_kernel<KT><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), mask, static_cast<const __nv_bfloat16*>(w), bias,
-      static_cast<__nv_bfloat16*>(out), N, H, 1.0f / sqrtf((float)HD));
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -253,7 +234,7 @@ cudaError_t launch_bf16(const void* qkv, const float* mask, const void* w, const
 extern "C" {
 
 // Shared memory a launch at (N, H, dtype) needs, 0 where the kernel does not
-// take the shapes (N above MAX_N, or D = 64*H not a multiple of 128).
+// take the shapes (D = 64*H not a multiple of 128).
 long clibd_flash_outproj_smem_bytes(int N, int H, int dtype) {
   return (long)smem_bytes(N, H, dtype);
 }
@@ -269,27 +250,28 @@ int clibd_flash_attention_qkv_outproj(const void* qkv, const float* mask, const 
   int max_smem = 0, dev = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (B < 1 || smem == 0 || smem > (size_t)max_smem || (long)B * N > 0x7fffffffL)
+  const long grid = (long)B * ((N + QROWS - 1) / QROWS);
+  if (B < 1 || smem == 0 || smem > (size_t)max_smem || grid > 0x7fffffffL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float scale = 1.0f / sqrtf((float)HD);
   if (dtype == 0) {
     cudaError_t e = cudaFuncSetAttribute(outproj_f32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    const long grid = (long)B * ((N + QROWS - 1) / QROWS);
     outproj_f32_kernel<<<grid, THREADS, smem, s>>>(
         static_cast<const float*>(qkv), mask, static_cast<const __nv_bfloat16*>(w), bias,
-        static_cast<float*>(out), N, H, 1.0f / sqrtf((float)HD));
+        static_cast<float*>(out), N, H, scale);
     return (int)cudaGetLastError();
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  switch (kt_instance(N)) {
-    case 2: return (int)launch_bf16<2>(qkv, mask, w, bias, out, B, N, H, smem, s);
-    case 4: return (int)launch_bf16<4>(qkv, mask, w, bias, out, B, N, H, smem, s);
-    case 9: return (int)launch_bf16<9>(qkv, mask, w, bias, out, B, N, H, smem, s);
-    case 13: return (int)launch_bf16<13>(qkv, mask, w, bias, out, B, N, H, smem, s);
-    default: return (int)launch_bf16<16>(qkv, mask, w, bias, out, B, N, H, smem, s);
-  }
+  cudaError_t e = cudaFuncSetAttribute(outproj_bf16_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  outproj_bf16_kernel<<<grid, THREADS, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(qkv), mask, static_cast<const __nv_bfloat16*>(w), bias,
+      static_cast<__nv_bfloat16*>(out), N, H, scale);
+  return (int)cudaGetLastError();
 }
 
 const char* clibd_cuda_error_string(int code) {

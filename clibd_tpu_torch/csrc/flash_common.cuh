@@ -1,6 +1,7 @@
 // Device helpers shared by the port's kernels for Hopper, sm_90a: the bf16
 // tensor-core product, fragment packing and loads, asynchronous copies to
-// shared memory, and warp/quad reductions.  Included by every csrc/*.cu;
+// shared memory, warp/quad reductions, and the key-tiled attention cores of
+// the forward and out-projection kernels.  Included by every csrc/*.cu;
 // ops/cuda_build.py hashes it with each source.
 
 #pragma once
@@ -13,10 +14,12 @@
 namespace clibd {
 
 constexpr int HD = 64;      // head dim the kernels are written for
-constexpr int MAX_N = 256;  // longest sequence: 16 key tiles of 16
+// longest sequence of the kernels that hold a whole row of keys on chip (the
+// experiment kernels and attention_bhnd); the key-tiled kernels take any N
+constexpr int MAX_N = 256;
 
-// the key-tile count (16 keys a tile) of the kernel instance that takes N
-// keys, for kernels instantiated at KT = 2, 4, 9, 13 and 16
+// the key-tile count (16 keys a tile) of the whole-row kernel instance that
+// takes N keys, for kernels instantiated at KT = 2, 4, 9, 13 and 16
 inline int kt_instance(int N) {
   const int kt = (N + 15) / 16;
   return kt <= 2 ? 2 : kt <= 4 ? 4 : kt <= 9 ? 9 : kt <= 13 ? 13 : 16;
@@ -104,6 +107,22 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(gmem));
 }
 
+// cp_async16 that copies nothing and zero-fills the 16 bytes when !valid
+// (`gmem` must still be a mapped address)
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared by cp.async, zero-filled when !valid (`gmem` must
+// still be a mapped address): for rows of floats that are not 16-byte aligned
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, bool valid) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(addr), "l"(gmem),
+               "r"(valid ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
@@ -139,6 +158,42 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// store a 16 x 64 fp32 accumulator as bf16 rows row0 + g and row0 + g + 8
+// (those below N) at dst (row stride rs)
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long rs, const float (&acc)[HD / 8][4],
+                                           int row0, int N, int g, int t) {
+  const int r0 = row0 + g, r1 = r0 + 8;
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt) {
+    if (r0 < N)
+      *reinterpret_cast<__nv_bfloat162*>(dst + r0 * rs + dt * 8 + t * 2) =
+          __floats2bfloat162_rn(acc[dt][0], acc[dt][1]);
+    if (r1 < N)
+      *reinterpret_cast<__nv_bfloat162*>(dst + r1 * rs + dt * 8 + t * 2) =
+          __floats2bfloat162_rn(acc[dt][2], acc[dt][3]);
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[HD / 8][4]) {
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+}
+
+// A fragments of the 16 rows row0 .. row0+15 (64 columns) of a bf16 matrix in
+// device memory (`p`: row 0, row stride `rs`); rows at or past N read as 0
+__device__ __forceinline__ void load_rows_a(uint32_t (&a)[HD / 16][4], const __nv_bfloat16* p,
+                                            long rs, int N, int row0, int g, int t) {
+  const int r0 = row0 + g, r1 = r0 + 8;
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    const int c = ks * 16 + t * 2;
+    a[ks][0] = r0 < N ? ld_u32(p + r0 * rs + c) : 0u;
+    a[ks][1] = r1 < N ? ld_u32(p + r1 * rs + c) : 0u;
+    a[ks][2] = r0 < N ? ld_u32(p + r0 * rs + c + 8) : 0u;
+    a[ks][3] = r1 < N ? ld_u32(p + r1 * rs + c + 8) : 0u;
+  }
+}
+
 // One warp's attention over one head for the 16 query rows row0 + g and
 // row0 + g + 8 (g = lane/4, t = lane%4), the TPU kernel's arithmetic:
 // S = q.k^T (bf16 in, fp32 accumulate) * scale + the key mask, keys N ..
@@ -158,16 +213,8 @@ __device__ __forceinline__ void attend_rows_bf16(float (&o)[HD / 8][4], const __
                                                  int row0, float scale, int g, int t) {
   constexpr int KS = HD + 8;
   constexpr int VS = KT * 16 + 8;
-  const int r0 = row0 + g, r1 = r0 + 8;
   uint32_t qa[HD / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    const int c = ks * 16 + t * 2;
-    qa[ks][0] = r0 < N ? ld_u32(qg + r0 * rs + c) : 0u;
-    qa[ks][1] = r1 < N ? ld_u32(qg + r1 * rs + c) : 0u;
-    qa[ks][2] = r0 < N ? ld_u32(qg + r0 * rs + c + 8) : 0u;
-    qa[ks][3] = r1 < N ? ld_u32(qg + r1 * rs + c + 8) : 0u;
-  }
+  load_rows_a(qa, qg, rs, N, row0, g, t);
   float s[2 * KT][4];
 #pragma unroll
   for (int nt = 0; nt < 2 * KT; ++nt) {
@@ -226,136 +273,341 @@ __device__ __forceinline__ void attend_rows_bf16(float (&o)[HD / 8][4], const __
   }
 }
 
-// bytes of one head's K and V, each row-major at row stride HD+8 in bf16,
-// for npad keys: one buffer of attend_heads_to_ctx's ring
-__host__ __device__ constexpr size_t kv_rows_bytes(int npad) {
-  return (size_t)2 * npad * (HD + 8) * sizeof(__nv_bfloat16);
-}
-
 // bytes of a [64, D] bf16 context tile at row stride D+8
 __host__ __device__ constexpr size_t ctx_tile_bytes(int D) {
   return (size_t)64 * (D + 8) * sizeof(__nv_bfloat16);
 }
 
-// Every head's attention for the query rows q0 .. q0+rows-1 (rows <= 64) of
-// one batch element, into the bf16 context tile `ctx` ([64][D+8] in shared
-// memory) at column h*HD.  `base` is the element's fused qkv (row stride
-// `rs`), `mrow` its key mask or null.  The heads go GROUP at a time over
-// 4*GROUP warps: warp w attends over head h0 + w/4 for the 16-row tile w%4
-// (attend_rows_bf16, V row-major).  Each group's K and V are copied by
-// cp.async into a ring of STAGES buffers of GROUP heads at `kv`
-// (STAGES*GROUP*kv_rows_bytes(16*KT) bytes); with two stages the next
-// group's copies are in flight while this group computes.  Keys N .. 16*KT-1
-// are zero in every buffer.  Returns after a barrier: the tile is complete
-// and `kv` is free.
-template <int KT, int GROUP, int STAGES>
-__device__ __forceinline__ void attend_heads_to_ctx(__nv_bfloat16* ctx, unsigned char* kv,
-                                                    const __nv_bfloat16* base, long rs,
-                                                    const float* mrow, int N, int H, int q0,
-                                                    int rows, float scale) {
-  constexpr int NPAD = KT * 16;
-  constexpr int KS = HD + 8;
-  constexpr int THREADS = GROUP * 128;
-  constexpr int CHUNKS = HD / 8;  // 16-byte pieces of a head's row
-  const int D = H * HD;
-  const int CS = D + 8;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int mt = warp % 4, grp = warp / 4;
-  // K of buffer `buf` (= stage * GROUP + head in group); V follows it
-  auto k_of = [&](int buf) {
-    return reinterpret_cast<__nv_bfloat16*>(kv + buf * kv_rows_bytes(NPAD));
-  };
+// ---------------------------------------------------------------------------
+// Key-tiled attention.  Keys (and, in the backward, queries) stream through
+// shared memory KTILE rows at a time, so no kernel built on these holds a
+// whole row of keys and every N >= 1 is taken.
+// ---------------------------------------------------------------------------
 
-  const int pad = NPAD - N;
-  for (int idx = threadIdx.x; idx < STAGES * GROUP * 2 * pad * CHUNKS; idx += THREADS) {
-    const int c = (idx % CHUNKS) * 8;
-    const int r = N + (idx / CHUNKS) % pad;
-    const int half = idx / CHUNKS / pad;  // (buffer, K or V)
-    *reinterpret_cast<uint4*>(k_of(half / 2) + (half % 2) * NPAD * KS + r * KS + c) =
-        make_uint4(0, 0, 0, 0);
+constexpr int KTILE = 64;     // rows of a streamed tile
+constexpr int TS = HD + 8;    // its row stride in bf16: conflict-free ld_u32 and ldmatrix
+constexpr size_t TILE_BYTES = (size_t)KTILE * TS * sizeof(__nv_bfloat16);
+
+// One head's rows row0 .. row0+63 of a bf16 matrix in device memory (`src`:
+// row 0 of the head's columns, row stride `rs`) into the tile `dst` by
+// cp.async, over THREADS threads; rows at or past N are zero-filled.
+template <int THREADS>
+__device__ __forceinline__ void issue_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, long rs,
+                                           int row0, int N) {
+  for (int idx = threadIdx.x; idx < KTILE * (HD / 8); idx += THREADS) {
+    const int r = idx / (HD / 8), c = (idx % (HD / 8)) * 8;
+    const bool live = row0 + r < N;
+    cp_async16_zfill(dst + r * TS + c, src + (live ? row0 + r : 0) * rs + c, live);
   }
-  auto issue = [&](int i) {  // group i's K and V into stage i % STAGES
-    for (int idx = threadIdx.x; idx < GROUP * 2 * N * CHUNKS; idx += THREADS) {
-      const int c = (idx % CHUNKS) * 8;
-      const int r = (idx / CHUNKS) % N;
-      const int half = idx / CHUNKS / N;  // (head in group, K or V)
-      const int h = i * GROUP + half / 2;
-      if (h < H)
-        cp_async16(k_of((i % STAGES) * GROUP + half / 2) + (half % 2) * NPAD * KS + r * KS + c,
-                   base + r * rs + (1 + half % 2) * D + h * HD + c);
+}
+
+// the key mask of keys key0 .. key0+63 into `add` by cp.async (no thread
+// waits on device memory), 0 past N or without a mask; read it with key_add,
+// which masks the keys past N
+template <int THREADS>
+__device__ __forceinline__ void issue_mask_tile(float* add, const float* mrow, int key0, int N) {
+  for (int j = threadIdx.x; j < KTILE; j += THREADS) {
+    const bool live = key0 + j < N;
+    if (mrow)
+      cp_async4_zfill(add + j, mrow + (live ? key0 + j : 0), live);
+    else
+      add[j] = 0.f;
+  }
+}
+
+// the additive score term of key `col` of a tile with `nvalid` keys below N
+__device__ __forceinline__ float key_add(const float* add, int col, int nvalid) {
+  return col < nvalid ? add[col] : -INFINITY;
+}
+
+// acc[nt] (16 x 8, nt < NT) = A (16 rows x 64, fragments `a`) times rows
+// row0 + 8nt .. +7 of the tile, transposed: 16 rows' products with 8*NT rows
+// of the tile (scores against keys, or dP against V rows).  B fragments by
+// ldmatrix, two k-steps per instruction.
+template <int NT>
+__device__ __forceinline__ void mma_rows_t(float (&acc)[NT][4], const uint32_t (&a)[HD / 16][4],
+                                           const __nv_bfloat16* tile, int row0, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+    const __nv_bfloat16* p = tile + (row0 + nt * 8 + (lane & 7)) * TS + (lane >> 3) * 8;
+#pragma unroll
+    for (int kp = 0; kp < HD / 32; ++kp) {
+      uint32_t b[4];
+      ldmatrix_x4(b, p + kp * 32);
+      mma_bf16_16816(acc[nt], a[2 * kp], b[0], b[1]);
+      mma_bf16_16816(acc[nt], a[2 * kp + 1], b[2], b[3]);
     }
+  }
+}
+
+// the A fragment of the 16 x 16 block of columns 16kc .. 16kc+15 of a 16 x 8NT
+// accumulator, rounded to bf16 (the accumulator layout of two n-tiles is the
+// A layout of one k-step)
+template <int NT>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&acc)[NT][4], int kc) {
+  a[0] = pack_bf16x2(acc[2 * kc][0], acc[2 * kc][1]);
+  a[1] = pack_bf16x2(acc[2 * kc][2], acc[2 * kc][3]);
+  a[2] = pack_bf16x2(acc[2 * kc + 1][0], acc[2 * kc + 1][1]);
+  a[3] = pack_bf16x2(acc[2 * kc + 1][2], acc[2 * kc + 1][3]);
+}
+
+// The online softmax of one warp's 16 query rows (g and g+8): the output
+// accumulator, the running row maxima (equal across a quad) and the lane's
+// share of the running row sums.
+struct OnlineRows {
+  float o[HD / 8][4];
+  float m0, m1, l0, l1;
+};
+
+__device__ __forceinline__ void online_init(OnlineRows& st) {
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt) st.o[dt][0] = st.o[dt][1] = st.o[dt][2] = st.o[dt][3] = 0.f;
+  st.m0 = st.m1 = -INFINITY;
+  st.l0 = st.l1 = 0.f;
+}
+
+// the exp() base of a running max: 0 while every score so far is -inf (a
+// mask of -inf), so that exp(-inf - base) stays 0 instead of NaN
+__device__ __forceinline__ float exp_base(float m) { return m == -INFINITY ? 0.f : m; }
+
+// (batch, head, first row) of this CTA's 64-row tile in a grid of
+// B*H*ceil(N/64) CTAs, tiles fastest so that the CTAs of one head run
+// together and share its K and V (or Q and dO) in L2
+struct HeadTile {
+  int b, h, r0;
+};
+
+__device__ __forceinline__ HeadTile head_tile(int N, int H) {
+  const int tiles = (N + KTILE - 1) / KTILE;
+  const int bh = blockIdx.x / tiles;
+  return {bh / H, bh % H, (blockIdx.x % tiles) * KTILE};
+}
+
+// One 64-key tile into the state: S = q.k^T * scale + mask in fp32, the
+// running max raised to the tile's, the state rescaled, P = exp(S - max)
+// rounded to bf16, o += P.V.  `Ks`, `Vs`: the tile's K and V rows (zero past
+// N); `add`: its key mask row, `nvalid` its keys below N.  exp is the fast
+// __expf (ex2.approx): its error, a few fp32 ulps, is far below the bf16
+// rounding of P, and the precise expf would cost the issue slots that bound
+// this loop.
+__device__ __forceinline__ void online_tile(OnlineRows& st, const uint32_t (&qa)[HD / 16][4],
+                                            const __nv_bfloat16* Ks, const __nv_bfloat16* Vs,
+                                            const float* add, int nvalid, float scale,
+                                            int lane) {
+  const int t = lane & 3;
+  float s[KTILE / 8][4];
+  mma_rows_t<KTILE / 8>(s, qa, Ks, 0, lane);
+  float mx0 = st.m0, mx1 = st.m1;
+#pragma unroll
+  for (int nt = 0; nt < KTILE / 8; ++nt) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float a = key_add(add, nt * 8 + t * 2 + j, nvalid);
+      s[nt][j] = fmaf(s[nt][j], scale, a);
+      s[nt][2 + j] = fmaf(s[nt][2 + j], scale, a);
+      mx0 = fmaxf(mx0, s[nt][j]);
+      mx1 = fmaxf(mx1, s[nt][2 + j]);
+    }
+  }
+  mx0 = quad_max(mx0);
+  mx1 = quad_max(mx1);
+  const float b0 = exp_base(mx0), b1 = exp_base(mx1);
+  const float al0 = __expf(st.m0 - b0), al1 = __expf(st.m1 - b1);
+  st.m0 = mx0;
+  st.m1 = mx1;
+  float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < KTILE / 8; ++nt) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      s[nt][j] = __expf(s[nt][j] - b0);
+      s[nt][2 + j] = __expf(s[nt][2 + j] - b1);
+      r0 += s[nt][j];
+      r1 += s[nt][2 + j];
+    }
+  }
+  st.l0 = st.l0 * al0 + r0;
+  st.l1 = st.l1 * al1 + r1;
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt) {
+    st.o[dt][0] *= al0;
+    st.o[dt][1] *= al0;
+    st.o[dt][2] *= al1;
+    st.o[dt][3] *= al1;
+  }
+#pragma unroll
+  for (int kc = 0; kc < KTILE / 16; ++kc) {
+    uint32_t pa[4];
+    pack_a(pa, s, kc);
+    mma_kmajor<HD / 8>(st.o, pa, Vs, TS, kc * 16, 0, lane);
+  }
+}
+
+// bytes of one stage of attend_head_group<G>'s ring: K and V tiles of G heads
+// and the key row
+__host__ __device__ constexpr size_t group_stage_bytes(int G) {
+  return 2 * G * TILE_BYTES + KTILE * sizeof(float);
+}
+
+// The attention of heads h0 .. h0+G-1 for the query rows q0 .. q0+63 of one
+// batch element, over 4*G warps: warp w takes head h0 + w/4 and rows
+// q0 + 16*(w%4) .. +15, and returns their normalised output in `o` (rows g
+// in o[dt][0..1], g+8 in o[dt][2..3]; zero where the warp has no live row:
+// a head at or past H, rows at or past N).  `base` is the element's fused
+// qkv (row stride rs, D = H*HD), `mrow` its key mask or null.  The 64-key
+// tiles stream through a ring of two stages at `smem`
+// (2 * group_stage_bytes(G) bytes) by cp.async, the next tile's copies in
+// flight while this one is computed.  Returns after a barrier: `smem` is
+// free again.
+template <int G>
+__device__ __forceinline__ void attend_head_group(float (&o)[HD / 8][4], unsigned char* smem,
+                                                  const __nv_bfloat16* base, long rs, int D,
+                                                  int H, int h0, int N, int q0,
+                                                  const float* mrow, float scale) {
+  constexpr int THREADS = G * 128;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int h = h0 + warp / 4, row0 = q0 + (warp % 4) * 16;
+  const bool live = h < H && row0 < N;
+  auto stage = [&](int i) { return smem + (i & 1) * group_stage_bytes(G); };
+  auto issue = [&](int i) {  // key tile i into stage i % 2
+    __nv_bfloat16* kv = reinterpret_cast<__nv_bfloat16*>(stage(i));
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      const int hh = min(h0 + gi, H - 1);  // a head past H copies a real one, never read
+      issue_tile<THREADS>(kv + 2 * gi * KTILE * TS, base + D + hh * HD, rs, i * KTILE, N);
+      issue_tile<THREADS>(kv + (2 * gi + 1) * KTILE * TS, base + 2 * D + hh * HD, rs, i * KTILE,
+                          N);
+    }
+    issue_mask_tile<THREADS>(reinterpret_cast<float*>(stage(i) + 2 * G * TILE_BYTES), mrow,
+                             i * KTILE, N);
     cp_async_commit();
   };
 
-  const int groups = (H + GROUP - 1) / GROUP;
+  OnlineRows st;
+  online_init(st);
+  uint32_t qa[HD / 16][4];
+  load_rows_a(qa, base + h * HD, rs, live ? N : 0, row0, lane >> 2, lane & 3);
+  const int tiles = (N + KTILE - 1) / KTILE;
   issue(0);
-  for (int i = 0; i < groups; ++i) {
-    if (STAGES > 1 && i + 1 < groups) {
+  for (int i = 0; i < tiles; ++i) {
+    if (i + 1 < tiles) {
       issue(i + 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();  // group i's K and V have landed, for every thread
-    const int h = i * GROUP + grp;
-    if (mt * 16 < rows && h < H) {
-      const __nv_bfloat16* Ks = k_of((i % STAGES) * GROUP + grp);
-      float o[HD / 8][4];
-      attend_rows_bf16<KT, true>(o, base + h * HD, rs, Ks, Ks + NPAD * KS, mrow, N, q0 + mt * 16,
-                                 scale, g, t);
-      __nv_bfloat16* c0 = ctx + (mt * 16 + g) * CS + h * HD + t * 2;
-#pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt) {
-        *reinterpret_cast<__nv_bfloat162*>(c0 + dt * 8) = __floats2bfloat162_rn(o[dt][0], o[dt][1]);
-        *reinterpret_cast<__nv_bfloat162*>(c0 + 8 * CS + dt * 8) =
-            __floats2bfloat162_rn(o[dt][2], o[dt][3]);
-      }
+    __syncthreads();  // tile i has landed, for every thread
+    if (live) {
+      const __nv_bfloat16* Ks = reinterpret_cast<const __nv_bfloat16*>(stage(i)) +
+                                2 * (warp / 4) * KTILE * TS;
+      online_tile(st, qa, Ks, Ks + KTILE * TS,
+                  reinterpret_cast<const float*>(stage(i) + 2 * G * TILE_BYTES), N - i * KTILE,
+                  scale, lane);
     }
-    __syncthreads();  // this stage's buffers are no longer read
-    if (STAGES == 1 && i + 1 < groups) issue(i + 1);
+    __syncthreads();  // stage i % 2 is no longer read
+  }
+  const float r0 = live ? 1.f / quad_sum(st.l0) : 0.f, r1 = live ? 1.f / quad_sum(st.l1) : 0.f;
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt) {
+    o[dt][0] = st.o[dt][0] * r0;
+    o[dt][1] = st.o[dt][1] * r0;
+    o[dt][2] = st.o[dt][2] * r1;
+    o[dt][3] = st.o[dt][3] * r1;
   }
 }
 
-// One warp's attention over one head for one query row, S exact in fp32:
-// `qr` the row's q (HD floats in device memory), K [N][HD+1] and V [N][HD]
-// (V rounded to bf16) in shared memory, `qs` [HD] and `ps` [N] the warp's
-// scratch in shared memory; the fp32 softmax, P rounded to bf16, P.V in
-// fp32.  Returns output columns lane and lane + 32.
-__device__ __forceinline__ float2 attend_row_f32(const float* qr, const float* Ks, const float* Vs,
-                                                 float* qs, float* ps, const float* mrow, int N,
-                                                 float scale, int lane) {
-  qs[lane] = qr[lane];
-  qs[lane + 32] = qr[lane + 32];
-  __syncwarp();
-  float mx = -INFINITY;
-  for (int j = lane; j < N; j += 32) {
-    const float* kr = Ks + j * (HD + 1);
-    float acc = 0.f;
+// bytes of attend_head_f32's shared memory with WARPS warps: a K tile
+// [64][HD+1], a V tile [64][HD], the key row, the CTA's q rows [64][HD] and a
+// P row per warp, all fp32
+__host__ __device__ constexpr size_t f32_attn_bytes(int warps) {
+  return (size_t)(KTILE * (HD + 1) + KTILE * HD + KTILE + KTILE * HD + warps * KTILE) *
+         sizeof(float);
+}
+
+// One head's attention for the query rows q0 .. q0+63 (those below N) of one
+// batch element with S exact in fp32 (precision checks, not the bf16 main
+// path): row q0 + r goes to warp r % WARPS; the keys stream through shared
+// memory 64 at a time (K, and V rounded to bf16), twice: the first sweep
+// takes each row's max and sum, the second P = bf16(exp(S - max) / sum), the
+// reference's rounding, and o += P.V in fp32.  `base` is the element's fused
+// qkv (row stride rs, D = H*HD), `mrow` its key mask or null, `smem`
+// f32_attn_bytes(WARPS) bytes.  store(r, o_lane, o_lane+32) is called once
+// per live row, lane d holding output columns d and d + 32.  Starts and ends
+// with a barrier.
+template <int WARPS, typename Store>
+__device__ __forceinline__ void attend_head_f32(float* smem, const float* base, long rs, int D,
+                                                int h, int N, int q0, const float* mrow,
+                                                float scale, Store store) {
+  constexpr int THREADS = WARPS * 32, R = KTILE / WARPS;
+  float* Ks = smem;                   // [64][HD + 1]: conflict-free row-per-lane reads
+  float* Vs = Ks + KTILE * (HD + 1);  // [64][HD]
+  float* add = Vs + KTILE * HD;       // [64]
+  float* Qs = add + KTILE;            // [64][HD]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* ps = Qs + KTILE * HD + warp * KTILE;
+  __syncthreads();  // the caller's earlier use of smem is over
+  for (int idx = threadIdx.x; idx < KTILE * HD; idx += THREADS) {
+    const int r = idx / HD;
+    Qs[idx] = q0 + r < N ? base[(q0 + r) * rs + h * HD + idx % HD] : 0.f;
+  }
+  float m[R], l[R], o0[R], o1[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = -INFINITY;
+    l[i] = o0[i] = o1[i] = 0.f;
+  }
+  const int tiles = (N + KTILE - 1) / KTILE;
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    for (int kt = 0; kt < tiles; ++kt) {
+      __syncthreads();  // the previous tile is no longer read
+      for (int idx = threadIdx.x; idx < KTILE * HD; idx += THREADS) {
+        const int r = idx / HD, c = idx % HD, key = kt * KTILE + r;
+        const bool live = key < N;
+        Ks[r * (HD + 1) + c] = live ? base[key * rs + D + h * HD + c] : 0.f;
+        Vs[r * HD + c] = live ? bf16_round(base[key * rs + 2 * D + h * HD + c]) : 0.f;
+      }
+      issue_mask_tile<THREADS>(add, mrow, kt * KTILE, N);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = warp + i * WARPS;
+        if (q0 + r >= N) continue;  // the same for the whole warp
+        const float* q = Qs + r * HD;
+        float s[2];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const float* kr = Ks + (lane + 32 * jj) * (HD + 1);
+          float acc = 0.f;
 #pragma unroll 16
-    for (int d = 0; d < HD; ++d) acc = fmaf(qs[d], kr[d], acc);
-    const float sv = acc * scale + (mrow ? mrow[j] : 0.f);
-    ps[j] = sv;
-    mx = fmaxf(mx, sv);
+          for (int d = 0; d < HD; ++d) acc = fmaf(q[d], kr[d], acc);
+          s[jj] = fmaf(acc, scale, key_add(add, lane + 32 * jj, N - kt * KTILE));
+        }
+        if (sweep == 0) {
+          const float mx = fmaxf(m[i], warp_max(fmaxf(s[0], s[1])));
+          const float b = exp_base(mx);
+          l[i] = l[i] * expf(m[i] - b) + warp_sum(expf(s[0] - b) + expf(s[1] - b));
+          m[i] = mx;
+        } else {
+          ps[lane] = bf16_round(expf(s[0] - m[i]) / l[i]);
+          ps[lane + 32] = bf16_round(expf(s[1] - m[i]) / l[i]);
+          __syncwarp();
+#pragma unroll 8
+          for (int j = 0; j < KTILE; ++j) {
+            o0[i] = fmaf(ps[j], Vs[j * HD + lane], o0[i]);
+            o1[i] = fmaf(ps[j], Vs[j * HD + lane + 32], o1[i]);
+          }
+          __syncwarp();
+        }
+      }
+    }
   }
-  mx = warp_max(mx);
-  float l = 0.f;
-  for (int j = lane; j < N; j += 32) {
-    const float e = expf(ps[j] - mx);
-    ps[j] = e;
-    l += e;
-  }
-  l = warp_sum(l);
-  for (int j = lane; j < N; j += 32) ps[j] = bf16_round(ps[j] / l);
-  __syncwarp();
-  float o0 = 0.f, o1 = 0.f;
-  for (int j = 0; j < N; ++j) {
-    const float p = ps[j];
-    o0 = fmaf(p, Vs[j * HD + lane], o0);
-    o1 = fmaf(p, Vs[j * HD + lane + 32], o1);
-  }
-  __syncwarp();
-  return make_float2(o0, o1);
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    if (q0 + warp + i * WARPS < N) store(warp + i * WARPS, o0[i], o1[i]);
+  __syncthreads();
 }
 
 }  // namespace clibd
@@ -363,6 +615,4 @@ __device__ __forceinline__ float2 attend_row_f32(const float* qr, const float* K
 extern "C" {
 // the message of a CUDA error code the entry points return
 const char* clibd_cuda_error_string(int code);
-// the longest sequence the kernels take
-int clibd_flash_attention_max_n(void);
 }

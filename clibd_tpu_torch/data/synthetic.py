@@ -8,7 +8,9 @@ and `engine.train.Trainer` consume from `BioscanLoader`:
 size).  Its batches have the shapes and dtypes the model's config asks for:
 uint8 images `[B, S, S, 3]` (S the ViT's size, or the CLIP tower's for
 `backbone: open_clip`), DNA as k-mer ids from random barcodes of 400 to 659
-bp through the real tokenizer, text as BERT ids with ragged attention masks
+bp through the real tokenizer (for `dna.tokenizer: overlap`, the overlapping
+tokenizer's `{input_ids, attention_mask}`, the mask cut to the ids' width as
+the data pipeline cuts it), text as BERT ids with ragged attention masks
 (or, for `backbone: open_clip`, CLIP-style ids `[B, context_length]`: SOT,
 ids below SOT, EOT = the row's largest id, zero padding, as the BPE
 tokenizer lays them out, so no BPE file is needed), and the training label,
@@ -24,7 +26,7 @@ from types import SimpleNamespace
 
 import numpy as np
 
-from .tokenizers import tokenize_dna_batch
+from .tokenizers import tokenize_dna_batch, tokenize_dna_batch_overlapping
 
 
 class SyntheticSplit:
@@ -38,8 +40,13 @@ class SyntheticSplit:
         bases = np.frombuffer(b"ACGT", np.uint8)
         barcodes = [bases[rng.integers(0, 4, int(rng.integers(400, 660)))].tobytes()
                     for _ in range(n)]
-        dna = np.asarray(tokenize_dna_batch(barcodes, k=mc.dna.kmer, max_bp=mc.dna.max_bp),
-                         np.int32)
+        if mc.dna.tokenizer == "overlap":
+            ids, att = tokenize_dna_batch_overlapping(barcodes, k=mc.dna.kmer,
+                                                      stride=mc.dna.stride, max_bp=mc.dna.max_bp)
+            dna = {"input_ids": ids, "attention_mask": att[:, :ids.shape[1]]}
+        else:
+            dna = np.asarray(tokenize_dna_batch(barcodes, k=mc.dna.kmer, max_bp=mc.dna.max_bp),
+                             np.int32)
         text_len = mc.clip.context_length if clip else mc.language.max_len
         lengths = rng.integers(3, text_len + 1, n)
         vocab = mc.clip.vocab_size if clip else mc.language.bert.vocab_size
@@ -60,7 +67,8 @@ class SyntheticSplit:
                 "index": np.arange(lo, hi),
                 "label": np.arange(lo, hi, dtype=np.int64),
                 "image": rng.integers(0, 256, (hi - lo, size, size, 3), dtype=np.uint8),
-                "dna": dna[lo:hi],
+                "dna": ({k: v[lo:hi] for k, v in dna.items()} if isinstance(dna, dict)
+                        else dna[lo:hi]),
                 "language": language,
             })
         species = rng.integers(0, 40, n)

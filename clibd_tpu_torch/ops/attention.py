@@ -17,7 +17,11 @@ On a CUDA tensor each direction launches its hand-written kernel
 (`csrc/flash_attention_qkv.cu`, `csrc/flash_attention_qkv_bwd.cu`); on a CPU
 tensor it runs its plain version (`flash_attention_qkv_reference`,
 `flash_attention_qkv_bwd_reference`), which has the same numerics.  There is
-no fallback from the card to the plain version: a launch error raises.
+no fallback from the card to the plain version: a launch error raises.  The
+kernels stream the keys in tiles, so they take any N, as the TPU package
+does; the bf16 forward kernel uses an online softmax and rounds P to bf16
+before dividing by the row sum (one bf16 rounding of P away from the
+numerics below, within the tolerance `chip_smoke.py` holds it to).
 
 Forward numerics (the TPU kernel's, `attention.py:126-208`): S = q.k^T in
 fp32 times 1/sqrt(hd), plus the mask, fp32 softmax, P rounded to bf16 after
@@ -170,9 +174,6 @@ def _check_cuda_args(what: str, qkv: torch.Tensor, num_heads: int,
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError(f"{what}: qkv must be contiguous and 16-byte aligned")
     B, N, _ = qkv.shape
-    max_n = function("flash_attention_qkv", "clibd_flash_attention_max_n", [])()
-    if N > max_n:
-        raise ValueError(f"{what}: N={N} exceeds the kernel's {max_n} keys")
     if mask_row is None:
         return None
     if mask_row.shape != (B, N) or mask_row.device != qkv.device:
@@ -200,8 +201,12 @@ def flash_attention_qkv_cuda(qkv: torch.Tensor, num_heads: int,
 
 def flash_attention_qkv_bwd_cuda(qkv: torch.Tensor, dout: torch.Tensor, num_heads: int,
                                  mask_row: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the backward kernel → dqkv [B, N, 3D].  dout is made
-    contiguous here (autograd may hand over a strided gradient)."""
+    """Launch the backward kernels → dqkv [B, N, 3D]: the row kernel (dQ and
+    each query row's softmax max, sum and rowsum(P * dP), into a scratch
+    allocated here), then the column kernel (dK, dV).  One call counts as one
+    launch of `flash_attention_qkv_bwd`, as one backward of the operator.
+    dout is made contiguous here (autograd may hand over a strided
+    gradient)."""
     mask_row = _check_cuda_args("flash_attention_qkv_bwd", qkv, num_heads, mask_row)
     B, N, three_d = qkv.shape
     dout = dout.to(qkv.dtype).contiguous()
@@ -209,8 +214,9 @@ def flash_attention_qkv_bwd_cuda(qkv: torch.Tensor, dout: torch.Tensor, num_head
         raise ValueError(f"flash_attention_qkv_bwd: dout {tuple(dout.shape)} on {dout.device} "
                          f"is not a 16-byte aligned [{B}, {N}, {three_d // 3}] on {qkv.device}")
     dqkv = torch.empty_like(qkv)
+    stats = torch.empty((B, num_heads, 3, N), dtype=torch.float32, device=qkv.device)
     launch("flash_attention_qkv_bwd", "flash_attention_qkv_bwd", "clibd_flash_attention_qkv_bwd",
-           [qkv.data_ptr(), dout.data_ptr(), _ptr(mask_row), dqkv.data_ptr()],
+           [qkv.data_ptr(), dout.data_ptr(), _ptr(mask_row), dqkv.data_ptr(), stats.data_ptr()],
            [B, N, num_heads, DTYPE_CODE[qkv.dtype]], qkv.device)
     flash_attention_qkv_bwd.launches += 1
     return dqkv

@@ -4,9 +4,12 @@ top-k, the reference's FAISS IndexFlatIP).
 
 Scores are an fp32 `torch.matmul` with TF32 off (the package sets it at
 import; the counterpart of `Precision.HIGHEST`), and selection is
-`torch.topk`.  Queries go through in chunks of `query_chunk` rows, a Python
-loop in place of `lax.map`.  These are large plain products that the JAX
-package leaves to XLA, and the port leaves to cuBLAS.
+`top_k_lower_index_first`: `jax.lax.top_k`'s order, equal scores lower key
+index first, which `torch.topk` does not promise.  Queries go through in
+chunks of `query_chunk` rows, a Python loop in place of `lax.map`, each
+padded with zero rows to a multiple of 8 so that identical keys score
+identically (see `knn_search`).  These are large plain products that the
+JAX package leaves to XLA, and the port leaves to cuBLAS.
 
 Not ported yet: the int8 `QuantizedKeys` gallery, `selector="approx"`, the
 query- and key-sharded multi-device searches and `rerank_candidates`.
@@ -38,6 +41,30 @@ def prepare_keys(keys, device: torch.device | str = "cuda", dtype: str = "float3
     return l2_normalize(_as_tensor(keys, device))
 
 
+def top_k_lower_index_first(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise top k of `scores` [R, K] as `jax.lax.top_k` selects them: the
+    k largest, sorted by score descending and, among equal scores, by key
+    index ascending → (values [R, k], indices [R, k] int64).
+
+    No row is sorted whole: `torch.topk` gives the k-th score, every key
+    above it is kept, and of the keys tied with it the lowest-indexed ones
+    fill the rest (a running count over the row's tie mask, taken only in
+    rows with more ties than places); then the k survivors are ordered."""
+    kth = torch.topk(scores, k, dim=1).values[:, -1:]
+    keep = scores >= kth
+    surplus = (keep.sum(dim=1) > k).nonzero()[:, 0]
+    if surplus.numel():
+        s, t = scores[surplus], kth[surplus]
+        above = s > t
+        tied = s == t
+        places = k - above.sum(dim=1, keepdim=True)
+        keep[surplus] = above | (tied & (tied.cumsum(dim=1, dtype=torch.int32) <= places))
+    idx = keep.nonzero()[:, 1].view(-1, k)  # ascending within each row
+    vals = scores.gather(1, idx)
+    order = torch.sort(vals, dim=1, descending=True, stable=True).indices
+    return vals.gather(1, order), idx.gather(1, order)
+
+
 def knn_search(queries, keys, k: int = 5, query_chunk: int = 4096, normalize: bool = True,
                keys_normalized: bool = False, selector: str = "exact",
                device: torch.device | str = "cuda") -> Tuple[np.ndarray, np.ndarray]:
@@ -60,8 +87,15 @@ def knn_search(queries, keys, k: int = 5, query_chunk: int = 4096, normalize: bo
     query_chunk = int(max(1, query_chunk))
     sims, idx = [], []
     for lo in range(0, queries.shape[0], query_chunk):
-        scores = torch.matmul(queries[lo:lo + query_chunk], keys.T)
-        s, i = torch.topk(scores, k, dim=1)
+        q = queries[lo:lo + query_chunk]
+        rows = q.shape[0]
+        # zero rows up to a multiple of 8: a one-row chunk would take BLAS's
+        # matrix-vector path, which scores identical keys a last bit apart by
+        # their position, and an exact tie would no longer be one (the
+        # reference pads every chunk to query_chunk rows)
+        q = torch.cat([q, q.new_zeros((-rows) % 8, q.shape[1])])
+        scores = torch.matmul(q, keys.T)[:rows]
+        s, i = top_k_lower_index_first(scores, k)
         sims.append(s)
         idx.append(i)
     if not sims:

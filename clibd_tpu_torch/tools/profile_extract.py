@@ -1,7 +1,9 @@
 """Where the time of extraction, or of a train step, goes on one CUDA card.
 
     python -m clibd_tpu_torch.tools.profile_extract [--out DIR] [--experiment YAML] [--fused]
-    python -m clibd_tpu_torch.tools.profile_extract --train [--out DIR] [--experiment YAML] [--fused]
+        [--no-plain]
+    python -m clibd_tpu_torch.tools.profile_extract --train [--out DIR] [--experiment YAML]
+        [--fused] [--no-plain]
 
 Drives an experiment recipe -- by default the flagship tri-modal one
 (`EXPERIMENT`: ViT-B/16, BarcodeBERT, BERT-small at full width, bf16, batch
@@ -32,6 +34,10 @@ the one-cycle schedule) on one batch already on the card:
    device memory of a step;
 2. trace: `torch.profiler` over `TRACE_STEPS` steps.  Device time by kernel
    group and the device's idle share inside the traced `train_step` span.
+
+`--no-plain` leaves out the runs with the plain versions (their timings are
+then "not measured"): at the overlap-tokenizer recipe's DNA length, N=657,
+their [B, H, N, N] fp32 intermediates take 10 GB each at batch 500.
 
 Each mode writes `summary.json`, `profile_table.txt` (key_averages by device
 time) and `trace.json.gz` into --out, and prints the summary as its last
@@ -153,7 +159,7 @@ def write_trace(prof, out: str, span: str, runs: int) -> dict:
             "device_ms_by_group": device_ms_by_group(events, window)}
 
 
-def profile_train(out: str, card: str, summary: dict, experiment: str) -> dict:
+def profile_train(out: str, card: str, summary: dict, experiment: str, plain: bool) -> dict:
     import torch
 
     from ..config import load_config
@@ -185,12 +191,12 @@ def profile_train(out: str, card: str, summary: dict, experiment: str) -> dict:
     torch.cuda.synchronize()
     summary["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     ms: Dict[str, List[float]] = {"kernels": [], "plain": []}
-    for which in ("kernels", "plain", "plain", "kernels"):
+    for which in ("kernels", "plain", "plain", "kernels") if plain else ("kernels", "kernels"):
         with plain_kernels() if which == "plain" else nullcontext():
             ms[which].append(cuda_ms(run, warmup=1, iters=3))
         print(f"train step, {which}: {ms[which][-1]:.3f} ms = "
               f"{B / ms[which][-1] * 1e3:.2f} samples/s  [{card}]")
-    summary["train_step_ms"] = ms
+    summary["train_step_ms"] = {k: v or "not measured" for k, v in ms.items()}
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         with torch.profiler.record_function("train_step"):
@@ -202,7 +208,7 @@ def profile_train(out: str, card: str, summary: dict, experiment: str) -> dict:
     return summary
 
 
-def profile_extract(out: str, card: str, summary: dict, experiment: str) -> dict:
+def profile_extract(out: str, card: str, summary: dict, experiment: str, plain: bool) -> dict:
     import torch
 
     from ..config import load_config
@@ -231,14 +237,16 @@ def profile_extract(out: str, card: str, summary: dict, experiment: str) -> dict
 
     with torch.inference_mode():
         summary["step_ms"] = {k: cuda_ms(f, warmup=2, iters=5) for k, f in encoders().items()}
-        with plain_kernels():
-            summary["step_ms_plain"] = {k: cuda_ms(f, warmup=2, iters=5)
-                                        for k, f in encoders().items()}
+        summary["step_ms_plain"] = "not measured"
+        if plain:
+            with plain_kernels():
+                summary["step_ms_plain"] = {k: cuda_ms(f, warmup=2, iters=5)
+                                            for k, f in encoders().items()}
     print(f"device ms per batch, kernel: {summary['step_ms']}  [{card}]")
     print(f"device ms per batch, plain:  {summary['step_ms_plain']}  [{card}]")
 
     rates: Dict[str, List[float]] = {"kernel": [], "plain": []}
-    for which in ("kernel", "plain", "plain", "kernel"):
+    for which in ("kernel", "plain", "plain", "kernel") if plain else ("kernel", "kernel"):
         ctx = plain_kernels() if which == "plain" else nullcontext()
         with ctx:
             torch.cuda.synchronize()
@@ -248,7 +256,7 @@ def profile_extract(out: str, card: str, summary: dict, experiment: str) -> dict
             rates[which].append(BATCHES * B / (time.perf_counter() - t0))
         print(f"extract_split {BATCHES} x {B}, {which}: {rates[which][-1]:.2f} samples/s  "
               f"[{card}]")
-    summary["extract_samples_per_s"] = rates
+    summary["extract_samples_per_s"] = {k: v or "not measured" for k, v in rates.items()}
 
     short = SyntheticSplit("trace", TRACE_BATCHES * B, mc, seed=1)
     extract_split(model, mc, short)
@@ -274,6 +282,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--experiment", default=EXPERIMENT, help="experiment YAML (configs/...)")
     ap.add_argument("--fused", action="store_true",
                     help="fused out-projection and fused MLP kernels on")
+    ap.add_argument("--no-plain", dest="plain", action="store_false",
+                    help="leave out the runs with the plain versions")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_extract needs a CUDA card")
@@ -283,9 +293,9 @@ def main(argv=None) -> dict:
                      "torch": torch.__version__, "cuda": torch.version.cuda}
     with kernel_knobs(args.fused, "pallas" if args.fused else "xla"):
         if args.train:
-            summary = profile_train(args.out, card, summary, args.experiment)
+            summary = profile_train(args.out, card, summary, args.experiment, args.plain)
         else:
-            summary = profile_extract(args.out, card, summary, args.experiment)
+            summary = profile_extract(args.out, card, summary, args.experiment, args.plain)
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps(summary))

@@ -183,6 +183,42 @@ def test_knn_search_matches_jax(rng):
     np.testing.assert_allclose(prepared.norm(dim=1).numpy(), 1, atol=1e-6)
 
 
+@pytest.mark.parametrize("k", range(1, 9))
+def test_knn_search_breaks_ties_as_jax(k):
+    """Duplicated keys: 7 distinct rows, each three times (indices i, i + 7,
+    i + 14), so every query meets exact ties, some straddling the k-th
+    place.  jax.lax.top_k puts the lower index first among equal scores;
+    the port must give the same indices in the same order, not just the
+    same sets, with query chunks smaller than the query count."""
+    rng = np.random.default_rng(40 + k)
+    rows = rng.standard_normal((7, 16)).astype(np.float32)
+    keys = np.concatenate([rows, rows, rows])
+    queries = np.concatenate([rows[[0, 3, 6]], rng.standard_normal((4, 16)).astype(np.float32)])
+    want_s, want_i = jax_knn.knn_search(queries, keys, k=k, query_chunk=3)
+    got_s, got_i = port_knn.knn_search(queries, keys, k=k, query_chunk=3, device="cpu")
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_allclose(got_s, want_s, rtol=1e-6, atol=1e-6)
+    labels = [{"order": f"o{i % 2}", "family": f"f{i % 3}", "genus": f"g{i % 5}",
+               "species": f"s{i}"} for i in range(21)]
+    assert port_knn.make_prediction(queries, keys, labels, max_k=k, query_chunk=2,
+                                    device="cpu") == \
+        jax_knn.make_prediction(queries, keys, labels, max_k=k)
+
+
+def test_top_k_lower_index_first_example():
+    """The example that showed the fault: 18 keys (6 rows, each three
+    times), query 0 equal to key 0, k=5 → [0 6 12 1 7] or its like: the
+    three copies of the best row in index order, then the lowest-indexed
+    copies of the next."""
+    scores = torch.tensor([[3.0, 2.0, 1.0] * 6])
+    vals, idx = port_knn.top_k_lower_index_first(scores, 5)
+    assert idx.tolist() == [[0, 3, 6, 9, 12]]
+    assert vals.tolist() == [[3.0] * 5]
+    vals, idx = port_knn.top_k_lower_index_first(scores, 8)
+    assert idx.tolist() == [[0, 3, 6, 9, 12, 15, 1, 4]]
+    assert vals.tolist() == [[3.0] * 6 + [2.0] * 2]
+
+
 TINY_EXP = """
 model_output_name: tiny_torch
 dataset: bioscan_1m

@@ -89,7 +89,8 @@ def _inputs(B, N, H, masked, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,H,masked", [(197, 12, False), (133, 12, False), (20, 8, True)])
+@pytest.mark.parametrize("N,H,masked", [(197, 12, False), (133, 12, False), (20, 8, True),
+                                         (657, 12, True)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernel_matches_plain_version(cuda_device, N, H, masked, dtype):
     qkv, mask = _inputs(8, N, H, masked, seed=N)
@@ -111,8 +112,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     before = flash_attention_qkv.launches
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_qkv(torch.zeros(2, 5, 3 * 96, device=cuda_device), 1)
-    with pytest.raises(ValueError, match="exceeds"):
-        flash_attention_qkv(torch.zeros(1, 300, 3 * 64, device=cuda_device), 1)
     with pytest.raises(TypeError, match="dtype"):
         flash_attention_qkv(ok.half(), 2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -120,6 +119,36 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="mask"):
         flash_attention_qkv(ok, 2, torch.zeros(2, 5))
     assert flash_attention_qkv.launches == before
+    # the keys stream in tiles: a long sequence (the overlap DNA tower's) is taken
+    long = torch.zeros(1, 657, 3 * 64, device=cuda_device, dtype=torch.bfloat16)
+    assert torch.equal(flash_attention_qkv(long, 1), torch.zeros(1, 657, 64, device=cuda_device,
+                                                                 dtype=torch.bfloat16))
+    assert flash_attention_qkv.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_knn_breaks_ties_lower_index_first_on_the_card(cuda_device):
+    """kNN on the card with every key three times (keys i, i + 7, i + 14):
+    of equal scores the lower key index first, as jax.lax.top_k orders
+    them, for k from 1 to 8 (each the first k of the whole ranking, so a
+    tie across the k-th place keeps its lower indices), and a query equal
+    to a key finds its three copies in index order."""
+    from clibd_tpu_torch.ops.knn import knn_search
+
+    rng = np.random.default_rng(7)
+    rows = rng.standard_normal((7, 64)).astype(np.float32)
+    keys = torch.from_numpy(np.concatenate([rows, rows, rows])).to(cuda_device)
+    queries = torch.from_numpy(np.concatenate([rows[[0, 3, 6]],
+                                               rng.standard_normal((4, 64)).astype(np.float32)]))
+    _, everyone = knn_search(queries.to(cuda_device), keys, k=21, query_chunk=3)
+    for k in range(1, 9):
+        sims, idx = knn_search(queries.to(cuda_device), keys, k=k, query_chunk=3)
+        np.testing.assert_array_equal(idx, everyone[:, :k])  # a tie at the k-th place too
+        for r in range(7):
+            order = sorted(range(k), key=lambda j: (-sims[r, j], idx[r, j]))
+            assert order == list(range(k)), (k, r, sims[r], idx[r])
+        if k >= 3:
+            assert idx[:3, :3].tolist() == [[0, 7, 14], [3, 10, 17], [6, 13, 20]]
 
 
 def _tiny_cfg():
@@ -185,7 +214,7 @@ def _parts_err(got, want, H):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,H,masked", [(197, 12, False), (133, 12, False), (20, 8, True),
-                                         (33, 2, True)])
+                                         (33, 2, True), (657, 12, True)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_bwd_kernel_matches_plain_version(cuda_device, N, H, masked, dtype):
     qkv, mask = _inputs(8, N, H, masked, seed=N + 1)
@@ -232,6 +261,10 @@ def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="mask"):
         flash_attention_qkv_bwd(ok, dout, 2, torch.zeros(2, 5))
     assert flash_attention_qkv_bwd.launches == before
+    # the keys and queries stream in tiles: a long sequence is taken
+    long = torch.zeros(1, 657, 3 * 64, device=cuda_device, dtype=torch.bfloat16)
+    assert torch.equal(flash_attention_qkv_bwd(long, long[..., :64], 1), long)
+    assert flash_attention_qkv_bwd.launches == before + 1
 
 
 @pytest.mark.cuda
@@ -294,7 +327,7 @@ def _outproj_inputs(B, N, H, masked, seed, device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,H,masked", [(197, 12, False), (133, 12, False), (20, 8, True),
-                                         (33, 2, True)])
+                                         (33, 2, True), (657, 12, True)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_outproj_kernel_matches_plain_version(cuda_device, N, H, masked, dtype):
     t, w, b, m = _outproj_inputs(8, N, H, masked, N + 3, cuda_device, dtype)

@@ -366,6 +366,51 @@ def test_clibd_apply_trimodal(rng, tmp_path, monkeypatch, impl, dtype):
     np.testing.assert_allclose(float(out["logit_scale"]), 1 / 0.07, rtol=1e-6)
 
 
+OVERLAP = ("for_bioscan_5m/barcodeBERT_trained_with_5m/"
+           "image_dna_text_seed_42_new_barcodeBERT_5M.yaml")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_overlap_dna_tower_matches_jax(tmp_path, monkeypatch, dtype):
+    """The overlap-tokenizer config's DNA tower (k=4, stride 1: 657 tokens
+    with a key mask, the softmax_mean readout), cut to 2 layers and 2 heads
+    (D=128), through the port's encode_dna against clibd_tpu's on the same
+    weights and barcodes (one 660 bp, one 430 bp, so one padded row)."""
+    from clibd_tpu.config import load_config
+    from clibd_tpu_torch.data.tokenizers import tokenize_dna_batch_overlapping
+    from clibd_tpu_torch.models.clibd import encode_dna
+
+    cfg = load_config(experiment=OVERLAP).model_config
+    cfg.image.enable = cfg.language.enable = False
+    full = cfg.dna.bert
+    cfg.dna.bert = BertConfig(vocab_size=full.vocab_size, hidden_size=128, num_layers=2,
+                              num_heads=2, intermediate_size=256,
+                              max_position_embeddings=full.max_position_embeddings,
+                              with_mlm_head=True)
+    rng = np.random.default_rng(657)
+    tree = jax.tree.map(np.asarray, jax_clibd.init_clibd_params(jax.random.PRNGKey(0), cfg))
+    blocks = tree["dna_encoder"]["blocks"]
+    blocks["qkv_w"] = (rng.standard_normal(blocks["qkv_w"].shape) * 0.1).astype(np.float32)
+    tree = _roundtrip(tmp_path, tree)
+    model = model_from_jax(tree, cfg, "cpu")
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    barcodes = [bases[rng.integers(0, 4, n)].tobytes() for n in (660, 430)]
+    ids, att = tokenize_dna_batch_overlapping(barcodes, k=cfg.dna.kmer, stride=cfg.dna.stride,
+                                              max_bp=cfg.dna.max_bp)
+    tokens = {"input_ids": ids, "attention_mask": att[:, :ids.shape[1]]}
+    assert ids.shape == (2, 657) and tokens["attention_mask"][1].sum() == 430
+    jparams = jax.tree.map(jnp.asarray, tree)
+
+    def port(td):
+        return encode_dna(model, cfg, _t(tokens), compute_dtype=td)
+
+    def ref(jd):
+        return jax_clibd.encode_dna(jparams, cfg, {k: jnp.asarray(v) for k, v in tokens.items()},
+                                    compute_dtype=jd)
+
+    _compare(monkeypatch, "pallas", dtype, port, ref)
+
+
 def test_bridge_is_strict_about_the_config(rng, tmp_path):
     """LoRA params in the npz but disable_lora in the config: refuse."""
     cfg = tiny_cfg()
