@@ -70,10 +70,14 @@ Phases, each of which raises on failure:
    kernel, the forward kernel's ctx for dW).
 7. fused-MLP kernel: `fused_mlp` against its plain version at (R, D, F) =
    (500*197, 768, 3072), (500*133, 768, 3072) and (500*77, 512, 2048) with
-   gelu_tanh, and at R = 64*197 and the ragged 63*197 with gelu and with
-   quick_gelu: max |kernel - plain| <= 2e-2 * max |plain|; kernel, plain
-   version and the yardstick (addmm, tanh GELU, addmm) timed at the first
-   three.
+   gelu_tanh, at R = 64*197 and the ragged 63*197 with gelu and with
+   quick_gelu, and at the edges of the kernel's ring and cluster (R = 1, 37,
+   64, 65 and 64*3 at D=768, F=3072; F = 64 and 128; D = 512 and 256):
+   max |kernel - plain| <= 2e-2 * max |plain|; two launches at the first
+   shape bit-identical; kernel, plain version and the yardstick (addmm, tanh
+   GELU, addmm) timed at the first three, beside the kernel's modelled weight
+   reads from L2; then the L2's copy rate (scale_copy and torch.mul on 4-16
+   MB, the slope of time against bytes).
 8. BioCLIP eval: the recipe
    for_bioscan_1m/image_bind_style/with_bioclip_bind_to_image.yaml (CLIP
    ViT-B/16, the 12-layer causal CLIP text tower at D=512, BarcodeBERT, embed
@@ -165,9 +169,19 @@ REL_TOL = 2e-2         # out-projection and fused MLP: max |kernel - plain| / ma
 MLP_SHAPES = (("vit", 500 * 197, 768, 3072, "gelu_tanh"),
               ("barcode_bert", 500 * 133, 768, 3072, "gelu_tanh"),
               ("clip_text", 500 * 77, 512, 2048, "gelu_tanh"))
-# 64*197 rows fill whole 64-row blocks; 63*197 leaves a ragged tail of 59
-MLP_EXTRA = tuple((f"vit R={r} {act}", r, 768, 3072, act)
-                  for r in (64 * 197, 63 * 197) for act in ("gelu", "quick_gelu"))
+# 64*197 rows fill whole 64-row blocks; 63*197 leaves a ragged tail of 59.
+# Then the edges of the bf16 kernel's ring and cluster: one row, a partial
+# and a whole row block, one past it, an odd count of row blocks (the cluster
+# of two gets a CTA with no rows); F = 64 and 128, fewer F chunks than ring
+# stages; D = 256 and 512
+MLP_EXTRA = (tuple((f"vit R={r} {act}", r, 768, 3072, act)
+                   for r in (64 * 197, 63 * 197) for act in ("gelu", "quick_gelu"))
+             + tuple((f"edge R={r} D={d} F={f}", r, d, f, "gelu_tanh") for r, d, f in (
+                 (1, 768, 3072), (37, 768, 3072), (64, 768, 3072), (65, 768, 3072),
+                 (64 * 3, 768, 3072), (37, 768, 64), (65, 768, 128), (64 * 3, 512, 2048),
+                 (65, 256, 1024))))
+MLP_CLUSTER_ROWS = 128  # rows of a cluster of two fused-MLP CTAs, which share each weight box
+L2_PROBE_MB = (4, 8, 12, 16)  # copies that fit the L2, for its copy rate
 BIOCLIP_TRAIN_STEPS = 4
 SPLIT_ROWS = {"all_keys": 1100, "test_seen": 500, "test_unseen": 500}
 TRAIN_ROWS = {"train": 3000, "all_keys": 1100, "val_seen": 500, "val_unseen": 500}
@@ -760,6 +774,7 @@ def fused_mlp_kernel_phase(card: str) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from clibd_tpu_torch.ops.elementwise import scale_copy
     from clibd_tpu_torch.ops.mlp import fused_mlp_cuda, fused_mlp_reference
     from clibd_tpu_torch.utils.profiling import cuda_ms
 
@@ -786,6 +801,12 @@ def fused_mlp_kernel_phase(card: str) -> dict:
         if rel > REL_TOL:
             fail(f"fused-MLP kernel disagrees with its plain version at {name}: {rel}")
         err = float((got.float() - want.float()).abs().max())
+        if i == 0:
+            again = fused_mlp_cuda(x, w1, b1, w2, b2, act)
+            if not torch.equal(got, again):
+                fail("two launches of the fused-MLP kernel on the same inputs differ")
+            print("kernel fused_mlp vit: two launches on the same inputs are bit-identical")
+            del again
         del got, want
         if i < len(MLP_SHAPES):
             ms = cuda_ms(lambda: fused_mlp_cuda(x, w1, b1, w2, b2, act))
@@ -794,15 +815,36 @@ def fused_mlp_kernel_phase(card: str) -> dict:
             flops = 4 * R * D * Fd
             nbytes = (2 * R * D + 2 * D * Fd + Fd + D) * 2
             bound_ms, bound_by = bound(nbytes, flops)
+            # modelled, not measured: each cluster of two CTAs (128 rows)
+            # reads both weights from L2 once, each CTA half of every box,
+            # multicast into both
+            l2_bytes = -(-R // MLP_CLUSTER_ROWS) * 4 * D * Fd
             print(f"time fused_mlp {name} R={R}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
                   f"TFLOP/s), plain {plain_ms:.4f} ms, library (addmm + gelu + addmm) "
-                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
+                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); modelled weight "
+                  f"reads from L2: {2 * D * Fd / 1e6:.2f} MB a CTA, {l2_bytes / 1e9:.2f} GB a "
+                  f"call, over the kernel's ms {l2_bytes / ms / 1e9:.2f} TB/s  [{card}]")
             shapes.append({"shape": name, "R": R, "D": D, "F": Fd, "ms": ms, "plain_ms": plain_ms,
                            "library_ms": library_ms, "bound_ms": bound_ms,
                            "bound_by": bound_by, "max_abs_err": err})
         else:
             shapes[0]["max_abs_err"] = max(shapes[0]["max_abs_err"], err)
         del x, w1, w2, b1, b2
+    # The L2's copy rate, read plus write bytes: buffers of 4-16 MB, which
+    # fit the 50 MB L2, one launch each; the slope of time against bytes
+    # leaves out each launch's fixed cost, which a single 16 MB copy mostly
+    # times.  scale_copy streams (evict-first hints), torch.mul does not.
+    nbytes = [2 * (mb << 20) for mb in L2_PROBE_MB]
+    for label, op in (("scale_copy", scale_copy), ("torch.mul", lambda b: torch.mul(b, 2.0))):
+        times = []
+        for mb in L2_PROBE_MB:
+            buf = torch.randn(mb << 18, generator=g, device="cuda")
+            times.append(cuda_ms(lambda: op(buf), warmup=5, iters=50))
+            del buf
+        slope, fixed = np.polyfit(nbytes, times, 1)
+        print(f"time L2 copy, {label}, {L2_PROBE_MB[0]}-{L2_PROBE_MB[-1]} MB fp32: "
+              f"{[round(t, 4) for t in times]} ms; slope {1 / slope / 1e9:.2f} TB/s read + write, "
+              f"{fixed * 1e3:.2f} us fixed  [{card}]")
     torch.cuda.empty_cache()
     return kernel_entry("fused_mlp", "clibd_tpu_torch/csrc/fused_mlp.cu",
                         "clibd_tpu/ops/pallas/mlp.py:49", shapes)

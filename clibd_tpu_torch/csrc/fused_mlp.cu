@@ -3,53 +3,78 @@
 // Replaces the TPU kernel clibd_tpu/ops/pallas/mlp.py::_mlp_kernel.  Same
 // arithmetic: h = x.W1 accumulated in fp32, plus the fp32 bias, the
 // activation in fp32, h rounded to x's dtype, then h.W2 accumulated in fp32
-// over F chunks, plus the fp32 bias, cast to x's dtype.  The [R, F]
+// over all of F, plus the fp32 bias, cast to x's dtype.  The [R, F]
 // intermediate never reaches device memory.
 //
-// What bounds it on an H100: 4*R*D*F FLOPs (0.93 TFLOP at the ViT shape
-// R=500*197, D=768, F=3072: 0.94 ms at 989 TFLOP/s) against x read and out
-// written plus both weights once (4*R*D + 4*D*F bytes in bf16: 312 MB, 0.093
-// ms at 3.35 TB/s), so the tensor cores bound it, about 3000 FLOPs per byte.
-// Unfused, the intermediate costs a [R, F] write and read (1.2 GB) on top.
+// What bounds it on an H100.  4*R*D*F FLOPs (0.93 TFLOP at the ViT shape
+// R=500*197, D=768, F=3072: 0.94 ms at 989 TFLOP/s) against x, out and both
+// weights once (312 MB in bf16, 0.093 ms at 3.35 TB/s): on paper the tensor
+// cores.  But a row block's fp32 accumulator, [rows, D], stays in registers
+// across all of F: at D=768, 64 rows take 49,152 of the SM's 65,536
+// registers, so 64 rows is the largest block a CTA holds and every 64 rows
+// stream both weights (9.4 MB) from L2 through shared memory.  The same
+// limit leaves no room for a producer warp beside the two consumer
+// warpgroups (nine warps cap a thread at 168 registers; eight allow 255), so
+// issuing the loads, the mbarrier traffic of a 16 KB ring slot and the
+// bias and activation between the two products sit on the consumers' path,
+// beside the products.  Those, not L2 bytes, bound the kernel on the card
+// (PERF.md §6).
 //
-// Design (a first, simple one).  The TPU kernel holds a [512, D] fp32
-// accumulator in VMEM (1.5 MB); on Hopper a row block's accumulator has to
-// live in registers, so the row block is small and the weights are streamed:
-//  * one CTA per 64 rows of x, 8 warps; warp w owns rows 16*(w%4) .. +16 and,
-//    of every 256 output columns, the half w/4: D/2 accumulator columns, so
-//    3*D/8 fp32 registers a thread (96 at D=256, 192 at D=768);
-//  * the x tile stays in shared memory for the whole CTA (ragged row tails
-//    zero-filled in the kernel, no padding in device memory);
-//  * F is walked in chunks of 64.  Per chunk: h = x.W1[:, chunk] with
-//    mma.sync over D in W1 pieces of [128, 64]; bias and activation in fp32;
-//    h rounded to bf16 into shared memory; then acc += h.W2[chunk, :] in W2
-//    pieces of [64, 256];
-//  * every weight piece comes through a pair of shared-memory buffers with
-//    cp.async, the next piece in flight while the current one is multiplied;
-//    B operands by ldmatrix.trans from the row-major pieces;
+// Design:
+//  * one CTA of two consumer warpgroups (256 threads) per 64 rows of x, in
+//    clusters of two CTAs on neighbouring SMs;
+//  * consumer warpgroup w owns all 64 rows and output columns
+//    [w*D/2, (w+1)*D/2): D/4 fp32 accumulator registers a thread (192 at
+//    D=768) for the whole kernel;
+//  * every operand is K-major with the 128-byte swizzle, so every product is
+//    a wgmma.mma_async from shared memory: x [64, D] (one TMA load, resident),
+//    W1^T [F, D] and W2^T [D, F] (the wrapper transposes the weights on
+//    every call), h [64, 64];
+//  * F is walked in chunks of 64.  Per chunk, consumer w computes its 32
+//    columns of h = x.W1[:, chunk] (m64n32k16 over D), adds b1 (loaded at
+//    the chunk's start), applies the activation (its exponential in the
+//    hardware's ex2), rounds to bf16 and writes them, swizzled, into a
+//    shared h tile (two, alternating); fence.proxy.async and a named barrier
+//    of the two consumers; then acc += h.W2[chunk, its columns] (m64n64k16
+//    over the chunk);
+//  * the weights come through a ring of 16 KB slots (7 stages at D=768, 9 at
+//    512, 11 at 256), each stage with a full and an empty mbarrier.  Per F
+//    chunk, D/128 slots of W1^T (both consumers' halves of h) and D/128 of
+//    W2^T (a [64, 64] box for each consumer).  A consumer releases a stage
+//    once the wgmmas that read it are done (wgmma.wait_group 1: one group
+//    stays in flight);
+//  * warp 0 is also the producer, all 32 lanes at once: when fewer than
+//    REFILL_AHEAD slots are in flight, lane l tests the empty barrier of
+//    the l-th next slot, and the run of free stages is loaded together, a
+//    slot a lane (one thread loading slot after slot held its whole
+//    warpgroup up at every slot);
+//  * the cluster shares the weight boxes: CTA r loads box r of every slot
+//    with a TMA multicast into both CTAs, so each box is read from L2 once
+//    for 128 rows; each full barrier expects the whole slot, and each empty
+//    barrier takes the releases of both CTAs' consumers (the remote one by
+//    mapa + mbarrier.arrive.shared::cluster).  The grid is rounded up to an
+//    even count; a CTA past R loads zeros and stores nothing.  Thread 0
+//    waits, before its CTA exits, for the last release of every stage, so
+//    no CTA leaves while its partner may still arrive on its barriers;
+//  * ragged row tails: TMA fills x's rows past R with zeros, and the output
+//    (b2 added in fp32, cast to bf16, staged swizzled in x's shared memory)
+//    goes out by TMA stores, which drop rows past R;
 //  * fp32 inputs (precision checks, not the bf16 main path) go through a
 //    SIMT kernel with the same chunking and fp32 throughout.
 // The TPU kernel's f_block divisor clamp is a Mosaic constraint with no
-// counterpart here.  Left on the table: wgmma and TMA, a row block wide
-// enough to cut the weights' re-reads from L2 (each CTA streams both weights,
-// 9.4 MB at D=768), and two CTAs per SM.
+// counterpart here.
 
-#include "flash_common.cuh"
+#include <cuda_bf16.h>
+#include <math.h>
+
+#include "hopper_common.cuh"
 
 namespace {
 
 using namespace clibd;
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int ROWS = 64;         // rows of x per CTA: 4 tiles of 16
+constexpr int THREADS = 256;     // fp32 kernel
 constexpr int FC = 64;           // F chunk
-constexpr int K1 = 128;          // W1 piece: k rows (of D)
-constexpr int N2 = 256;          // W2 piece: output columns (of D)
-constexpr int W1S = FC + 8;      // W1 piece row stride in bf16
-constexpr int W2S = N2 + 8;      // W2 piece row stride in bf16
-constexpr int HS = FC + 8;       // h tile row stride in bf16
-constexpr int PIECE = K1 * W1S > FC * W2S ? K1 * W1S : FC * W2S;  // bf16 per buffer
 
 enum Act { GELU_TANH = 0, GELU = 1, QUICK_GELU = 2 };
 
@@ -59,151 +84,241 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v / (1.f + expf(-1.702f * v));
 }
 
-__host__ __device__ constexpr size_t bf16_smem(int D) {
-  return (size_t)(ROWS * (D + 8) + ROWS * HS + 2 * PIECE) * 2;
-}
-
-// weight piece s of F chunk fc: s < D/K1 is W1[s*K1 .. +K1, fc*FC .. +FC];
-// else W2[fc*FC .. +FC, q*N2 .. +N2] with q = s - D/K1
-__device__ __forceinline__ void load_piece(__nv_bfloat16* dst, const __nv_bfloat16* w1,
-                                           const __nv_bfloat16* w2, int fc, int s, int D, int F) {
-  const int p1 = D / K1;
-  if (s < p1) {
-    for (int idx = threadIdx.x; idx < K1 * (FC / 8); idx += THREADS) {
-      const int r = idx / (FC / 8), c = (idx % (FC / 8)) * 8;
-      cp_async16(dst + r * W1S + c, w1 + (long)(s * K1 + r) * F + fc * FC + c);
-    }
-  } else {
-    const int q = s - p1;
-    for (int idx = threadIdx.x; idx < FC * (N2 / 8); idx += THREADS) {
-      const int r = idx / (N2 / 8), c = (idx % (N2 / 8)) * 8;
-      cp_async16(dst + r * W2S + c, w2 + (long)(fc * FC + r) * D + q * N2 + c);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernel, D a multiple of 256 (template), F of 64.
+// bf16: wgmma kernel fed by a TMA ring, in clusters of two; D in {256, 512,
+// 768}, F a multiple of 64
 // ---------------------------------------------------------------------------
+constexpr int ROWS = 64;                       // rows of x per CTA: the wgmma M
+constexpr int BF16_THREADS = 256;              // two consumer warpgroups
+constexpr int CLUSTER = 2;                     // CTAs sharing each weight box
+constexpr int BOX_BYTES = 64 * 64 * 2;         // one TMA box, [64 rows, 64 bf16]
+constexpr int STAGE_BYTES = 2 * BOX_BYTES;     // one ring slot: a box per consumer
+constexpr int SMEM_MAX = 232448;               // a CTA's shared memory on sm_90
+constexpr int BARRIER_BYTES = 256;
+constexpr int REFILL_AHEAD = 3;                // warp 0 refills below this many slots ahead
+
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-mlp_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w1,
-                const float* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
-                const float* __restrict__ b2, __nv_bfloat16* __restrict__ out, int R, int F,
-                int act) {
-  constexpr int XS = D + 8;        // x tile row stride
-  constexpr int P1 = D / K1;       // W1 pieces per chunk
-  constexpr int P2 = D / N2;       // W2 pieces per chunk
-  constexpr int NT1 = FC / 2 / 8;  // h n-tiles per warp (32 columns)
-  constexpr int NT2 = N2 / 2 / 8;  // accumulator n-tiles per warp and W2 piece (128 columns)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* hs = xs + ROWS * XS;
-  __nv_bfloat16* stage = hs + ROWS * HS;
+struct Layout {
+  static constexpr int P = D / 128;            // slots of W1^T, and of W2^T, per chunk
+  static constexpr int X_BYTES = ROWS * D * 2; // x tile, then the output tile
+  static constexpr int FIXED = 1024 + X_BYTES + 2 * BOX_BYTES + BARRIER_BYTES;
+  static constexpr int STAGES = (SMEM_MAX - FIXED) / STAGE_BYTES;
+  static constexpr int SMEM = FIXED + STAGES * STAGE_BYTES;
+  static_assert(STAGES >= 3 && 2 * STAGES + 1 <= BARRIER_BYTES / 8, "ring does not fit");
+};
 
-  const int row0 = blockIdx.x * ROWS;
-  const int rows = min(ROWS, R - row0);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int mt = warp % 4;    // 16-row tile
-  const int half = warp / 4;  // column half
+// activate() with the hardware's exponential and a fast division, to fp32
+// precision: gelu_tanh as v * sigmoid(2u), the same function as
+// 0.5 v (1 + tanh u), without its cancellation for negative v.  One
+// tanh.approx.f32 instead of the two special-function operations is faster
+// but errs by ~2^-11, which moves h's bf16 rounding far more often;
+// tools/exp_mlp_activation.py times and checks both (PERF.md §6).
+__device__ __forceinline__ float activate_fast(float v, int act) {
+  if (act == GELU_TANH)
+    return __fdividef(v, 1.f + __expf(-1.5957691216057308f * (v + 0.044715f * v * v * v)));
+  if (act == GELU) return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
+  return __fdividef(v, 1.f + __expf(-1.702f * v));
+}
+
+__device__ __forceinline__ void store_bf16x2(unsigned char* p, float lo, float hi) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
+}
+
+template <int D>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(BF16_THREADS, 1)
+mlp_bf16_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap w1map,
+                const __grid_constant__ CUtensorMap w2map, const __grid_constant__ CUtensorMap omap,
+                const float* __restrict__ b1, const float* __restrict__ b2, int R, int F, int act) {
+  using L = Layout<D>;
+  constexpr int P = L::P;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte-swizzled tiles need 1024-byte alignment
+  unsigned char* xs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* hs = xs + L::X_BYTES;
+  unsigned char* ring = hs + 2 * BOX_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* xfull = empty + STAGES;
+
   const int chunks = F / FC;
-
-  // the x tile (rows past R zero) and the first weight piece, one group
-  for (int idx = threadIdx.x; idx < ROWS * (D / 8); idx += THREADS) {
-    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    if (r < rows)
-      cp_async16(xs + r * XS + c, x + (long)(row0 + r) * D + c);
-    else
-      *reinterpret_cast<uint4*>(xs + r * XS + c) = make_uint4(0, 0, 0, 0);
+  const int slots = 2 * P * chunks;  // ring slots in order: per chunk P of W1^T, then P of W2^T
+  const int row0 = blockIdx.x * ROWS;
+  const uint32_t rank = cluster_ctarank();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 2 * CLUSTER);  // both consumers of both CTAs
+    }
+    mbar_init(xfull, 1);
+    fence_barrier_init();
   }
-  load_piece(stage, w1, w2, 0, 0, D, F);
-  cp_async_commit();
+  cluster_sync();
 
-  float acc[P2 * NT2][4];
-#pragma unroll
-  for (int j = 0; j < P2 * NT2; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  // Warp 0 is also the producer, all 32 lanes together: `pf` is the next
+  // slot to load; slot m goes to stage m % STAGES once every consumer of
+  // the cluster has released slot m - STAGES.  Lane l tests the stage of
+  // slot pf + l; the run of free stages from lane 0 on is loaded at once.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int pf = 0;
+  auto produce = [&](int n) {  // load what is free, and at least slot n
+    for (;;) {
+      const int m = pf + lane;
+      const int st = m % STAGES;
+      const bool ok = m < slots && m < n + STAGES - 1 &&
+                      mbar_test(empty + st, ((m / STAGES) & 1) ^ 1);
+      const int free = __ffs(~__ballot_sync(0xffffffffu, ok)) - 1;
+      if (lane < free) {
+        const int c = m / (2 * P), r = m % (2 * P);
+        const bool second = r >= P;
+        const int p = second ? r - P : r;
+        // box `rank` of the slot, multicast into both CTAs: W1^T [F, D]: the
+        // chunk's rows, D columns 128p + 64*rank; W2^T [D, F]: consumer
+        // rank's rows rank*D/2 + 64p, the chunk's columns
+        const int c0 = second ? c * FC : p * 128 + rank * 64;
+        const int c1 = second ? rank * (D / 2) + p * 64 : c * FC;
+        mbar_arrive_expect_tx(full + st, STAGE_BYTES);
+        tma_load_2d_multicast(ring + st * STAGE_BYTES + rank * BOX_BYTES, second ? &w2map : &w1map,
+                              full + st, c0, c1, (1 << CLUSTER) - 1);
+      }
+      pf += free;
+      if (pf > n || pf >= slots) return;
+      mbar_wait(empty + pf % STAGES, ((pf / STAGES) & 1) ^ 1);  // slot n's stage is still held
+    }
+  };
+  auto refill = [&](int n) {  // before slot n is waited for
+    if (warp == 0 && pf - n < REFILL_AHEAD) produce(n);
+  };
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(xfull, L::X_BYTES);
+    for (int b = 0; b < D / 64; ++b) tma_load_2d(xs + b * BOX_BYTES, &xmap, xfull, b * 64, row0);
+  }
 
-  int step = 0;  // pieces consumed so far: the buffer parity
-  // wait for the current piece, then put the next one in flight
-  auto advance = [&](int fc, int s) {
-    cp_async_wait_all();
-    __syncthreads();
-    int nfc = fc, ns = s + 1;
-    if (ns == P1 + P2) { nfc = fc + 1; ns = 0; }
-    if (nfc < chunks) load_piece(stage + ((step + 1) & 1) * PIECE, w1, w2, nfc, ns, D, F);
-    cp_async_commit();
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  const int r0 = (t / 32) * 16 + (t % 32) / 4;  // accumulator rows r0 and r0 + 8
+  const int cq = 2 * (t % 4);                   // and columns 8j + cq, + 1
+  auto release = [&](int st) {
+    if (t == 0) {
+      mbar_arrive(empty + st);
+      mbar_arrive_cluster(empty + st, rank ^ 1);
+    }
   };
 
-  for (int fc = 0; fc < chunks; ++fc) {
-    float hacc[NT1][4];
+  float acc[P][32];
 #pragma unroll
-    for (int j = 0; j < NT1; ++j) hacc[j][0] = hacc[j][1] = hacc[j][2] = hacc[j][3] = 0.f;
+  for (int q = 0; q < P; ++q)
 #pragma unroll
-    for (int s = 0; s < P1; ++s) {
-      advance(fc, s);
-      const __nv_bfloat16* wp = stage + (step & 1) * PIECE;
+    for (int i = 0; i < 32; ++i) acc[q][i] = 0.f;
+
+  int n = 0, s = 0, prev = 0;  // slot, its stage and phase; the stage of slot n - 1
+  uint32_t ph = 0;
+  refill(0);
+  mbar_wait(xfull, 0);
+  for (int c = 0; c < chunks; ++c) {
+    // h[:, 32wg .. +32] = x . W1^T[chunk rows 32wg .. +32]^T over D
+    float hacc[16];
+    float2 bias[4];
 #pragma unroll
-      for (int ks = 0; ks < K1 / 16; ++ks) {
-        uint32_t a[4];
-        ld_a_frag(a, xs, XS, mt * 16, s * K1 + ks * 16, g, t);
-        mma_kmajor<NT1>(hacc, a, wp, W1S, ks * 16, half * (FC / 2), lane);
+    for (int j = 0; j < 4; ++j)
+      bias[j] = *reinterpret_cast<const float2*>(b1 + c * FC + wg * 32 + j * 8 + cq);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      refill(n);
+      mbar_wait(full + s, ph);
+      wgmma_fence();
+      const uint64_t ad = desc_sw128(xs + 2 * p * BOX_BYTES);
+      const uint64_t bd = desc_sw128(ring + s * STAGE_BYTES + wg * 32 * 128);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+        Wgmma<32>::mma(hacc, desc_add(ad, off), desc_add(bd, off), p > 0 || kk > 0);
       }
-      ++step;
+      wgmma_commit();
+      if (p > 0) {
+        wgmma_wait<1>();
+        release(prev);
+      }
+      prev = s;
+      ++n;
+      if (++s == STAGES) { s = 0; ph ^= 1; }
     }
-    // bias and activation in fp32, h rounded to bf16 into shared memory; the
-    // barrier of the next advance() orders these stores before any read
-    {
-      __nv_bfloat16* h0 = hs + (mt * 16 + g) * HS + half * (FC / 2) + t * 2;
+    wgmma_wait<0>();
+    release(prev);
+    fence_operand(hacc);
+
+    // bias and activation in fp32, h rounded to bf16 into the swizzled tile
+    unsigned char* h = hs + (c & 1) * BOX_BYTES;
 #pragma unroll
-      for (int j = 0; j < NT1; ++j) {
-        const int f = fc * FC + half * (FC / 2) + j * 8 + t * 2;
-        const float c0 = b1[f], c1 = b1[f + 1];
-        *reinterpret_cast<__nv_bfloat162*>(h0 + j * 8) = __floats2bfloat162_rn(
-            activate(hacc[j][0] + c0, act), activate(hacc[j][1] + c1, act));
-        *reinterpret_cast<__nv_bfloat162*>(h0 + 8 * HS + j * 8) = __floats2bfloat162_rn(
-            activate(hacc[j][2] + c0, act), activate(hacc[j][3] + c1, act));
+    for (int j = 0; j < 4; ++j) {
+      const int col = wg * 32 + j * 8 + cq;
+      store_bf16x2(h + sw128_offset(r0, col), activate_fast(hacc[4 * j] + bias[j].x, act),
+                   activate_fast(hacc[4 * j + 1] + bias[j].y, act));
+      store_bf16x2(h + sw128_offset(r0 + 8, col), activate_fast(hacc[4 * j + 2] + bias[j].x, act),
+                   activate_fast(hacc[4 * j + 3] + bias[j].y, act));
+    }
+    fence_proxy_async();
+    named_barrier(1, BF16_THREADS);
+
+    // acc[:, 64q .. +64] += h . W2^T[rows wg*D/2 + 64q .. +64, chunk]^T
+    const uint64_t hd = desc_sw128(h);
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      refill(n);
+      mbar_wait(full + s, ph);
+      wgmma_fence();
+      const uint64_t bd = desc_sw128(ring + s * STAGE_BYTES + wg * BOX_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<64>::mma(acc[q], desc_add(hd, kk * 32), desc_add(bd, kk * 32), 1);
+      wgmma_commit();
+      if (q > 0) {
+        wgmma_wait<1>();
+        release(prev);
+      }
+      prev = s;
+      ++n;
+      if (++s == STAGES) { s = 0; ph ^= 1; }
+    }
+    wgmma_wait<0>();
+    release(prev);
+  }
+#pragma unroll
+  for (int q = 0; q < P; ++q) fence_operand(acc[q]);
+
+  if (row0 < R) {
+    // + b2 in fp32, bf16, staged in x's tile (no longer read), stored by TMA
+    // box by box (rows past R dropped)
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      const int b = wg * P + q;
+      unsigned char* box = xs + b * BOX_BYTES;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = j * 8 + cq;
+        const float2 bb = *reinterpret_cast<const float2*>(b2 + b * 64 + col);
+        store_bf16x2(box + sw128_offset(r0, col), acc[q][4 * j] + bb.x, acc[q][4 * j + 1] + bb.y);
+        store_bf16x2(box + sw128_offset(r0 + 8, col), acc[q][4 * j + 2] + bb.x,
+                     acc[q][4 * j + 3] + bb.y);
       }
     }
-#pragma unroll
-    for (int q = 0; q < P2; ++q) {
-      advance(fc, P1 + q);
-      const __nv_bfloat16* wp = stage + (step & 1) * PIECE;
-#pragma unroll
-      for (int ks = 0; ks < FC / 16; ++ks) {
-        uint32_t a[4];
-        ld_a_frag(a, hs, HS, mt * 16, ks * 16, g, t);
-        // acc[q*NT2 + j] += h . W2 piece, as mma_kmajor with the offset
-        // spelled out so that every accumulator index is a constant
-        const __nv_bfloat16* p = wp + (ks * 16 + (lane & 15)) * W2S + half * (N2 / 2) + (lane >> 4) * 8;
-#pragma unroll
-        for (int j = 0; j < NT2; j += 2) {
-          uint32_t bfr[4];
-          ldmatrix_x4_trans(bfr, p + j * 8);
-          mma_bf16_16816(acc[q * NT2 + j], a, bfr[0], bfr[1]);
-          mma_bf16_16816(acc[q * NT2 + j + 1], a, bfr[2], bfr[3]);
-        }
+    fence_proxy_async();
+    named_barrier(2 + wg, 128);
+    if (t == 0) {
+      for (int q = 0; q < P; ++q) {
+        const int b = wg * P + q;
+        tma_store_2d(&omap, xs + b * BOX_BYTES, b * 64, row0);
       }
-      ++step;
+      tma_store_commit();
+      tma_store_wait_read();
     }
   }
-
-  const int r0 = mt * 16 + g, r1 = r0 + 8;
-#pragma unroll
-  for (int q = 0; q < P2; ++q) {
-#pragma unroll
-    for (int j = 0; j < NT2; ++j) {
-      const int col = q * N2 + half * (N2 / 2) + j * 8 + t * 2;
-      const float c0 = b2[col], c1 = b2[col + 1];
-      const float* a = acc[q * NT2 + j];
-      if (r0 < rows)
-        *reinterpret_cast<__nv_bfloat162*>(out + (long)(row0 + r0) * D + col) =
-            __floats2bfloat162_rn(a[0] + c0, a[1] + c1);
-      if (r1 < rows)
-        *reinterpret_cast<__nv_bfloat162*>(out + (long)(row0 + r1) * D + col) =
-            __floats2bfloat162_rn(a[2] + c0, a[3] + c1);
-    }
+  if (threadIdx.x == 0) {
+    // the partner arrives on this CTA's empty barriers until its last slot:
+    // wait for the release of every stage's last slot before the CTA exits
+    for (int m = max(0, slots - STAGES); m < slots; ++m)
+      mbar_wait(empty + m % STAGES, (m / STAGES) & 1);
   }
 }
 
@@ -257,15 +372,21 @@ mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 }
 
 template <int D>
-cudaError_t launch_bf16(const void* x, const void* w1, const float* b1, const void* w2,
+cudaError_t launch_bf16(const void* x, const void* w1t, const float* b1, const void* w2t,
                         const float* b2, void* out, int R, int F, int act, cudaStream_t stream) {
-  const size_t smem = bf16_smem(D);
-  cudaError_t e = cudaFuncSetAttribute(mlp_bf16_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  CUtensorMap xmap, w1map, w2map, omap;
+  cudaError_t e;
+  if ((e = encode_bf16_sw128(&xmap, x, R, D, ROWS)) != cudaSuccess ||
+      (e = encode_bf16_sw128(&omap, out, R, D, ROWS)) != cudaSuccess ||
+      (e = encode_bf16_sw128(&w1map, w1t, F, D, FC)) != cudaSuccess ||
+      (e = encode_bf16_sw128(&w2map, w2t, D, F, 64)) != cudaSuccess)
+    return e;
+  const int smem = Layout<D>::SMEM;
+  e = cudaFuncSetAttribute(mlp_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  mlp_bf16_kernel<D><<<(R + ROWS - 1) / ROWS, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w1), b1,
-      static_cast<const __nv_bfloat16*>(w2), b2, static_cast<__nv_bfloat16*>(out), R, F, act);
+  const int blocks = ((R + ROWS - 1) / ROWS + CLUSTER - 1) / CLUSTER * CLUSTER;
+  mlp_bf16_kernel<D><<<blocks, BF16_THREADS, smem, stream>>>(xmap, w1map, w2map, omap, b1, b2, R,
+                                                             F, act);
   return cudaGetLastError();
 }
 
@@ -282,10 +403,13 @@ int clibd_fused_mlp_supported(int D, int F, int dtype) {
   return dtype == 0 && f32_smem(D) <= 227 * 1024;
 }
 
-// x [R, D] contiguous, bf16 (dtype 1) or fp32 (dtype 0); w1 [D, F] and w2
-// [F, D] of x's dtype; b1 [F] and b2 [D] fp32; out [R, D] of x's dtype; act 0
-// gelu_tanh, 1 gelu (erf), 2 quick_gelu.  Launches on `stream` and returns
-// cudaGetLastError() (0 = launched).
+// x [R, D] contiguous, bf16 (dtype 1) or fp32 (dtype 0); b1 [F] and b2 [D]
+// fp32; out [R, D] of x's dtype; act 0 gelu_tanh, 1 gelu (erf), 2
+// quick_gelu.  The weights, of x's dtype: in bf16 K-major, w1 as W1^T [F, D]
+// and w2 as W2^T [D, F], every bf16 pointer 16-byte aligned; in fp32 as they
+// are, w1 [D, F] and w2 [F, D].  Launches on `stream` and returns the
+// launch's error (0 = launched): a tensor map that does not encode, a
+// cluster that cannot be scheduled, too much shared memory.
 int clibd_fused_mlp(const void* x, const void* w1, const float* b1, const void* w2,
                     const float* b2, void* out, int R, int D, int F, int act, int dtype,
                     void* stream) {

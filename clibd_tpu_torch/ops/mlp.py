@@ -11,6 +11,14 @@ hand-written kernel (`csrc/fused_mlp.cu`), on a CPU tensor it runs the plain
 version `fused_mlp_reference`.  There is no fallback from the card to the
 plain version: a build or launch error raises.
 
+The bf16 kernel reads every operand K-major (the wgmma layout), so the
+wrapper hands it W1^T [F, D] and W2^T [D, F], transposed on every call:
+4.7 MB each at D=768, microseconds against a kernel of milliseconds.  The
+copies are not cached between calls: training updates the weights in place
+(AdamW on BarcodeBERT with the knob on), and a cache keyed on the tensor
+would hand the kernel stale weights.  fp32 inputs go to a SIMT kernel that
+reads the weights as they are.
+
 Numerics (`mlp.py:58-76`): h = x . W1 accumulated in fp32, plus the fp32
 bias, the activation in fp32, h rounded to x's dtype; out = h . W2
 accumulated in fp32 plus the fp32 bias, cast to x's dtype.  The backward is
@@ -83,7 +91,11 @@ def fused_mlp_cuda(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torc
     if any(t.device != x.device or t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: x, w1 and w2 must be 16-byte aligned on {x.device}")
     x, w1, w2 = tensors
+    if x.dtype == torch.bfloat16:
+        w1, w2 = w1.t().contiguous(), w2.t().contiguous()
     b1, b2 = (b.to(device=x.device, dtype=torch.float32).contiguous() for b in (b1, b2))
+    # the bf16 kernel reads the biases two floats at a time
+    b1, b2 = (b if b.data_ptr() % 8 == 0 else b.clone() for b in (b1, b2))
     out = torch.empty_like(x)
     launch(what, what, "clibd_fused_mlp",
            [x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),

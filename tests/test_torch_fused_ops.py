@@ -31,7 +31,9 @@ from clibd_tpu.ops.pallas.mlp import _xla_mlp
 from clibd_tpu.ops.pallas.mlp import fused_mlp as jax_fused_mlp
 from clibd_tpu_torch.models import layers as tl
 from clibd_tpu_torch.ops.attention import flash_attention_qkv_outproj
+from clibd_tpu_torch.ops.cuda_build import CSRC
 from clibd_tpu_torch.ops.mlp import fused_mlp, fused_mlp_reference
+from clibd_tpu_torch.tools.exp_mlp_activation import FORMS, KERNEL_FORM, form_source
 
 NEG = np.finfo(np.float32).min
 
@@ -130,13 +132,33 @@ def test_fused_mlp_matches_the_pallas_kernel(activation):
 
 def test_fused_mlp_bf16_rounds_the_intermediate_like_the_reference():
     """bf16 inputs: the plain version equals `_xla_mlp` (bf16 h between two
-    fp32-accumulated products) to one bf16 ulp of the output."""
-    arrays = [a.reshape(-1, a.shape[-1]) if i == 0 else a for i, a in enumerate(_mlp_inputs(4))]
-    want = _xla_mlp(*(jnp.asarray(a).astype(jnp.bfloat16) for a in arrays), "gelu_tanh")
-    got = fused_mlp_reference(*(torch.from_numpy(a).to(torch.bfloat16) for a in arrays),
-                              "gelu_tanh")
-    assert got.dtype == torch.bfloat16
-    np.testing.assert_allclose(_np(got), _np(want), atol=2 ** -8 * float(np.abs(_np(want)).max()))
+    fp32-accumulated products) to one bf16 ulp of the output, at a small
+    width and at the width the card's kernel runs (D=768, F=3072), where the
+    plain version is the kernel's yardstick.  Both widths are cases of this
+    one test, so that its id stays as it was."""
+    for shape in ({}, {"R": 37, "D": 768, "F": 3072}):
+        arrays = [a.reshape(-1, a.shape[-1]) if i == 0 else a
+                  for i, a in enumerate(_mlp_inputs(4, **shape))]
+        want = _xla_mlp(*(jnp.asarray(a).astype(jnp.bfloat16) for a in arrays), "gelu_tanh")
+        got = fused_mlp_reference(*(torch.from_numpy(a).to(torch.bfloat16) for a in arrays),
+                                  "gelu_tanh")
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(_np(got), _np(want),
+                                   atol=2 ** -8 * float(np.abs(_np(want)).max()),
+                                   err_msg=f"shape {shape or 'default'}")
+
+
+def test_activation_harness_swaps_only_the_kernels_gelu_tanh_line():
+    """`tools/exp_mlp_activation` rebuilds the bf16 kernel with its gelu_tanh
+    line replaced: that line is the kernel's, found once, and every form's
+    source is the kernel's with that line alone changed."""
+    src = (CSRC / "fused_mlp.cu").read_text()
+    assert src.count(KERNEL_FORM) == 1
+    assert form_source("expf") == src
+    for form in set(FORMS) - {"expf"}:
+        swapped = form_source(form)
+        assert KERNEL_FORM not in swapped and FORMS[form] in swapped
+        assert swapped.replace(FORMS[form], KERNEL_FORM) == src
 
 
 def test_fused_mlp_rejects_an_unknown_activation():

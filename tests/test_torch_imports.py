@@ -34,7 +34,8 @@ def _absolute_imports(path: str):
 
 def test_the_walk_covers_the_port():
     assert "chip_smoke.py" in PORT_FILES
-    for tool in ("profile_extract", "exp_attn", "exp_mxu", "exp_mxu2", "exp_flash"):
+    for tool in ("profile_extract", "exp_attn", "exp_mxu", "exp_mxu2", "exp_flash",
+                 "exp_mlp_activation"):
         assert f"clibd_tpu_torch/tools/{tool}.py" in PORT_FILES
     assert "clibd_tpu_torch/engine/train.py" in PORT_FILES
     assert len(PORT_FILES) >= 45, PORT_FILES

@@ -374,7 +374,15 @@ def _mlp_inputs(R, D, Fd, seed, device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,D,Fd,activation", [
     (8 * 197, 768, 3072, "gelu_tanh"), (8 * 133 + 5, 768, 3072, "gelu_tanh"),
-    (8 * 77, 512, 2048, "gelu_tanh"), (37, 256, 128, "gelu"), (37, 256, 128, "quick_gelu")])
+    (8 * 77, 512, 2048, "gelu_tanh"), (37, 256, 128, "gelu"), (37, 256, 128, "quick_gelu"),
+    # the edges of the bf16 kernel's ring and cluster: one row, a partial and
+    # a whole row block, one past it, an odd count of row blocks (the cluster
+    # of two gets a CTA with no rows), the ragged 63*197; F = 64 and 128
+    # (fewer F chunks than ring stages); every D it takes
+    (1, 768, 3072, "gelu_tanh"), (37, 768, 3072, "gelu_tanh"), (64, 768, 3072, "gelu_tanh"),
+    (65, 768, 3072, "gelu_tanh"), (64 * 3, 768, 3072, "gelu_tanh"),
+    (63 * 197, 768, 3072, "gelu_tanh"), (37, 768, 64, "gelu_tanh"), (65, 768, 128, "gelu"),
+    (64 * 3, 512, 64, "quick_gelu"), (65, 512, 2048, "gelu_tanh"), (64 * 3, 256, 3072, "gelu")])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_fused_mlp_kernel_matches_plain_version(cuda_device, R, D, Fd, activation, dtype):
     args = _mlp_inputs(R, D, Fd, R + D, cuda_device, dtype)
@@ -384,6 +392,17 @@ def test_fused_mlp_kernel_matches_plain_version(cuda_device, R, D, Fd, activatio
     assert fused_mlp.launches == before + 1
     assert got.dtype == dtype and got.shape == (R, D) and torch.isfinite(got).all()
     assert _rel(got, fused_mlp_reference(*args, activation)) <= FUSED_REL_TOL
+
+
+@pytest.mark.cuda
+def test_fused_mlp_kernel_is_deterministic(cuda_device):
+    """Two launches on the same inputs give the same bits: no atomics, and the
+    products are summed in one fixed order whatever the ring's timing."""
+    args = _mlp_inputs(8 * 197 + 5, 768, 3072, 7, cuda_device, torch.bfloat16)
+    first = fused_mlp(*args)
+    second = fused_mlp(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
