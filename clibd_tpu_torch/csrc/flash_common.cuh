@@ -1,7 +1,8 @@
 // Device helpers shared by the port's kernels for Hopper, sm_90a: the bf16
 // tensor-core product, fragment packing and loads, asynchronous copies to
 // shared memory, warp/quad reductions, and the key-tiled attention cores of
-// the forward and out-projection kernels.  Included by every csrc/*.cu;
+// the forward and out-projection kernels (the latter reading K and V from
+// TMA's swizzled tiles).  Included by every csrc/*.cu;
 // ops/cuda_build.py hashes it with each source.
 
 #pragma once
@@ -10,6 +11,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper_common.cuh"
 
 namespace clibd {
 
@@ -341,6 +344,48 @@ __device__ __forceinline__ void mma_rows_t(float (&acc)[NT][4], const uint32_t (
   }
 }
 
+// mma_rows_t (row0 = 0) on a tile as TMA writes it with the 128-byte
+// swizzle: rows of 64 bf16, 128 bytes apart, unpadded, the 16-byte group
+// col/8 of row r at group (col/8) ^ (r % 8) (sw128_offset).  The 8 rows of
+// each ldmatrix matrix land in 8 distinct groups, so it is conflict-free
+// without the padding.
+template <int NT>
+__device__ __forceinline__ void mma_rows_t_sw128(float (&acc)[NT][4],
+                                                 const uint32_t (&a)[HD / 16][4],
+                                                 const unsigned char* tile, int lane) {
+  const int r = lane & 7;
+  uint32_t off[HD / 32];
+#pragma unroll
+  for (int kp = 0; kp < HD / 32; ++kp) off[kp] = r * 128 + ((((lane >> 3) + 4 * kp) ^ r) & 7) * 16;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+    for (int kp = 0; kp < HD / 32; ++kp) {
+      uint32_t b[4];
+      ldmatrix_x4(b, reinterpret_cast<const __nv_bfloat16*>(tile + nt * 8 * 128 + off[kp]));
+      mma_bf16_16816(acc[nt], a[2 * kp], b[0], b[1]);
+      mma_bf16_16816(acc[nt], a[2 * kp + 1], b[2], b[3]);
+    }
+  }
+}
+
+// mma_kmajor (col0 = 0) on a 128-byte-swizzled tile, as mma_rows_t_sw128
+template <int NT>
+__device__ __forceinline__ void mma_kmajor_sw128(float (&acc)[NT][4], const uint32_t (&a)[4],
+                                                 const unsigned char* tile, int k0, int lane) {
+  const int r = lane & 7;
+  const unsigned char* p = tile + (k0 + (lane & 15)) * 128;
+#pragma unroll
+  for (int j = 0; j < NT; j += 2) {
+    uint32_t bfr[4];
+    ldmatrix_x4_trans(bfr, reinterpret_cast<const __nv_bfloat16*>(
+                               p + ((((lane >> 4) + j) ^ r) & 7) * 16));
+    mma_bf16_16816(acc[j], a, bfr[0], bfr[1]);
+    mma_bf16_16816(acc[j + 1], a, bfr[2], bfr[3]);
+  }
+}
+
 // the A fragment of the 16 x 16 block of columns 16kc .. 16kc+15 of a 16 x 8NT
 // accumulator, rounded to bf16 (the accumulator layout of two n-tiles is the
 // A layout of one k-step)
@@ -387,23 +432,31 @@ __device__ __forceinline__ HeadTile head_tile(int N, int H) {
 // One 64-key tile into the state: S = q.k^T * scale + mask in fp32, the
 // running max raised to the tile's, the state rescaled, P = exp(S - max)
 // rounded to bf16, o += P.V.  `Ks`, `Vs`: the tile's K and V rows (zero past
-// N); `add`: its key mask row, `nvalid` its keys below N.  exp is the fast
-// __expf (ex2.approx): its error, a few fp32 ulps, is far below the bf16
-// rounding of P, and the precise expf would cost the issue slots that bound
-// this loop.
+// N), padded to row stride TS or, with SW128, as TMA's 128-byte swizzle lays
+// them out; `add`: its key mask row in shared memory or, with SW128, in
+// device memory (null without a mask); `nvalid` its keys below N.  exp is the
+// fast __expf (ex2.approx): its error, a few fp32 ulps, is far below the
+// bf16 rounding of P, and the precise expf would cost the issue slots that
+// bound this loop.
+template <bool SW128 = false>
 __device__ __forceinline__ void online_tile(OnlineRows& st, const uint32_t (&qa)[HD / 16][4],
                                             const __nv_bfloat16* Ks, const __nv_bfloat16* Vs,
                                             const float* add, int nvalid, float scale,
                                             int lane) {
   const int t = lane & 3;
   float s[KTILE / 8][4];
-  mma_rows_t<KTILE / 8>(s, qa, Ks, 0, lane);
+  if constexpr (SW128)
+    mma_rows_t_sw128<KTILE / 8>(s, qa, reinterpret_cast<const unsigned char*>(Ks), lane);
+  else
+    mma_rows_t<KTILE / 8>(s, qa, Ks, 0, lane);
   float mx0 = st.m0, mx1 = st.m1;
 #pragma unroll
   for (int nt = 0; nt < KTILE / 8; ++nt) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const float a = key_add(add, nt * 8 + t * 2 + j, nvalid);
+      const int col = nt * 8 + t * 2 + j;
+      const float a = !SW128 ? key_add(add, col, nvalid)
+                             : col < nvalid ? (add ? __ldg(add + col) : 0.f) : -INFINITY;
       s[nt][j] = fmaf(s[nt][j], scale, a);
       s[nt][2 + j] = fmaf(s[nt][2 + j], scale, a);
       mx0 = fmaxf(mx0, s[nt][j]);
@@ -440,7 +493,11 @@ __device__ __forceinline__ void online_tile(OnlineRows& st, const uint32_t (&qa)
   for (int kc = 0; kc < KTILE / 16; ++kc) {
     uint32_t pa[4];
     pack_a(pa, s, kc);
-    mma_kmajor<HD / 8>(st.o, pa, Vs, TS, kc * 16, 0, lane);
+    if constexpr (SW128)
+      mma_kmajor_sw128<HD / 8>(st.o, pa, reinterpret_cast<const unsigned char*>(Vs), kc * 16,
+                               lane);
+    else
+      mma_kmajor<HD / 8>(st.o, pa, Vs, TS, kc * 16, 0, lane);
   }
 }
 

@@ -41,7 +41,10 @@ attention followed by ctx . out_w + out_b in one operator,
 `clibd::flash_attention_qkv_outproj` (`csrc/flash_attention_qkv_outproj.cu`
 on a CUDA tensor, `flash_attention_qkv_outproj_reference` on a CPU tensor):
 ctx rounded to bf16, W_out read as bf16 and the bias as fp32, products
-accumulated in fp32, even for fp32 qkv.  Its backward is the TPU package's
+accumulated in fp32, even for fp32 qkv.  The bf16 kernel takes 2, 4, 6, 8 or
+12 heads, the fp32 kernel any D that is a multiple of 128; both read W_out as
+it is, [D_in, D_out] (the bf16 kernel's `wgmma` products take it as an
+MN-major operand, so nothing is transposed).  Its backward is the TPU package's
 default one (`CLIBD_ATTN_BWD=pallas`): dctx = g . W_out^T into the backward
 kernel, ctx recomputed by the forward kernel for dW.
 
@@ -240,7 +243,8 @@ def flash_attention_qkv_outproj_cuda(qkv: torch.Tensor, out_w: torch.Tensor, out
     smem = function(what, "clibd_flash_outproj_smem_bytes", [ctypes.c_int] * 3,
                     ctypes.c_long)(N, num_heads, code)
     _check_smem(what, smem, smem_limit(qkv.device),
-                f"N={N}, {num_heads} heads, {qkv.dtype} (D must be a multiple of 128)")
+                f"N={N}, {num_heads} heads, {qkv.dtype} (bf16 takes 2, 4, 6, 8 or 12 heads; fp32 "
+                "a D that is a multiple of 128)")
     w = out_w.to(torch.bfloat16).contiguous()
     b = out_b.to(torch.float32).contiguous()
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)

@@ -54,16 +54,20 @@ def _outproj_inputs(seed, B=2, N=19, H=2):
     return qkv, w, b, mask
 
 
-@pytest.mark.parametrize("masked", [False, True])
-def test_outproj_matches_the_pallas_kernel(masked):
-    qkv, w, b, mask = _outproj_inputs(0)
+# (masked, N, H): the first two keep their ids; then one key, one row past
+# a 64-row query tile, and 12 heads (D = 768), each masked and not
+@pytest.mark.parametrize("masked,N,H", [
+    (False, 19, 2), (True, 19, 2), (False, 1, 2), (True, 1, 12), (True, 65, 2), (False, 65, 12)],
+    ids=["False", "True", "N1-H2", "N1-H12-masked", "N65-H2-masked", "N65-H12"])
+def test_outproj_matches_the_pallas_kernel(masked, N, H):
+    qkv, w, b, mask = _outproj_inputs(0, N=N, H=H)
     m = mask if masked else None
-    want = jax_outproj(jnp.asarray(qkv), jnp.asarray(w), jnp.asarray(b), 2,
+    want = jax_outproj(jnp.asarray(qkv), jnp.asarray(w), jnp.asarray(b), H,
                        mask_row=None if m is None else jnp.asarray(m), interpret=True)
     got = flash_attention_qkv_outproj(torch.from_numpy(qkv), torch.from_numpy(w),
-                                      torch.from_numpy(b), 2,
+                                      torch.from_numpy(b), H,
                                       mask_row=None if m is None else torch.from_numpy(m))
-    assert got.dtype == torch.float32 and got.shape == (2, 19, 128)
+    assert got.dtype == torch.float32 and got.shape == (2, N, H * 64)
     np.testing.assert_allclose(_np(got), _np(want), atol=2e-2, rtol=2e-2)
 
 

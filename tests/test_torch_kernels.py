@@ -343,6 +343,37 @@ def test_outproj_kernel_matches_plain_version(cuda_device, N, H, masked, dtype):
         assert _rel(got[0], want[0]) <= FUSED_REL_TOL
 
 
+# the bf16 kernel's edges: one key; a query tile one row short of 64, full,
+# and one row past it; a single batch element and odd ones; every H it
+# takes (2, 4, 6, 8, 12); masked rows, batch row 0 fully masked
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,masked", [(1, 1, 12, False), (3, 63, 12, True), (1, 64, 8, False),
+                                           (5, 65, 2, True), (3, 65, 12, False), (1, 20, 8, True),
+                                           (2, 40, 4, True), (3, 70, 6, False)])
+def test_outproj_kernel_edges(cuda_device, B, N, H, masked):
+    t, w, b, m = _outproj_inputs(B, N, H, masked, B + N + H, cuda_device, torch.bfloat16)
+    before = flash_attention_qkv_outproj.launches
+    got = flash_attention_qkv_outproj(t, w, b, H, m)
+    torch.cuda.synchronize()
+    assert flash_attention_qkv_outproj.launches == before + 1
+    assert got.shape == (B, N, H * 64) and torch.isfinite(got).all()
+    want = flash_attention_qkv_outproj_reference(t, w, b, H, m)
+    assert _rel(got, want) <= FUSED_REL_TOL
+    if masked:  # batch row 0 has every key masked: the mean of V, projected
+        assert _rel(got[0], want[0]) <= FUSED_REL_TOL
+
+
+@pytest.mark.cuda
+def test_outproj_kernel_is_deterministic(cuda_device):
+    """Two launches on the same inputs give the same bits: every product is
+    summed in one fixed order, whatever the rings' timing."""
+    t, w, b, m = _outproj_inputs(7, 197, 12, True, 11, cuda_device, torch.bfloat16)
+    first = flash_attention_qkv_outproj(t, w, b, 12, m)
+    second = flash_attention_qkv_outproj(t, w, b, 12, m)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 @pytest.mark.cuda
 def test_outproj_autograd_runs_the_kernels(cuda_device):
     """grad of the out-projection operator on the card: one out-projection,
