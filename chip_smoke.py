@@ -124,14 +124,21 @@ Phases, each of which raises on failure:
 11. flash experiments: the kernels of `tools/exp_flash.py`'s schedules, each
    against its plain version at H=12 on N=197 unmasked and N=133 with a
    random key mask and one fully masked batch row, at B=5 and B=256:
-   - `flash_attention_qkv_phased` (its largest head group that fits) and
-     `flash_attention_qkv_batched`: max |kernel - plain| <= 2e-2;
+   - `flash_attention_qkv_phased` (its largest head group, all 12 heads)
+     and `flash_attention_qkv_batched`, the two schedules of the wgmma
+     attention core: max |kernel - plain| <= 2e-2, the fully masked row the
+     mean of V, two launches at B=256 bit-identical; first at their edges
+     (N = 1, 63, 64, 65, 197 and 256; odd B; H = 2 and 12; a fully masked
+     row) and the phased one at every head group G of 1, 2, 3, 4, 6, 12
+     at N=197;
    - `flash_attention_qkv_bwd_phased`: max |kernel - plain| <= 2e-2 *
      max |plain| per part (dq, dk, dv), and the same against the backward
      kernel's output;
-   then kernel, the production kernel it reschedules (`v0`), plain
-   version, SDPA (forward or backward) and bound timed at B=256; shapes each wrapper refuses (a head group past the shared
-   memory, fp32, N=250 for the backward) raise and launch nothing.  Then
+   then kernel (with its TFLOP/s), the production kernel it reschedules
+   (`v0`), plain version, SDPA (forward or backward) and bound timed at
+   B=256; shapes each wrapper refuses (N=257 for the forwards, a head group
+   that does not divide H, fp32, N=250 for the backward) raise and launch
+   nothing.  Then
    the flash experiments path: `clibd_tpu_torch.tools.exp_flash` parity,
    bwd_parity, time, bwd_time and fwd_group as a user runs them; each of
    the three kernels must launch, the forward and backward kernels only as
@@ -204,6 +211,12 @@ EXP_FLASH_KERNELS = ("flash_attention_qkv_phased", "flash_attention_qkv_batched"
                      "flash_attention_qkv_bwd_phased")
 # (N, masked) at H=12 for the experiment kernels: the JAX script's two towers
 EXP_FLASH_SHAPES = ((197, False), (133, True))
+# (B, N, H, masked) edges of the two wgmma forward kernels: one key; a whole
+# 64-key block and one key past it; the 256 keys a row holds; a query tile
+# one row short; odd B, H = 2 and 12, batch row 0 fully masked where masked
+EXP_FLASH_EDGES = ((3, 1, 2, False), (5, 64, 12, True), (3, 65, 2, True), (3, 256, 12, True),
+                   (1, 63, 12, False), (7, 197, 2, True))
+EXP_FLASH_GROUPS = (1, 2, 3, 4, 6, 12)  # the phased kernel's head groups of H=12
 GEMM_REL_TOL = {"fp32": 1e-3, "bf16": 1e-2}  # max |kernel - plain| / max |plain|, by out dtype
 # (B, N) at H=12 for attention_bhnd: the harness's shape, then two smaller ones
 BHND_SHAPES = ((256, 197), (64, 133), (64, 20))
@@ -1278,22 +1291,49 @@ def exp_flash_kernels_phase(card: str) -> dict:
     fwd = {"flash_attention_qkv_phased": flash_attention_qkv_phased_cuda,
            "flash_attention_qkv_batched": flash_attention_qkv_batched_cuda}
     shapes = {name: [] for name in EXP_FLASH_KERNELS}
+    edge_err = dict.fromkeys(fwd, 0.0)
+
+    def check_fwd(name, got, qkv, mask, Hh, what):
+        """max |kernel - plain|, failing past KERNEL_TOL; the fully masked
+        row (batch row 0 of a masked input) must be the mean of V"""
+        want = flash_attention_qkv_reference(qkv, Hh, mask).float()
+        got = got.float()
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        if mask is not None:
+            v = qkv[0, :, 2 * Hh * 64:].float().mean(0)
+            e = max(e, float((got[0] - v).abs().max()))
+        print(f"kernel {name} {what}: max|kernel-plain| {e:.3e} (tol {KERNEL_TOL})")
+        if not torch.isfinite(got).all() or e > KERNEL_TOL:
+            fail(f"{name} disagrees with its plain version at {what}: {e}")
+        return e
+
+    # the wgmma forward kernels' edges, and every head group of the phased one
+    for B, N, Hh, masked in EXP_FLASH_EDGES:
+        qkv, mask = make_qkv(B, N, Hh, masked, seed=N + B + 11)
+        for name, fn in fwd.items():
+            edge_err[name] = max(edge_err[name], check_fwd(
+                name, fn(qkv, Hh, mask), qkv, mask, Hh, f"edge B={B} N={N} H={Hh} mask={masked}"))
+    qkv, mask = make_qkv(5, 197, H, True, seed=197 + 5 + 13)
+    for G in EXP_FLASH_GROUPS:
+        edge_err["flash_attention_qkv_phased"] = max(
+            edge_err["flash_attention_qkv_phased"],
+            check_fwd("flash_attention_qkv_phased", flash_attention_qkv_phased_cuda(qkv, H, mask, G),
+                      qkv, mask, H, f"G={G} B=5 N=197 H={H} mask=True"))
+    del qkv, mask
     for N, masked in EXP_FLASH_SHAPES:
         err = dict.fromkeys(EXP_FLASH_KERNELS, 0.0)
         for B in (5, 256):
             qkv, mask = make_qkv(B, N, H, masked, seed=N + B + 3)
             g = torch.Generator(device="cuda").manual_seed(N + B)
             dout = torch.randn(B, N, D, generator=g, device="cuda").to(torch.bfloat16)
-            want = flash_attention_qkv_reference(qkv, H, mask).float()
             for name, fn in fwd.items():
-                got = fn(qkv, H, mask).float()
-                torch.cuda.synchronize()
-                e = float((got - want).abs().max())
-                print(f"kernel {name} B={B} N={N} mask={masked}: max|kernel-plain| {e:.3e} "
-                      f"(tol {KERNEL_TOL})")
-                if not torch.isfinite(got).all() or e > KERNEL_TOL:
-                    fail(f"{name} disagrees with its plain version at B={B} N={N}: {e}")
-                err[name] = max(err[name], e)
+                got = fn(qkv, H, mask)
+                err[name] = max(err[name], check_fwd(name, got, qkv, mask, H,
+                                                     f"B={B} N={N} mask={masked}"))
+                if B == 256 and not torch.equal(got, fn(qkv, H, mask)):
+                    fail(f"two launches of {name} at B={B} N={N} differ")
+                del got
             got = flash_attention_qkv_bwd_phased_cuda(qkv, dout, H, mask)
             plain = flash_attention_qkv_bwd_reference(qkv, dout, H, mask)
             v0 = flash_attention_qkv_bwd_cuda(qkv, dout, H, mask)
@@ -1310,7 +1350,7 @@ def exp_flash_kernels_phase(card: str) -> dict:
                 fail(f"the phased backward disagrees at B={B} N={N}: {rel}, {rel_v0}")
             err["flash_attention_qkv_bwd_phased"] = max(
                 err["flash_attention_qkv_bwd_phased"], float((got.float() - plain.float()).abs().max()))
-            del got, plain, v0, want
+            del got, plain, v0
         mask_bytes = B * N * 4 if masked else 0
         fwd_bound = bound(B * N * (3 * D + D) * 2 + mask_bytes, 4 * B * H * N * N * 64)
         bwd_bound = bound(B * N * (3 * D + D + 3 * D) * 2 + mask_bytes, 10 * B * H * N * N * 64)
@@ -1335,13 +1375,16 @@ def exp_flash_kernels_phase(card: str) -> dict:
              "sdpa backward", v0_bwd))
         for name, kernel, plain_fn, library, (bound_ms, bound_by), lib_name, v0_ms in timed:
             ms, plain_ms, library_ms = cuda_ms(kernel), cuda_ms(plain_fn), cuda_ms(library)
-            print(f"time {name} B={B} N={N} mask={masked}: kernel {ms:.4f} ms, v0 {v0_ms:.4f} ms, "
+            flops = (10 if "bwd" in name else 4) * B * H * N * N * 64
+            print(f"time {name} B={B} N={N} mask={masked}: kernel {ms:.4f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s), v0 {v0_ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, library ({lib_name}) {library_ms:.4f} ms, bound "
                   f"{bound_ms:.4f} ms ({bound_by})  [{card}]")
             shapes[name].append({"shape": f"B={B} H={H} N={N} mask={masked}", "B": B, "N": N,
                                  "H": H, "ms": ms, "v0_ms": v0_ms, "plain_ms": plain_ms,
                                  "library_ms": library_ms, "bound_ms": bound_ms,
-                                 "bound_by": bound_by, "max_abs_err": err[name]})
+                                 "bound_by": bound_by,
+                                 "max_abs_err": max(err[name], edge_err.get(name, 0.0))})
         del qkv, mask, dout, leaf, lib_out, lib_grad
     torch.cuda.empty_cache()
 
@@ -1349,11 +1392,13 @@ def exp_flash_kernels_phase(card: str) -> dict:
     before = read_counts()
     z197 = torch.zeros(2, 197, 3 * D, device="cuda", dtype=torch.bfloat16)
     z250 = torch.zeros(1, 250, 3 * 128, device="cuda", dtype=torch.bfloat16)
+    z257 = torch.zeros(1, 257, 3 * D, device="cuda", dtype=torch.bfloat16)
     refusals = (
-        ("phased, 3 heads per phase at N=197", ValueError,
-         lambda: flash_attention_qkv_phased_cuda(z197, H, None, 3)),
+        ("phased, N=257 (a row holds 256 keys)", ValueError,
+         lambda: flash_attention_qkv_phased_cuda(z257, H, None, 3)),
         ("phased, 5 heads per phase", ValueError,
          lambda: flash_attention_qkv_phased_cuda(z197, H, None, 5)),
+        ("batched, N=257", ValueError, lambda: flash_attention_qkv_batched_cuda(z257, H)),
         ("batched, fp32", TypeError, lambda: flash_attention_qkv_batched_cuda(z197.float(), H)),
         ("phased backward, N=250", ValueError,
          lambda: flash_attention_qkv_bwd_phased_cuda(z250, z250[..., :128], 2)))

@@ -204,12 +204,11 @@ __device__ __forceinline__ void load_rows_a(uint32_t (&a)[HD / 16][4], const __n
 // normalisation, o = P.V accumulated in fp32 (o[dt] holds output columns
 // dt*8 + 2t, +1 of both rows).  q comes straight from device memory (`qg`:
 // the head's q columns of row 0, row stride `rs`; rows past N read as 0); K
-// (row stride HD+8) and V are staged in shared memory, zero past N: V^T
-// (row stride 16*KT+8), or, with V_ROWS, V itself (row stride HD+8, read
-// by ldmatrix.trans), the layout cp.async can copy.  The whole 16 x 16*KT
-// score block stays in registers, and the score accumulators of key tile kt
-// are the A fragment of P for the P.V product.
-template <int KT, bool V_ROWS = false>
+// (row stride HD+8) and V^T (row stride 16*KT+8) are staged in shared
+// memory, zero past N.  The whole 16 x 16*KT score block stays in
+// registers, and the score accumulators of key tile kt are the A fragment
+// of P for the P.V product.
+template <int KT>
 __device__ __forceinline__ void attend_rows_bf16(float (&o)[HD / 8][4], const __nv_bfloat16* qg,
                                                  long rs, const __nv_bfloat16* Ks,
                                                  const __nv_bfloat16* Vt, const float* mrow, int N,
@@ -264,14 +263,10 @@ __device__ __forceinline__ void attend_rows_bf16(float (&o)[HD / 8][4], const __
     pa[1] = pack_bf16x2(s[2 * kt][2] / l1, s[2 * kt][3] / l1);
     pa[2] = pack_bf16x2(s[2 * kt + 1][0] / l0, s[2 * kt + 1][1] / l0);
     pa[3] = pack_bf16x2(s[2 * kt + 1][2] / l1, s[2 * kt + 1][3] / l1);
-    if constexpr (V_ROWS) {
-      mma_kmajor<HD / 8>(o, pa, Vt, HD + 8, kt * 16, 0, g * 4 + t);
-    } else {
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt) {
-        const __nv_bfloat16* vr = Vt + (dt * 8 + g) * VS + kt * 16 + t * 2;
-        mma_bf16_16816(o[dt], pa, ld_u32(vr), ld_u32(vr + 8));
-      }
+    for (int dt = 0; dt < HD / 8; ++dt) {
+      const __nv_bfloat16* vr = Vt + (dt * 8 + g) * VS + kt * 16 + t * 2;
+      mma_bf16_16816(o[dt], pa, ld_u32(vr), ld_u32(vr + 8));
     }
   }
 }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks for the port's kernels: the wgmma
-// shared-memory descriptor and products, mbarriers, TMA loads (plain and
+// shared-memory descriptor and products (A from shared memory or from
+// registers), mbarriers, TMA loads (plain and
 // multicast to a cluster) and stores, proxy fences, named and cluster
 // barriers, and the host-side encoding of a 2-D or 3-D bf16
 // tensor map.  Every operand these helpers describe has the 128-byte
@@ -161,6 +162,12 @@ __device__ __forceinline__ void named_barrier(uint32_t id, uint32_t threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// arrive at named barrier `id` (of `threads` threads) without waiting: the
+// other side of a named_barrier that some of the threads sync on
+__device__ __forceinline__ void named_barrier_arrive(uint32_t id, uint32_t threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 __device__ __forceinline__ uint32_t cluster_ctarank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
@@ -222,6 +229,13 @@ __device__ __forceinline__ void fence_operand(float (&d)[K]) {
   for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// the same for A operands held in registers (wgmma's RS form)
+template <int K>
+__device__ __forceinline__ void fence_operand(uint32_t (&a)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
 // d[64 x N] (+)= A[64 x 16] . B[16 x N], A bf16 K-major in shared memory
 // (desc_sw128), B bf16 in shared memory K-major (TRANS_B 0: stored as
 // B^T [N, 16], desc_sw128) or MN-major (TRANS_B 1: stored as B [16, N],
@@ -231,6 +245,20 @@ __device__ __forceinline__ void fence_operand(float (&d)[K]) {
 // same columns of row 16w + l/4 + 8.
 template <int N, int TRANS_B = 0>
 struct Wgmma;
+
+template <int TB>
+struct Wgmma<16, TB> {
+  __device__ __forceinline__ static void mma(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 0, %11;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+  }
+};
 
 template <int TB>
 struct Wgmma<32, TB> {
@@ -326,6 +354,36 @@ struct Wgmma<192, TB> {
           "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
           "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
         : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+  }
+};
+
+// d[64 x 64] (+)= A[64 x 16] . B[16 x 64] with A bf16 in registers (the RS
+// form): thread t of the warpgroup (warp w, lane l) holds in a[0] row
+// 16w + l/4, columns 2(l%4) and +1 (the lower column in the lower half),
+// in a[1] the same columns of row 16w + l/4 + 8, in a[2] and a[3] those
+// rows at columns 8 + 2(l%4) and +1 -- the accumulator layout of a 64 x 16
+// product, so two n8 tiles of an fp32 accumulator, rounded and packed in
+// pairs, are one k16 step of A.  B and the accumulator as in Wgmma.
+template <int N, int TRANS_B = 0>
+struct WgmmaRS;
+
+template <int TB>
+struct WgmmaRS<64, TB> {
+  __device__ __forceinline__ static void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
   }
 };
 

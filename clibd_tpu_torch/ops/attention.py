@@ -65,23 +65,30 @@ has its batch block `bb` (one CTA per (batch, head) here).
 `flash_attention_qkv_bwd_phased` are the ports of the experiment kernels of
 `tools/exp_flash.py` (`_phased_kernel`, `_batched_kernel`,
 `_phased_bwd_kernel`): the forward and the backward above in other
-schedules (`csrc/flash_attention_qkv_phased.cu`: a CTA per (batch, 64 query
-rows, G heads), S of the G heads in shared memory, then the softmaxes, then
-P.V; `csrc/flash_attention_qkv_batched.cu`: a CTA per (batch, 64 query
-rows) walking every head with the next head's K and V in flight;
-`csrc/flash_attention_qkv_bwd_phased.cu`: Pb and dS of a (batch, head) kept
-in shared memory so S and dP are computed once).  Each computes what its
-JAX variant does, so its plain version is the forward's or the backward's
-(`flash_attention_qkv_reference`, `flash_attention_qkv_bwd_reference`), and
-a CPU tensor runs that.  They take bf16 only (TypeError otherwise), have no
-autograd (the JAX variants have none) and are used by nothing but the
-experiment harness `tools/exp_flash.py`.  `heads_per_phase` is the phased
-kernel's G: None takes the largest that fits the card's shared memory, 0
-all the heads; the wrapper asks the library what a G needs and raises
-before launching when it does not fit.  The backward takes N <= 208 (its
-Pb and dS fill the shared memory there).  The JAX script's batch block
-`block_b` has no counterpart: the grids run over batch elements and query
-tiles.
+schedules.  The two forwards share one `wgmma` attention core
+(`csrc/wgmma_attention.cuh`: a warpgroup attends 64 query rows of a head
+over the whole row of keys, S and P.V on `wgmma` with P from registers, K
+and V by TMA into the warpgroup's own ring) and differ in the loop around
+it: `csrc/flash_attention_qkv_phased.cu` runs a CTA per (batch, G heads, 64
+query rows) whose warpgroups issue their products in turns, so one
+warpgroup's softmax runs while the next one's products are in flight;
+`csrc/flash_attention_qkv_batched.cu` a CTA per (batch, 64 query rows) whose
+three warpgroups walk every head free of each other.  Both take N <= 256
+and, unlike the bf16 forward kernel above, round P to bf16 after the
+normalisation, as the numerics below do.  `csrc/flash_attention_qkv_bwd_phased.cu`
+keeps Pb and dS of a (batch, head) in shared memory so S and dP are
+computed once.  Each computes what its JAX variant does, so its plain
+version is the forward's or the backward's (`flash_attention_qkv_reference`,
+`flash_attention_qkv_bwd_reference`), and a CPU tensor runs that.  They
+take bf16 only (TypeError otherwise), have no autograd (the JAX variants
+have none) and are used by nothing but the experiment harness
+`tools/exp_flash.py`.  `heads_per_phase` is the phased kernel's G (1, 2, 3,
+4, 6, 8 or 12 dividing H): None takes the largest that fits the card's
+shared memory (every G fits, so H where H is one of those), 0 all the
+heads; the wrapper asks the library what a G needs and raises before
+launching when it does not fit.  The backward takes N <= 208 (its Pb and dS
+fill the shared memory there).  The JAX script's batch block `block_b` has
+no counterpart: the grids run over batch elements and query tiles.
 
 Deliberately absent (TPU-only): `vmem_safe_block_b` (a model of the 16 MB
 VMEM), `block_b` batch blocking, `_seq_pad`, `ATTN_BWD_GROUP` and the

@@ -8,9 +8,12 @@ tensor run faster in other schedules.  Its kernels are ported as three CUDA
 kernels (`ops/attention.py`), each computing what its JAX variant does:
 
 - `phased`: `flash_attention_qkv_phased`, the forward with every head of a
-  group's q.k^T first, then the softmaxes, then P.V (`_phased_kernel`);
+  group's q.k^T first, then the softmaxes, then P.V (`_phased_kernel`); on
+  Hopper the warpgroups of a CTA issue their `wgmma` products in turns, so
+  one's softmax runs while the next one's products are in flight;
 - `batched`: `flash_attention_qkv_batched`, the forward with every head of
-  a query tile in one CTA (`_batched_kernel`);
+  a query tile in one CTA (`_batched_kernel`), its three warpgroups walking
+  the heads free of each other;
 - the phased backward: `flash_attention_qkv_bwd_phased`, the backward with
   Pb and dS kept on chip so S and dP are computed once
   (`_phased_bwd_kernel`).
@@ -33,10 +36,11 @@ tower, and N=133 with the last 9 keys at finfo(float32).min, BarcodeBERT):
   needs; the JAX script counts 11);
 - fwd_group [g ...] (default 0 2 3 4 6): B=256, the phased forward with g
   heads per group (0: all), the counterpart of the JAX script's sweep of
-  `CLIBD_ATTN_FWD_GROUP`, which itself stays unported.  A group whose
-  shared memory does not fit is printed as a row saying so, decided by the
-  wrapper's query before any launch; g = -1 (the script's
-  `CLIBD_ATTN_FWD_BPHASE` variant) has no counterpart.
+  `CLIBD_ATTN_FWD_GROUP`, which itself stays unported.  A group the kernel
+  does not take, or whose shared memory does not fit, is printed as a row
+  saying so, decided by the wrapper's query before any launch (every group
+  of 1, 2, 3, 4, 6, 8, 12 dividing H fits at N <= 256); g = -1 (the
+  script's `CLIBD_ATTN_FWD_BPHASE` variant) has no counterpart.
 
 The `block_b` arguments are accepted and printed as having no counterpart:
 the kernels' grids run over batch elements and query tiles, not batch

@@ -1,0 +1,460 @@
+"""Where do the phased and batched forward kernels' times go?
+
+    python3 -m clibd_tpu_torch.tools.exp_flash_sched [--phased FILE] [--batched FILE]
+
+Builds scratch variants of the two forward schedules of `tools/exp_flash.py`
+-- FILE, by default the committed `csrc/flash_attention_qkv_phased.cu` and
+`csrc/flash_attention_qkv_batched.cu` -- side by side into
+`build/exp_flash_sched/`, and in one process, at the harness's shapes (B=256,
+H=12, bf16; N=197 unmasked and N=133 with a random key mask):
+
+- checks every variant that computes the same function against the plain
+  version on the first 8 batch rows;
+- times every variant twice, interleaved (a, b, ..., b, a), beside the
+  forward kernel (`v0`) and SDPA on the same inputs (CUDA events, median of
+  20, `utils/profiling.cuda_ms`);
+- launches each `sections` variant once and prints its clock64 sections of
+  thread 0, cycles a CTA (or an item of warpgroup 0) averaged over the grid.
+
+The variants are text edits of a source (`KINDS`, told apart by a marker in
+the text).  The committed kernels' (`NEW_VARIANTS`, each of which inlines
+the shared core `csrc/wgmma_attention.cuh` to edit it): `kernel`, as it is,
+the phased one also at every head group of `PHASED_GROUPS`; `sections`
+(`SECTIONS`, through each item of warpgroup 0); `early_issue` (each product
+issued as soon as its own box has landed); and, computing another function,
+`l2_only` (every load from batch element 0, so from L2), `no_softmax` (P =
+S rounded) and `kv_once` (K and V loaded only by the first query tile's
+CTAs).  A source may also be the previous version of a file (`git show
+8075b1f:clibd_tpu_torch/csrc/<file>`): an mma.sync kernel fed by cp.async.
+Its phased variants are `kernel` and `sections` (the K copy, phase 1 (S),
+the barrier after it, phase 2 (the softmaxes, V's copies issued), the wait
+for V with its barrier, phase 3 (P.V and the store)); its batched ones
+`kernel`, `sections` (issuing copies, the copy waits with their barrier,
+`attend_rows_bf16`, the context into the tile, the barrier after a head,
+the context store), `no_tile` (each head's context stored straight from
+registers, no context tile: still one CTA of 4 warps a SM, two stages of
+K and V) and `no_tile_1stage` (the same with one stage: three CTAs, 12
+warps a SM).
+
+Needs a CUDA card and nvcc, and raises without; prints the card's name and
+power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+from pathlib import Path
+
+import torch
+
+from ..ops.attention import flash_attention_qkv_cuda, flash_attention_qkv_reference
+from ..ops.cuda_build import CSRC, NVCC_FLAGS, build_dir, find_nvcc
+from ..utils.profiling import card_line, cuda_ms
+from .exp_flash import sdpa
+
+SOURCES = {"phased": CSRC / "flash_attention_qkv_phased.cu",
+           "batched": CSRC / "flash_attention_qkv_batched.cu"}
+SHAPES = ((197, False), (133, True))
+B, H = 256, 12
+PHASED_GROUPS = (1, 2, 3, 4, 6)  # and 12, the largest, as `phased_kernel`
+
+# clock64 sections: a device array, summed over CTAs, and its reader
+PROF_DECL = "__device__ unsigned long long g_prof[16];\nnamespace {\n"
+PROF_READ = """extern "C" {
+
+int clibd_prof(unsigned long long* host) {
+  cudaMemcpyFromSymbol(host, g_prof, sizeof(g_prof));
+  unsigned long long z[16] = {0};
+  return (int)cudaMemcpyToSymbol(g_prof, z, sizeof(z));
+}
+"""
+
+
+def _atomics(values, first: int = 0, who: str = "threadIdx.x == 0") -> str:
+    """thread 0 adds its sections to g_prof[first ..]"""
+    lines = "".join(f"    atomicAdd(g_prof + {first + i}, (unsigned long long)({v}));\n"
+                    for i, v in enumerate(values))
+    return f"  if ({who}) {{\n" + lines + "  }\n"
+
+
+def _edit(src: str, edits) -> str:
+    """Apply (old, new) replacements, each once; raise where `old` is missing."""
+    for old, new in edits:
+        if old not in src:
+            raise RuntimeError(f"exp_flash_sched: the source has no {old.strip()[:60]!r}: "
+                               "update this harness")
+        src = src.replace(old, new, 1)
+    return src
+
+
+def _profiled(src: str, edits) -> str:
+    return _edit(src.replace("namespace {\n", PROF_DECL, 1), [*edits, ('extern "C" {\n', PROF_READ)])
+
+
+# ---------------------------------------------------------------------------
+# the previous phased kernel: S of G heads in shared memory, then the
+# softmaxes, then P.V, mma.sync from cp.async copies
+# ---------------------------------------------------------------------------
+PREV_PHASED_MARK = "phased_bf16_kernel(const __nv_bfloat16* __restrict__ qkv"
+PP_K = "  copy_heads<G>(KV, base, rs, N, NPAD, D, h0, 1);\n  cp_async_wait<0>();\n  __syncthreads();\n"
+PP_B1 = "  __syncthreads();  // every warp is done with K\n"
+PP_B2 = "  cp_async_wait<0>();\n  __syncthreads();  // V has landed, for every thread\n"
+PP_END = "  }\n}\n\ntemplate <int G>\ncudaError_t launch"
+PREV_PHASED_SECTIONS = ("K copy and wait", "phase 1 (S)", "barrier after phase 1",
+                        "phase 2 (softmax, V copies issued)", "V wait and barrier",
+                        "phase 3 (P.V, store)")
+
+
+def _prev_phased_sections(src: str) -> str:
+    return _profiled(src, [
+        (PP_K, "  const long long p0 = clock64();\n" + PP_K + "  const long long p1 = clock64();\n"),
+        (PP_B1, "  const long long p2 = clock64();\n" + PP_B1 + "  const long long p3 = clock64();\n"),
+        (PP_B2, "  const long long p4 = clock64();\n" + PP_B2 + "  const long long p5 = clock64();\n"),
+        (PP_END, "  }\n" + _atomics(["p1 - p0", "p2 - p1", "p3 - p2", "p4 - p3", "p5 - p4",
+                                     "clock64() - p5"])
+         + "}\n\ntemplate <int G>\ncudaError_t launch"),
+    ])
+
+
+# ---------------------------------------------------------------------------
+# the previous batched kernel: 4 warps walk every head, cp.async double
+# buffer, the context through a [64, D] tile
+# ---------------------------------------------------------------------------
+PREV_BATCHED_MARK = "attend_heads_to_ctx<KT, 1, STAGES>"
+PB_LOOP = "  issue(0);\n  for (int i = 0; i < groups; ++i) {\n"
+PB_ISSUE = "      issue(i + 1);\n"
+PB_LANDED = "    __syncthreads();  // group i's K and V have landed, for every thread\n"
+PB_ATTEND = ("      attend_rows_bf16<KT, true>(o, base + h * HD, rs, Ks, Ks + NPAD * KS, mrow, N, "
+             "q0 + mt * 16,\n                                 scale, g, t);\n")
+PB_FREE = "    __syncthreads();  // this stage's buffers are no longer read\n"
+PB_FN_END = "  }\n}\n\n// shared memory of a launch"
+PB_CALL = "  attend_heads_to_ctx<KT, 1, STAGES>(ctx, kv, base, rs, mrow, N, H, q0, rows, scale);\n"
+PB_KERNEL_END = "        *reinterpret_cast<const uint4*>(ctx + r * CS + c);\n  }\n}\n"
+PB_TILE_STORE = """      __nv_bfloat16* c0 = ctx + (mt * 16 + g) * CS + h * HD + t * 2;
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt) {
+        *reinterpret_cast<__nv_bfloat162*>(c0 + dt * 8) = __floats2bfloat162_rn(o[dt][0], o[dt][1]);
+        *reinterpret_cast<__nv_bfloat162*>(c0 + 8 * CS + dt * 8) =
+            __floats2bfloat162_rn(o[dt][2], o[dt][3]);
+      }
+"""
+PREV_BATCHED_SECTIONS = ("issuing copies", "copy waits and barrier", "attend_rows_bf16",
+                         "context into the tile", "barrier after a head", "context store")
+
+
+def _tick(acc: str) -> str:
+    return f"    c1_ = clock64();\n    {acc} += c1_ - c0_;\n    c0_ = c1_;\n"
+
+
+def _prev_batched_sections(src: str) -> str:
+    return _profiled(src, [
+        (PB_LOOP, "  long long t_issue = 0, t_wait = 0, t_attend = 0, t_tile = 0, t_bar = 0;\n"
+         "  long long c0_ = clock64(), c1_;\n  issue(0);\n" + _tick("t_issue")
+         + "  for (int i = 0; i < groups; ++i) {\n"),
+        (PB_ISSUE, PB_ISSUE + _tick("t_issue")),
+        (PB_LANDED, PB_LANDED + _tick("t_wait")),
+        (PB_ATTEND, PB_ATTEND + _tick("t_attend")),
+        (PB_FREE, _tick("t_tile") + PB_FREE + _tick("t_bar")),
+        (PB_FN_END, "  }\n" + _atomics(["t_issue", "t_wait", "t_attend", "t_tile", "t_bar"])
+         + "}\n\n// shared memory of a launch"),
+        (PB_CALL, PB_CALL + "  const long long k1_ = clock64();\n"),
+        (PB_KERNEL_END, PB_KERNEL_END[:-2] + _atomics(["clock64() - k1_"], first=5) + "}\n"),
+    ])
+
+
+def _prev_batched_no_tile(src: str, stages: int = 2) -> str:
+    i = src.index("  __nv_bfloat16* orow = out")
+    j = src.index(PB_KERNEL_END, i)
+    src = src[:i] + "}\n" + src[j + len(PB_KERNEL_END):]
+    return _edit(src, [
+        (PB_TILE_STORE, "      store_rows(ctx + h * HD, D, o, mt * 16, rows, g, t);\n"),
+        ("  unsigned char* kv = smem_raw + ctx_tile_bytes(D);\n", "  unsigned char* kv = smem_raw;\n"),
+        (PB_CALL, PB_CALL.replace("(ctx, kv,", "(out + ((long)b * N + q0) * D, kv,")),
+        ("  return ctx_tile_bytes(H * HD) + STAGES * kv_rows_bytes(npad);",
+         "  return STAGES * kv_rows_bytes(npad);"),
+        ("constexpr int STAGES = 2;", f"constexpr int STAGES = {stages};"),
+        ("__launch_bounds__(THREADS, 1)", f"__launch_bounds__(THREADS, {3 if stages == 1 else 1})"),
+    ])
+
+
+# ---------------------------------------------------------------------------
+# the committed kernels: warpgroups on the wgmma core of wgmma_attention.cuh,
+# which a variant inlines so that it can edit it
+# ---------------------------------------------------------------------------
+CORE = CSRC / "wgmma_attention.cuh"
+CORE_MARK = '#include "wgmma_attention.cuh"\n'
+C_LOOP = "  for (int it = 0; it < L.items; ++it) {\n"
+C_WAIT_QK = "    for (int k = 0; k <= nblk; ++k) wait_box(L, m0 + k);\n"
+C_TURN = "    turns.acquire();\n"
+C_ISSUED = "    wgmma_commit();\n    turns.release();\n"
+C_S_FREE = "    refill(m0 + 1 + nblk);\n"
+C_P_DONE = "    for (int kc = 0; kc < KT; ++kc) fence_operand(p[kc]);\n"
+C_WAIT_V = "    for (int k = 1 + nblk; k < per; ++k) wait_box(L, m0 + k);\n"
+C_V_FREE = "    refill(m0 + per);\n"
+C_END = "            __floats2bfloat162_rn(o[4 * i + 2], o[4 * i + 3]);\n    }\n  }\n}\n"
+SECTIONS = ("waits for q and K", "turn for S", "S issued", "S done, its boxes refilled",
+            "softmax and P packed", "waits for V", "turn for P.V", "P.V issued",
+            "P.V done, its boxes refilled", "context stores",
+            "of which the first item's")
+
+
+def _inline_core(src: str, prefix: str = "") -> str:
+    return _edit(src, [(CORE_MARK, prefix + CORE.read_text().replace("#pragma once\n", "", 1))])
+
+
+def _sections(src: str) -> str:
+    """clock64 ticks of thread 0 (warpgroup 0) through each item of the core"""
+    acc = [f"t{i}" for i in range(len(SECTIONS))]
+    src = _inline_core(src, PROF_DECL.split("namespace")[0])
+    i = src.index(C_LOOP)
+    head, body = src[:i], src[i:]
+    ticks = [C_WAIT_QK, C_TURN, C_ISSUED, C_S_FREE, C_P_DONE, C_WAIT_V, C_TURN, C_ISSUED, C_V_FREE]
+    out, rest = "", body
+    for k, anchor in enumerate(ticks):  # in order: each anchor's next occurrence
+        j = rest.index(anchor) + len(anchor)
+        tick = _tick(acc[k])
+        if k == 0:  # the first item's wait is also counted on its own
+            tick += f"    if (it == 0) {acc[-1]} += c1_ - c0_prev_;\n"
+            tick = "    const long long c0_prev_ = c0_;\n" + tick
+        out, rest = out + rest[:j] + tick, rest[j:]
+    body = _edit(out + rest, [
+        (C_LOOP, "  long long " + ", ".join(f"{a} = 0" for a in acc)
+         + ";\n  long long c0_ = clock64(), c1_;\n" + C_LOOP),
+        (C_END, C_END[:-8] + "    }\n" + _tick(acc[9]) + "  }\n"
+         + _atomics(acc, who="threadIdx.x == 0") + "}\n"),
+    ])
+    return _edit(head + body, [('extern "C" {\n', PROF_READ)])
+
+
+C_LOADS = ("    tma_load_3d(dst, L.map, bar, h * HD, L.q0, L.b);\n",
+           "    tma_load_3d(dst, L.map, bar, L.D + h * HD, (k - 1) * 64, L.b);\n",
+           "    tma_load_3d(dst, L.map, bar, 2 * L.D + h * HD, (k - 1 - nblk) * 64, L.b);\n")
+C_SOFTMAX_START = "    if (warp_live) {\n"
+C_SOFTMAX_END = "    } else {\n"
+C_NO_SOFTMAX = """    if (warp_live) {
+#pragma unroll
+      for (int i = 0; i < 2 * KT; ++i) {
+        p[i / 2][2 * (i % 2)] = pack_bf16x2(s[4 * i], s[4 * i + 1]);
+        p[i / 2][2 * (i % 2) + 1] = pack_bf16x2(s[4 * i + 2], s[4 * i + 3]);
+      }
+"""
+
+
+C_S_BLOCK = "    s_block<KT, {j}>(s, qd, desc_sw128(k_box({j})));\n"
+C_PV_MMA = ("    for (int kc = 0; kc < KT; ++kc)\n      WgmmaRS<64, 1>::mma(o, p[kc], "
+            "desc_add(desc_sw128_mn(v_box(kc / 4)), (kc % 4) * 2048),\n                          "
+            "kc > 0);\n")
+
+
+def _early_issue(src: str) -> str:
+    """each product issued as soon as its own boxes have landed: q and K's
+    first block before S, then each K block before its S block; each V
+    block before its k16 steps of P.V (the same function)"""
+    src = _inline_core(src)
+    edits = [(C_WAIT_QK, "    for (int k = 0; k <= 1; ++k) wait_box(L, m0 + k);\n"),
+             (C_WAIT_V, "")]
+    edits += [(C_S_BLOCK.format(j=j), f"    if ({j} < nblk) wait_box(L, m0 + 1 + {j});\n"
+               + C_S_BLOCK.format(j=j)) for j in (1, 2, 3)]
+    body = C_PV_MMA.split("\n", 1)[1]
+    edits.append((C_PV_MMA, "    for (int kc = 0; kc < KT; ++kc) {\n      if (kc % 4 == 0 && kc / 4 < nblk) "
+                  "wait_box(L, m0 + 1 + nblk + kc / 4);\n" + body + "    }\n"))
+    return _edit(src, edits)
+
+
+def _l2_only(src: str) -> str:
+    """every load from batch element 0: the same boxes for every CTA, so
+    they come from L2 (not the same function)"""
+    src = _inline_core(src)
+    return _edit(src, [(c, c.replace(", L.b);", ", 0);")) for c in C_LOADS])
+
+
+def _no_softmax(src: str) -> str:
+    """P = S rounded, no softmax (not the same function)"""
+    src = _inline_core(src)
+    i = src.index(C_SOFTMAX_START)
+    j = src.index(C_SOFTMAX_END, i)
+    return src[:i] + C_NO_SOFTMAX + src[j:]
+
+
+C_EXPECT = "  mbar_arrive_expect_tx(bar, BOX);\n"
+
+
+def _kv_once(src: str) -> str:
+    """K and V loaded only by the CTAs of the first query tile; the others
+    attend over whatever their slots hold: the loads that sharing K and V
+    between the query tiles of a head would save (not the same function)"""
+    src = _inline_core(src)
+    return _edit(src, [(C_EXPECT, "  if (k != 0 && L.q0 > 0) {\n    mbar_arrive(bar);\n"
+                                  "    return;\n  }\n" + C_EXPECT)])
+
+
+# variants that do not compute the function, so their output is not checked
+OTHER_FUNCTION = ("l2_only", "no_softmax", "kv_once")
+NEW_VARIANTS = {"kernel": lambda s: s, "sections": _sections, "early_issue": _early_issue,
+                "l2_only": _l2_only, "no_softmax": _no_softmax, "kv_once": _kv_once}
+
+KINDS = {
+    "prev_phased": (PREV_PHASED_MARK, {"kernel": lambda s: s, "sections": _prev_phased_sections},
+                    PREV_PHASED_SECTIONS),
+    "prev_batched": (PREV_BATCHED_MARK, {
+        "kernel": lambda s: s, "sections": _prev_batched_sections,
+        "no_tile": _prev_batched_no_tile,
+        "no_tile_1stage": lambda s: _prev_batched_no_tile(s, stages=1)}, PREV_BATCHED_SECTIONS),
+    "phased": ("phased_bf16_kernel<W, KT>", NEW_VARIANTS, SECTIONS),
+    "batched": ("batched_bf16_kernel<KT>", NEW_VARIANTS, SECTIONS),
+}
+
+
+def warpgroups(G: int) -> int:
+    """the phased kernel's consumer warpgroups for G heads a CTA"""
+    return G if G <= 3 else 3 if G % 3 == 0 else 2
+
+
+def kind_of(src: str) -> str:
+    for kind, (mark, _, _) in KINDS.items():
+        if mark in src:
+            return kind
+    raise RuntimeError("exp_flash_sched: not a source this harness knows")
+
+
+def variants_of(src: str) -> tuple:
+    """(kind, {name: edited source}, section names)"""
+    kind = kind_of(src)
+    _, table, sections = KINDS[kind]
+    return kind, {name: edit(src) for name, edit in table.items()}, sections
+
+
+def build(sources: dict) -> dict:
+    """One nvcc per variant, all together → {name: (its CDLL, nvcc's log)}."""
+    out = build_dir() / "exp_flash_sched"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in sources.items():
+        (out / f"{name}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out / f"{name}.so"),
+             str(out / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the {name} variant:\n{log}")
+        libs[name] = (ctypes.CDLL(str(out / f"{name}.so")), log)
+    return libs
+
+
+class Variant:
+    """One built variant of a schedule's source and its entry point."""
+
+    def __init__(self, schedule: str, lib: ctypes.CDLL):
+        self.schedule, self.lib = schedule, lib
+        if schedule == "phased":
+            self.fn = lib.clibd_flash_attention_qkv_phased
+            self.fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            lib.clibd_flash_phased_smem_bytes.argtypes = [ctypes.c_int] * 3
+            lib.clibd_flash_phased_smem_bytes.restype = ctypes.c_long
+        else:
+            self.fn = lib.clibd_flash_attention_qkv_batched
+            self.fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+    def group(self, N: int, limit: int) -> int:
+        """the phased kernel's largest head group that fits `limit`"""
+        for G in range(H, 0, -1):
+            if 0 < self.lib.clibd_flash_phased_smem_bytes(N, H, G) <= limit:
+                return G
+        raise RuntimeError(f"no head group fits N={N}")
+
+    def __call__(self, qkv, mask, out, G: int = 0) -> None:
+        args = [qkv.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
+                qkv.shape[0], qkv.shape[1], H]
+        rc = self.fn(*args, *([G] if self.schedule == "phased" else []),
+                     torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"launch failed: CUDA error {rc}")
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phased", type=Path, default=SOURCES["phased"])
+    parser.add_argument("--batched", type=Path, default=SOURCES["batched"])
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("exp_flash_sched needs a CUDA card")
+    card = card_line()
+    print(card, flush=True)
+    sections, sources = {}, {}
+    for schedule, path in (("phased", args.phased), ("batched", args.batched)):
+        kind, variants, names = variants_of(path.read_text())
+        sections[schedule] = (kind, names)
+        sources.update({f"{schedule}_{n}": text for n, text in variants.items()})
+    libs = build(sources)
+    for name, (_, log) in libs.items():
+        lines = log.splitlines()
+        for line in lines:
+            if "registers" in line or "spill" in line or "C7510" in line:
+                print(f"  ptxas {name}: {line.strip()}", flush=True)
+        injected = sum("C7519" in line for line in lines)
+        if injected:
+            print(f"  ptxas {name}: {injected} warpgroup.arrive injected (C7519)", flush=True)
+    dev = torch.device("cuda")
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    variants = {name: Variant(name.split("_", 1)[0], lib) for name, (lib, _) in libs.items()}
+    g = torch.Generator(device=dev).manual_seed(0)
+    for N, masked in SHAPES:
+        qkv = torch.randn(B, N, 3 * H * 64, generator=g, device=dev).to(torch.bfloat16)
+        mask = None
+        if masked:
+            keep = torch.rand(B, N, generator=g, device=dev) > 0.3
+            keep[:, 0] = True
+            mask = (~keep).float() * torch.finfo(torch.float32).min
+        out = torch.empty(B, N, H * 64, device=dev, dtype=torch.bfloat16)
+        want = flash_attention_qkv_reference(qkv[:8], H, None if mask is None else mask[:8]).float()
+        groups = {n: (v.group(N, limit) if v.schedule == "phased" else 0)
+                  for n, v in variants.items()}
+        runs = {}
+        for n, v in variants.items():
+            if n.endswith("_sections"):
+                continue
+            out.zero_()
+            v(qkv, mask, out, groups[n])
+            torch.cuda.synchronize()
+            if not n.endswith(OTHER_FUNCTION):
+                err = float((out[:8].float() - want).abs().max())
+                print(f"N={N} mask={masked} {n} (G={groups[n]}): max|variant - plain| on 8 rows "
+                      f"{err:.3e}", flush=True)
+            runs[n] = lambda v=v, G=groups[n]: v(qkv, mask, out, G)
+            if n == "phased_kernel" and not sections["phased"][0].startswith("prev_"):
+                for G in PHASED_GROUPS:  # the committed kernel takes every group
+                    runs[f"{n} G={G}"] = lambda v=v, G=G: v(qkv, mask, out, G)
+        runs["v0 (forward kernel)"] = lambda: flash_attention_qkv_cuda(qkv, H, mask)
+        runs["sdpa"] = lambda: sdpa(qkv, H, mask)
+        times = {n: [] for n in runs}
+        for n in list(runs) + list(runs)[::-1]:
+            times[n].append(cuda_ms(runs[n]))
+        print(f"B={B} H={H} N={N} mask={masked}, ms  [{card}]", flush=True)
+        for n, ts in times.items():
+            print(f"  {n:28s} {', '.join(f'{t:.4f}' for t in ts)}", flush=True)
+        for schedule, (kind, names) in sections.items():
+            v = variants[f"{schedule}_sections"]
+            prof = (ctypes.c_ulonglong * 16)()
+            v.lib.clibd_prof.argtypes = [ctypes.c_void_p]
+            v.lib.clibd_prof(ctypes.addressof(prof))
+            v(qkv, mask, out, groups[f"{schedule}_sections"])
+            torch.cuda.synchronize()
+            v.lib.clibd_prof(ctypes.addressof(prof))
+            G = groups[f"{schedule}_sections"] or H
+            ctas = B * -(-N // 64) * (H // G if schedule == "phased" else 1)
+            per = "a CTA"
+            if not kind.startswith("prev_"):  # warpgroup 0's items: its heads
+                ctas *= -(-G // warpgroups(G)) if schedule == "phased" else -(-H // 3)
+                per = "an item of warpgroup 0"
+            print(f"  clock64 sections of {kind} (G={G}), thread 0, cycles {per}: " + ", ".join(
+                f"{s} {prof[i] / ctas:.0f}" for i, s in enumerate(names)), flush=True)
+        del qkv, mask, out
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

@@ -43,9 +43,11 @@ FWD_TOL = 2e-2
 BWD_REL_TOL = 2e-2
 DTYPES = {"bf16": (jnp.bfloat16, torch.bfloat16), "fp32": (jnp.float32, torch.float32)}
 # (dtype, heads, N, masked, block_b): every dtype, H in {2, 4}, N in {20
-# masked, 37, 64} and block_b in {1, 2} at least once
+# masked, 37, 64, 256 masked (the most keys the CUDA kernels take)} and
+# block_b in {1, 2} at least once; masked cases have batch row 0 fully masked
 CASES = [("bf16", 2, 20, True, 2), ("fp32", 4, 20, True, 1), ("bf16", 4, 37, False, 1),
-         ("fp32", 2, 37, False, 2), ("bf16", 2, 64, False, 1), ("fp32", 4, 64, True, 2)]
+         ("fp32", 2, 37, False, 2), ("bf16", 2, 64, False, 1), ("fp32", 4, 64, True, 2),
+         ("bf16", 2, 256, True, 1)]
 
 
 @pytest.fixture(scope="module")

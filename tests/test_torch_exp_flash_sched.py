@@ -1,0 +1,41 @@
+"""`tools/exp_flash_sched` builds scratch variants of the phased and batched
+forward kernels by editing their sources (and inlining the wgmma attention
+core they share); on the CPU, hold each edit to the committed sources, so
+that a change to a kernel that moves one of its seams fails here and not on
+the card."""
+
+import pytest
+
+from clibd_tpu_torch.tools.exp_flash_sched import (
+    NEW_VARIANTS,
+    SECTIONS,
+    SOURCES,
+    variants_of,
+    warpgroups,
+)
+
+
+@pytest.mark.parametrize("schedule", sorted(SOURCES))
+def test_every_variant_edits_the_committed_kernel(schedule):
+    src = SOURCES[schedule].read_text()
+    kind, variants, sections = variants_of(src)
+    assert kind == schedule and set(variants) == set(NEW_VARIANTS) and sections == SECTIONS
+    assert variants["kernel"] == src
+    # every other variant inlines the core, so that it can edit it
+    for name in ("sections", "early_issue", "l2_only", "no_softmax", "kv_once"):
+        assert '#include "wgmma_attention.cuh"' not in variants[name]
+        assert "attend_items" in variants[name]
+    # a tick after each of the ten sections, and the start
+    assert variants["sections"].count("clock64()") == 11 == len(SECTIONS)
+    assert "clibd_prof" in variants["sections"]
+    assert variants["l2_only"].count(", 0);\n") == 3
+    assert "fast_exp2" not in variants["no_softmax"].split("if (warp_live)")[1][:400]
+    assert "if (k != 0 && L.q0 > 0)" in variants["kv_once"]
+    assert variants["early_issue"].count("wait_box(L, m0 + 1 + ") == 4
+
+
+def test_warpgroups_match_the_phased_kernel():
+    """the tool's copy of the kernel's rule: W divides G, at most three"""
+    src = SOURCES["phased"].read_text()
+    assert "return G <= 3 ? G : G % 3 == 0 ? 3 : 2;" in src
+    assert [warpgroups(G) for G in (1, 2, 3, 4, 6, 8, 12)] == [1, 2, 3, 2, 3, 2, 3]

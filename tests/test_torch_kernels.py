@@ -603,38 +603,62 @@ def test_probe_kernels_have_no_fallback(cuda_device, monkeypatch):
 
 
 EXP_FLASH_SHAPES = [(197, 12, False), (133, 12, True), (20, 8, True), (37, 2, True)]
+# the forward kernels' edges, at an odd batch of 3: one key; a whole 64-key
+# block and one key past it (a query tile with one live row); N = 256, the
+# most they take; a query tile one row short; H = 2 and 12, random V, and
+# batch row 0 fully masked where masked
+EXP_FLASH_EDGES = [(1, 2, False), (64, 12, True), (65, 2, True), (256, 12, True), (63, 12, False)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,H,masked", EXP_FLASH_SHAPES)
+@pytest.mark.parametrize("N,H,masked", EXP_FLASH_SHAPES + EXP_FLASH_EDGES)
 @pytest.mark.parametrize("variant", ["phased", "batched"])
 def test_exp_flash_forward_kernels_match_plain_version(cuda_device, variant, N, H, masked):
     op = {"phased": flash_attention_qkv_phased, "batched": flash_attention_qkv_batched}[variant]
-    qkv, mask = _inputs(4, N, H, masked, seed=N + 2)
+    B = 4 if (N, H, masked) in EXP_FLASH_SHAPES else 3
+    qkv, mask = _inputs(B, N, H, masked, seed=N + 2)
     t = torch.from_numpy(qkv).to(cuda_device, torch.bfloat16)
     m = None if mask is None else torch.from_numpy(mask).to(cuda_device)
     before = op.launches
     got = op(t, H, m)
     torch.cuda.synchronize()
     assert op.launches == before + 1
-    assert got.dtype == torch.bfloat16 and got.shape == (4, N, H * 64)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, N, H * 64)
     want = flash_attention_qkv_reference(t, H, m).float()
     assert float((got.float() - want).abs().max()) <= BF16_ATOL
+    if masked:  # the fully masked batch row is the mean of V
+        v = t[0, :, 2 * H * 64:].float().mean(0)
+        assert float((got[0].float() - v).abs().max()) <= BF16_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["phased", "batched"])
+def test_exp_flash_forward_kernels_are_deterministic(cuda_device, variant):
+    """Two launches on the same inputs give the same bits (no atomics, a
+    fixed order of products)."""
+    op = {"phased": flash_attention_qkv_phased, "batched": flash_attention_qkv_batched}[variant]
+    qkv, mask = _inputs(5, 197, 12, True, seed=9)
+    t = torch.from_numpy(qkv).to(cuda_device, torch.bfloat16)
+    m = torch.from_numpy(mask).to(cuda_device)
+    assert torch.equal(op(t, 12, m), op(t, 12, m))
 
 
 @pytest.mark.cuda
 def test_phased_forward_takes_every_group_that_fits(cuda_device):
-    """At N=20 every head group of 12 heads fits: each agrees with the plain
-    version; None picks the largest that fits (all 12 here)."""
-    qkv, mask = _inputs(3, 20, 12, True, seed=11)
-    t = torch.from_numpy(qkv).to(cuda_device, torch.bfloat16)
-    m = torch.from_numpy(mask).to(cuda_device)
-    want = flash_attention_qkv_reference(t, 12, m).float()
+    """At N=20 and N=197 every head group of 12 heads fits (the kernel keeps
+    one row of S in registers, not G tiles of it in shared memory): each
+    agrees with the plain version; None picks the largest that fits (all 12
+    here)."""
     limit = torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
-    for G in (1, 2, 3, 4, 6, 12, 0, None):
-        assert 0 < phased_smem_bytes(20, 12, G or 12) <= limit
-        got = flash_attention_qkv_phased(t, 12, m, G)
-        assert float((got.float() - want).abs().max()) <= BF16_ATOL, G
+    for N in (20, 197):
+        qkv, mask = _inputs(3, N, 12, True, seed=11)
+        t = torch.from_numpy(qkv).to(cuda_device, torch.bfloat16)
+        m = torch.from_numpy(mask).to(cuda_device)
+        want = flash_attention_qkv_reference(t, 12, m).float()
+        for G in (1, 2, 3, 4, 6, 12, 0, None):
+            assert 0 < phased_smem_bytes(N, 12, G or 12) <= limit
+            got = flash_attention_qkv_phased(t, 12, m, G)
+            assert float((got.float() - want).abs().max()) <= BF16_ATOL, (N, G)
 
 
 @pytest.mark.cuda
@@ -661,12 +685,15 @@ def test_exp_flash_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     before = [f.launches for f in counted]
     z197 = torch.zeros(2, 197, 3 * 768, device=cuda_device, dtype=torch.bfloat16)
     z256 = torch.zeros(1, 256, 3 * 768, device=cuda_device, dtype=torch.bfloat16)
+    z257 = torch.zeros(1, 257, 3 * 768, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="shared memory"):
-        flash_attention_qkv_phased(z197, 12, None, 3)  # 3 heads of S tiles at 208 keys
+        flash_attention_qkv_phased(z257, 12, None, 3)  # N past the 256 keys a row holds
     with pytest.raises(ValueError, match="divide"):
         flash_attention_qkv_phased(z197, 12, None, 5)
     with pytest.raises(ValueError, match="shared memory"):
-        flash_attention_qkv_batched(z256, 12)  # the context tile and two stages at 256 keys
+        flash_attention_qkv_phased(z197[..., :3 * 320].contiguous(), 5, None, 5)  # no G of 5
+    with pytest.raises(ValueError, match="shared memory"):
+        flash_attention_qkv_batched(z257, 12)  # N past the 256 keys a row holds
     with pytest.raises(ValueError, match="shared memory"):
         flash_attention_qkv_bwd_phased(z256, z256[..., :768], 12)  # N past 208
     for call in (lambda: flash_attention_qkv_phased(z197.float(), 12),
