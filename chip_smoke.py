@@ -9,7 +9,11 @@ Phases, each of which raises on failure:
    power limit as nvidia-smi reports them.
 2. build: compiles every CUDA kernel of the paths from `clibd_tpu_torch/csrc`
    into `build/kernels/` (one nvcc per source, all started together) and
-   prints each build's time and ptxas' register and spill lines.
+   prints each build's time and ptxas' register, spill and C75xx lines; the
+   three kernels on the wgmma attention core (phased, batched,
+   attention_bhnd) must keep every instance within 216 bytes of stack and
+   have no warpgroup.arrive injected (C7519), as before the core took its
+   layout policies.
 3. kernels, each against its plain PyTorch version at the four shapes of
    the paths (ViT N=197 H=12, BarcodeBERT N=133 H=12, BERT-small N=20 H=8
    and the overlap-tokenizer BarcodeBERT N=657 H=12, the last two with a
@@ -109,13 +113,17 @@ Phases, each of which raises on failure:
    - `scale_copy` on a seeded fp32 [8192, 2048] (and a 1027-element tail):
      bit-exact; GB/s against 3.35 TB/s; library `torch.mul(x, 2.0)` and
      `y.copy_(x)`;
-   - `tiled_matmul` (bf16 in, fp32 accumulator) at 1024^3 (the probe tile),
-     2048^3 (every tile, fp32 out) and 8192^3 (every tile, fp32 and bf16
-     out): max |kernel - plain| <= 1e-3 * max |plain| (fp32 out), 1e-2 *
-     max |plain| (bf16 out); TFLOP/s against 989 and cuBLAS bf16
-     `torch.matmul`; a shape off the tile raises and launches nothing;
-   - `attention_bhnd` (separate q, k, v) at B=256 N=197, B=64 N=133 and
-     B=64 N=20 (H=12): max |kernel - plain| <= 2e-2; SDPA on the same q/k/v.
+   - `tiled_matmul` (bf16 in, fp32 accumulator), every tile, fp32 and bf16
+     out, at 1024^3, 2048^3, 8192^3, M=4096 N=8192 K=2048 (a tile count no
+     multiple of the SMs') and K=64 (one slot): max |kernel - plain| <=
+     1e-3 * max |plain| (fp32 out), 1e-2 * max |plain| (bf16 out); two
+     launches bit-identical; TFLOP/s against 989 and cuBLAS bf16
+     `torch.matmul` at every shape; a shape off the tile raises and launches
+     nothing;
+   - `attention_bhnd` (separate q, k, v) first at its edges (N = 1, 63, 64,
+     65, 197 and 256; B = 1 and odd B; H = 1 and 12), then at B=256 N=197,
+     B=64 N=133 and B=64 N=20 (H=12): max |kernel - plain| <= 2e-2; two
+     launches bit-identical; SDPA on the same q/k/v.
    Then the probes path: the three harnesses as a user runs them
    (`clibd_tpu_torch.tools.exp_attn` all and extra, `exp_mxu`, `exp_mxu2`
    with every variant), each printing its own lines; each of the three
@@ -134,7 +142,8 @@ Phases, each of which raises on failure:
    - `flash_attention_qkv_bwd_phased`: max |kernel - plain| <= 2e-2 *
      max |plain| per part (dq, dk, dv), and the same against the backward
      kernel's output;
-   then kernel (with its TFLOP/s), the production kernel it reschedules
+   then kernel (with its TFLOP/s, and the two forwards' times recorded in
+   PERF.md before the core took its layout policies beside it), the production kernel it reschedules
    (`v0`), plain version, SDPA (forward or backward) and bound timed at
    B=256; shapes each wrapper refuses (N=257 for the forwards, a head group
    that does not divide H, fp32, N=250 for the backward) raise and launch
@@ -155,6 +164,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import sys
 import tempfile
 import time
@@ -218,8 +228,32 @@ EXP_FLASH_EDGES = ((3, 1, 2, False), (5, 64, 12, True), (3, 65, 2, True), (3, 25
                    (1, 63, 12, False), (7, 197, 2, True))
 EXP_FLASH_GROUPS = (1, 2, 3, 4, 6, 12)  # the phased kernel's head groups of H=12
 GEMM_REL_TOL = {"fp32": 1e-3, "bf16": 1e-2}  # max |kernel - plain| / max |plain|, by out dtype
+# (M, N, K) of the GEMM checks, every tile, fp32 and bf16 out: the three
+# harnesses' squares; a non-square shape whose tile count is no multiple of
+# the SMs' (4096 x 8192 is 1024 tiles of 128 x 256, 7.76 waves of 132); K of
+# one slot (64)
+GEMM_SHAPES = ((1024, 1024, 1024), (2048, 2048, 2048), (8192, 8192, 8192), (4096, 8192, 2048),
+               (2048, 2048, 64))
 # (B, N) at H=12 for attention_bhnd: the harness's shape, then two smaller ones
 BHND_SHAPES = ((256, 197), (64, 133), (64, 20))
+# (B, H, N) edges of attention_bhnd: one key; a query tile one row short, a
+# whole 64-key block and one key past it; the 256 keys a row holds; B = 1
+# and odd B, H = 1 and 12
+BHND_EDGES = ((1, 1, 1), (3, 12, 63), (1, 12, 64), (3, 1, 65), (5, 12, 256), (1, 1, 256),
+              (7, 12, 197))
+# the wgmma attention kernels' ptxas limits (their report before the core
+# took its layout policies, at three warpgroups a SM): stack bytes of any
+# instance; no warpgroup.arrive injected (C7519)
+WGMMA_ATTENTION_SOURCES = ("flash_attention_qkv_phased", "flash_attention_qkv_batched",
+                           "attention_bhnd")
+WGMMA_MAX_STACK = 216
+# the two forward schedules' times that PERF.md §6 records from before the
+# core took its layout policies (NVIDIA H100 80GB HBM3, 700 W), B=256 H=12,
+# ms: printed beside this run's
+RECORDED_MS = {("flash_attention_qkv_phased", 197): 0.2493,
+               ("flash_attention_qkv_phased", 133): 0.1455,
+               ("flash_attention_qkv_batched", 197): 0.2755,
+               ("flash_attention_qkv_batched", 133): 0.1816}
 
 
 def fail(msg: str) -> None:
@@ -1142,39 +1176,40 @@ def gemm_checks(card: str) -> dict:
 
     from clibd_tpu_torch.ops.gemm import (TILES, tiled_matmul, tiled_matmul_cuda,
                                           tiled_matmul_reference)
-    from clibd_tpu_torch.tools.exp_attn import PROBE_TILE
     from clibd_tpu_torch.utils.profiling import cuda_ms
 
     out_dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
     rows = []
-    for size, tiles, outs in ((1024, (PROBE_TILE,), ("fp32",)), (2048, tuple(TILES), ("fp32",)),
-                              (8192, tuple(TILES), ("fp32", "bf16"))):
-        rng = np.random.default_rng(size)
-        a, b = (torch.from_numpy(rng.standard_normal((size, size), dtype=np.float32))
-                .to("cuda", torch.bfloat16) for _ in range(2))
+    for M, N, K in GEMM_SHAPES:
+        rng = np.random.default_rng(M + N + K)
+        a, b = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to("cuda", torch.bfloat16)
+                for s in ((M, K), (K, N)))
+        shape = f"{M}^3" if M == N == K else f"M={M} N={N} K={K}"
         library_ms = cuda_ms(lambda: torch.matmul(a, b))
-        flops = 2 * size ** 3
-        for out in outs:
-            dtype = out_dtypes[out]
+        flops = 2 * M * N * K
+        for out, dtype in out_dtypes.items():
             want = tiled_matmul_reference(a, b, dtype).float()
             plain_ms = cuda_ms(lambda: tiled_matmul_reference(a, b, dtype), iters=5)
             tol = GEMM_REL_TOL[out] * float(want.abs().max())
-            nbytes = 2 * 2 * size * size + size * size * dtype.itemsize
+            nbytes = 2 * (M * K + K * N) + M * N * dtype.itemsize
             bound_ms, bound_by = bound(nbytes, flops)
-            for tile in tiles:
-                got = tiled_matmul_cuda(a, b, tile, dtype).float()
-                err = float((got - want).abs().max())
+            for tile in TILES:
+                got = tiled_matmul_cuda(a, b, tile, dtype)
+                err = float((got.float() - want).abs().max())
+                same = torch.equal(got, tiled_matmul_cuda(a, b, tile, dtype))
                 del got
-                if err > tol:
-                    fail(f"tiled_gemm {tile} {out} out at {size}^3: max|kernel-plain| {err} > {tol}")
+                if err > tol or not same:
+                    fail(f"tiled_gemm {tile} {out} out at {shape}: max|kernel-plain| {err} "
+                         f"(tol {tol}), two launches bit-identical: {same}")
                 ms = cuda_ms(lambda: tiled_matmul_cuda(a, b, tile, dtype))
-                print(f"kernel tiled_gemm {size}^3 {tile} {out} out: max|kernel-plain| {err:.3e} "
-                      f"(tol {tol:.3e}); kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
-                      f"{bound_ms / ms:.1%} of the bound), plain {plain_ms:.4f} ms, cuBLAS bf16 "
-                      f"{library_ms:.4f} ms ({flops / library_ms / 1e9:.1f} TFLOP/s), bound "
-                      f"{bound_ms:.4f} ms ({bound_by})  [{card}]")
-                rows.append({"shape": f"{size}^3 {tile} {out} out", "M": size, "tile": tile,
-                             "out": out, "ms": ms, "plain_ms": plain_ms,
+                print(f"kernel tiled_gemm {shape} {tile} {out} out: max|kernel-plain| {err:.3e} "
+                      f"(tol {tol:.3e}), twice bit-identical; kernel {ms:.4f} ms "
+                      f"({flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of the bound), plain "
+                      f"{plain_ms:.4f} ms, cuBLAS bf16 {library_ms:.4f} ms "
+                      f"({flops / library_ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
+                      f"({bound_by})  [{card}]")
+                rows.append({"shape": f"{shape} {tile} {out} out", "M": M, "N": N, "K": K,
+                             "tile": tile, "out": out, "ms": ms, "plain_ms": plain_ms,
                              "library_ms": library_ms, "bound_ms": bound_ms,
                              "bound_by": bound_by, "max_abs_err": err})
             del want
@@ -1187,16 +1222,19 @@ def gemm_checks(card: str) -> dict:
     before = tiled_matmul.launches
     for what, x, y in (("M=1000", a, b), ("K=1000", b[:, :1000], a)):
         try:
-            tiled_matmul_cuda(x.contiguous(), y.contiguous(), "t64x64x32")
+            tiled_matmul_cuda(x.contiguous(), y.contiguous(), "t64x64x64")
         except ValueError as e:
-            print(f"tiled_gemm refuses {what} off the 64x64x32 tile: {e}")
+            print(f"tiled_gemm refuses {what} off the 64x64x64 tile: {e}")
         else:
-            fail(f"tiled_gemm took {what}, off the 64x64x32 tile")
+            fail(f"tiled_gemm took {what}, off the 64x64x64 tile")
     if tiled_matmul.launches != before:
         fail("a refused tiled_gemm call launched the kernel")
     # headline: the fastest tile at 8192^3 with an fp32 out first
-    best = min((r for r in rows if r["M"] == 8192 and r["out"] == "fp32"), key=lambda r: r["ms"])
+    best = min((r for r in rows if r["M"] == r["N"] == r["K"] == 8192 and r["out"] == "fp32"),
+               key=lambda r: r["ms"])
     rows.remove(best)
+    print(f"tiled_gemm's fastest tile at 8192^3, fp32 out: {best['tile']} {best['ms']:.4f} ms, "
+          f"cuBLAS {best['library_ms']:.4f} ms  [{card}]")
     entry = kernel_entry("tiled_gemm", "clibd_tpu_torch/csrc/tiled_gemm.cu",
                          "tools/exp_attn.py:61, tools/exp_mxu.py:34, tools/exp_mxu2.py:39",
                          [best] + rows)
@@ -1210,16 +1248,31 @@ def attention_bhnd_checks(card: str) -> dict:
     from clibd_tpu_torch.ops.attention import attention_bhnd_cuda, attention_bhnd_reference
     from clibd_tpu_torch.utils.profiling import cuda_ms
 
+    def inputs(B, H, N):
+        g = torch.Generator(device="cuda").manual_seed(B + H + N)
+        return [torch.randn(B, H, N, 64, generator=g, device="cuda").to(torch.bfloat16)
+                for _ in range(3)]
+
+    def check(q, k, v, what):
+        got = attention_bhnd_cuda(q, k, v)
+        err = float((got.float() - attention_bhnd_reference(q, k, v).float()).abs().max())
+        if not torch.isfinite(got).all() or err > KERNEL_TOL:
+            fail(f"attention_bhnd disagrees with its plain version at {what}: {err}")
+        return got, err
+
+    edge_err = 0.0
+    for B, H, N in BHND_EDGES:
+        _, err = check(*inputs(B, H, N), f"edge B={B} H={H} N={N}")
+        print(f"kernel attention_bhnd edge B={B} H={H} N={N}: max|kernel-plain| {err:.3e} "
+              f"(tol {KERNEL_TOL})")
+        edge_err = max(edge_err, err)
     shapes = []
     H = 12
     for B, N in BHND_SHAPES:
-        g = torch.Generator(device="cuda").manual_seed(B + N)
-        q, k, v = (torch.randn(B, H, N, 64, generator=g, device="cuda").to(torch.bfloat16)
-                   for _ in range(3))
-        got = attention_bhnd_cuda(q, k, v).float()
-        err = float((got - attention_bhnd_reference(q, k, v).float()).abs().max())
-        if not torch.isfinite(got).all() or err > KERNEL_TOL:
-            fail(f"attention_bhnd disagrees with its plain version at B={B} N={N}: {err}")
+        q, k, v = inputs(B, H, N)
+        got, err = check(q, k, v, f"B={B} N={N}")
+        if not torch.equal(got, attention_bhnd_cuda(q, k, v)):
+            fail(f"two launches of attention_bhnd at B={B} N={N} differ")
         del got
         ms = cuda_ms(lambda: attention_bhnd_cuda(q, k, v))
         plain_ms = cuda_ms(lambda: attention_bhnd_reference(q, k, v))
@@ -1227,16 +1280,35 @@ def attention_bhnd_checks(card: str) -> dict:
         flops = 4 * B * H * N * N * 64
         bound_ms, bound_by = bound(4 * B * H * N * 64 * 2, flops)
         print(f"kernel attention_bhnd B={B} H={H} N={N}: max|kernel-plain| {err:.3e} (tol "
-              f"{KERNEL_TOL}); kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
-              f"{bound_ms / ms:.1%} of the bound), plain {plain_ms:.4f} ms, library (sdpa) "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
+              f"{KERNEL_TOL}), twice bit-identical; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+              f"TFLOP/s, {bound_ms / ms:.1%} of the bound), plain {plain_ms:.4f} ms, library "
+              f"(sdpa) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
         shapes.append({"shape": f"B={B} H={H} N={N}", "B": B, "N": N, "H": H, "ms": ms,
                        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "max_abs_err": err})
+                       "bound_by": bound_by, "max_abs_err": max(err, edge_err)})
         del q, k, v
     torch.cuda.empty_cache()
     return kernel_entry("attention_bhnd", "clibd_tpu_torch/csrc/attention_bhnd.cu",
                         "tools/exp_attn.py:129", shapes)
+
+
+def check_wgmma_ptxas(build_info: dict) -> None:
+    """The wgmma attention kernels' ptxas report no worse than before the
+    core took its layout policies: no instance with more than
+    WGMMA_MAX_STACK bytes of stack, and no warpgroup.arrive injected before
+    a product (C7519)."""
+    for name in WGMMA_ATTENTION_SOURCES:
+        log = build_info[name]["log"]
+        if not log:
+            print(f"ptxas {name}.cu: loaded from an earlier build, no report to check")
+            continue
+        stack = max(int(m) for m in re.findall(r"(\d+) bytes stack frame", log))
+        regs = max(int(m) for m in re.findall(r"Used (\d+) registers", log))
+        injected = log.count("C7519")
+        print(f"ptxas {name}.cu: at most {regs} registers and {stack} bytes of stack an instance, "
+              f"{injected} C7519 warnings (limits: {WGMMA_MAX_STACK} bytes, none)")
+        if stack > WGMMA_MAX_STACK or injected:
+            fail(f"ptxas' report of {name}.cu is worse than its recorded limits")
 
 
 def probe_kernels_phase(card: str) -> dict:
@@ -1376,7 +1448,9 @@ def exp_flash_kernels_phase(card: str) -> dict:
         for name, kernel, plain_fn, library, (bound_ms, bound_by), lib_name, v0_ms in timed:
             ms, plain_ms, library_ms = cuda_ms(kernel), cuda_ms(plain_fn), cuda_ms(library)
             flops = (10 if "bwd" in name else 4) * B * H * N * N * 64
-            print(f"time {name} B={B} N={N} mask={masked}: kernel {ms:.4f} ms "
+            recorded = RECORDED_MS.get((name, N))
+            recorded = f" (recorded in PERF.md: {recorded} ms)" if recorded else ""
+            print(f"time {name} B={B} N={N} mask={masked}: kernel {ms:.4f} ms{recorded} "
                   f"({flops / ms / 1e9:.1f} TFLOP/s), v0 {v0_ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, library ({lib_name}) {library_ms:.4f} ms, bound "
                   f"{bound_ms:.4f} ms ({bound_by})  [{card}]")
@@ -1466,8 +1540,9 @@ def main() -> int:
     for name, info in BUILD_INFO.items():
         print(f"build {name}.cu: nvcc {info['seconds']:.2f} s -> {info['path']}")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "C75")):
                 print("  ptxas:", line.strip())
+    check_wgmma_ptxas(BUILD_INFO)
 
     fwd = forward_kernel_phase(card)
     bwd = backward_kernel_phase(card)

@@ -1,4 +1,6 @@
-// Attention from separate q, k, v [B, H, N, 64] bf16, for Hopper (sm_90a).
+// Attention from separate q, k, v [B, H, N, 64] bf16, for Hopper (sm_90a),
+// on the wgmma attention core of the experiment kernels
+// (wgmma_attention.cuh).
 //
 // Replaces the TPU kernel tools/exp_attn.py::make_pallas_attn's `kern`
 // (grid B/bb, a [bb, H, Np, hd] block of each of q, k, v in VMEM, the heads
@@ -7,101 +9,95 @@
 // softmax, P rounded to bf16 after the normalisation, P.V accumulated in
 // fp32, the output cast to q's dtype.  The TPU script pads N to a multiple
 // of 128 in device memory and sets the pad keys' scores to -1e30; their
-// weights underflow to exactly 0, so they add nothing to the result and the
-// kernel never pads in device memory: it masks the keys past N itself.
+// weights underflow to exactly 0.  Here nothing is padded in device memory:
+// TMA reads a head's rows past N as zeros and the core gives the keys past
+// N a score of -inf, so their weight is exactly 0 too.  N <= 256 (MAX_N).
 //
 // What bounds it on an H100: 4*B*H*N^2*hd operations against q, k, v read
 // and o written once (8*B*H*N*hd bytes in bf16), N/2 operations per byte:
 // at B=256, H=12, N=197 that is 30.5 GFLOP (0.031 ms at 989 TFLOP/s)
-// against 309.9 MB (0.093 ms at 3.35 TB/s), so device memory bounds it, as
-// it does the fused-qkv kernel (csrc/flash_attention_qkv.cu).
+// against 309.9 MB (0.0925 ms at 3.35 TB/s), so device memory bounds it.
+// On the card neither bound is reached: as for the phased and batched
+// kernels on the same core, the chain of each item (loads, S, softmax, P.V)
+// at three warpgroups a SM holds it (PERF.md §6).
 //
-// Design: the fused-qkv forward kernel's, with the head-split layout's
-// strides.  One CTA per (batch, head), 4 warps; K and V^T of the head
-// staged in shared memory as bf16 (zero past N); each warp takes 16 query
-// rows at a time through clibd::attend_rows_bf16 (flash_common.cuh), which
-// keeps the whole 16 x Npad score block in registers, and writes its rows of
-// o.  q, k, v and o are contiguous [N, 64] slabs per (batch, head), so every
-// row stride is hd = 64 and every load is a 16-byte vector.  Left on the
-// table: as for the fused-qkv kernel (wgmma and TMA, a prefetch of the next
-// head, several heads per CTA).
+// Design: the batched kernel's (flash_attention_qkv_batched.cu) with the
+// head-split layout (HeadSplit).  q, k and v are viewed as [B*H, N, 64],
+// one 3-D TMA map each, boxes [1, 64, 64] with the 128-byte swizzle, so a
+// box never reaches into the next head's rows.  One CTA per (group of
+// consecutive (batch, head) slabs, 64 query rows; slabs_for picks the group
+// per launch) runs three consumer warpgroups; warpgroup w walks slabs w,
+// w+3, ... of its group, each slab
+// one item of the core: q and the slab's K and V by TMA into the
+// warpgroup's own ring, S on wgmma, the softmax in registers in base 2, P.V
+// on wgmma with P from registers, the rows below N stored from registers.
+// The next item's q and K load under this item's softmax.  With no mask the
+// key row (0 below N, -inf past it) is the same for every slab, so a group
+// need not be one batch element; at H = 12 it is.  One CTA a SM by shared
+// memory (three 72 KB rings).
+//
+// Left on the table: see wgmma_attention.cuh (one item in flight a
+// warpgroup; the 5 live rows of the last query tile at N=197 cost a whole
+// tile); and the query tiles of a slab each load its K and V.
 
-#include "flash_common.cuh"
+#include "wgmma_attention.cuh"
 
 namespace {
 
 using namespace clibd;
+using namespace clibd::wgattn;
 
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
+constexpr int W = 3;  // consumer warpgroups
 
-template <int KT>
-__global__ void __launch_bounds__(THREADS)
-attention_bhnd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int N,
-                      float scale) {
-  constexpr int NPAD = KT * 16;
-  constexpr int KS = HD + 8;    // K row stride in bf16: conflict-free fragment loads
-  constexpr int VS = NPAD + 8;  // V^T row stride in bf16: likewise
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vt = Ks + NPAD * KS;
-
-  const long slab = (long)blockIdx.x * N * HD;  // this (batch, head)'s [N, HD]
-  const __nv_bfloat16* qg = q + slab;
-  const __nv_bfloat16* kg = k + slab;
-  const __nv_bfloat16* vg = v + slab;
-
-  // stage K and V^T; keys N..NPAD-1 are zero (their scores are masked to
-  // -inf, and a zero V row keeps 0 * garbage out of the P.V sums)
-  for (int idx = threadIdx.x; idx < NPAD * (HD / 8); idx += THREADS) {
-    const int r = idx / (HD / 8);
-    const int c = (idx % (HD / 8)) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (r < N) {
-      kv = *reinterpret_cast<const uint4*>(kg + r * HD + c);
-      vv = *reinterpret_cast<const uint4*>(vg + r * HD + c);
-    }
-    *reinterpret_cast<uint4*>(Ks + r * KS + c) = kv;
-    const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) Vt[(c + i) * VS + r] = ve[i];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int m_tiles = (N + 15) / 16;
-
-  for (int mt = warp; mt < m_tiles; mt += WARPS) {
-    float o[HD / 8][4];
-    attend_rows_bf16<KT>(o, qg, HD, Ks, Vt, nullptr, N, mt * 16, scale, g, t);
-    const int r0 = mt * 16 + g;
-    const int r1 = r0 + 8;
-    __nv_bfloat16* orow0 = out + slab + (long)r0 * HD + t * 2;
-    __nv_bfloat16* orow1 = orow0 + 8 * HD;
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      if (r0 < N)
-        *reinterpret_cast<__nv_bfloat162*>(orow0 + dt * 8) = __floats2bfloat162_rn(o[dt][0], o[dt][1]);
-      if (r1 < N)
-        *reinterpret_cast<__nv_bfloat162*>(orow1 + dt * 8) = __floats2bfloat162_rn(o[dt][2], o[dt][3]);
+// (batch, head) slabs a CTA walks: of 3, 6, 12 and 24, the largest whose
+// grid takes the fewest rounds of items, ceil(CTAs / SMs) waves of slabs / 3
+// items a warpgroup.  More items a warpgroup overlap more loads with
+// softmaxes; more CTAs fill the SMs at a small B*H (on the card: 24 at
+// B=256 H=12 N=197, 6 at B=64 H=12 N=133 and N=20, PERF.md §6).
+int slabs_for(int BH, int qtiles, int sms) {
+  int best = 0;
+  long best_rounds = 0;
+  for (const int slabs : {3, 6, 12, 24}) {
+    const long ctas = ((long)BH + slabs - 1) / slabs * qtiles;
+    const long rounds = (ctas + sms - 1) / sms * (slabs / W);
+    if (!best || rounds <= best_rounds) {
+      best = slabs;
+      best_rounds = rounds;
     }
   }
+  return best;
 }
 
 template <int KT>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int BH, int N,
-                   float scale, cudaStream_t stream) {
-  const size_t smem = (size_t)(KT * 16 * (HD + 8) + HD * (KT * 16 + 8)) * sizeof(__nv_bfloat16);
-  cudaError_t e = cudaFuncSetAttribute(attention_bhnd_kernel<KT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+__global__ void __launch_bounds__(W * 128, 1)
+attention_bhnd_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
+                      int BH, int N, int slabs, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm = smem_layout<W>(smem_raw);
+  const int qtiles = (N + QROWS - 1) / QROWS;
+  const int first = blockIdx.x / qtiles * slabs, q0 = (blockIdx.x % qtiles) * QROWS;
+  const int end = min(BH, first + slabs);
+  const int wg = threadIdx.x / 128;
+  setup(sm, nullptr, 0, N);
+  const int items = first + wg < end ? (end - 1 - first - wg) / W + 1 : 0;
+  const ItemLoop<HeadSplit> L{{&q_map, &k_map, &v_map, out, N}, sm.rings + wg * RING,
+                              sm.bars + wg * SLOTS, sm.key_row, q0, first + wg, W, items, scale};
+  NoTurns turns;
+  attend_items<KT>(L, turns);
+}
+
+template <int KT>
+cudaError_t launch(const CUtensorMap (&maps)[3], void* out, int BH, int N, int slabs, int grid,
+                   cudaStream_t stream) {
+  constexpr int smem = smem_bytes(W);
+  const cudaError_t e = cudaFuncSetAttribute(attention_bhnd_kernel<KT>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  attention_bhnd_kernel<KT><<<BH, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), N, scale);
+  attention_bhnd_kernel<KT><<<grid, W * 128, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), BH, N, slabs,
+      1.0f / sqrtf((float)HD));
   return cudaGetLastError();
 }
 
@@ -110,20 +106,35 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 extern "C" {
 
 // q, k, v, out: [B, H, N, 64] bf16 contiguous, 16-byte aligned; BH = B * H.
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// Launches on `stream` and returns the launch's error (0 = launched): shapes
+// it does not take, a tensor map that does not encode, too much shared
+// memory.
 int clibd_attention_bhnd(const void* q, const void* k, const void* v, void* out, int BH, int N,
                          void* stream) {
-  if (BH < 1 || N < 1 || N > MAX_N || ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
-                                       (uintptr_t)out) % 16)
+  if (BH < 1 || N < 1 || N > MAX_N) return (int)cudaErrorInvalidValue;
+  int max_smem = 0, dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int qtiles = (N + QROWS - 1) / QROWS;
+  const int slabs = slabs_for(BH, qtiles, sms > 0 ? sms : 1);
+  const long grid = ((long)BH + slabs - 1) / slabs * qtiles;
+  if (smem_bytes(W) > max_smem || grid > 0x7fffffffL ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
     return (int)cudaErrorInvalidValue;
-  const float scale = 1.0f / sqrtf((float)HD);
+  CUtensorMap maps[3];
+  const void* bases[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t e = encode_bf16_sw128(&maps[i], bases[i], N, HD, 64, BH);
+    if (e != cudaSuccess) return (int)e;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kt_instance(N)) {
-    case 2: return (int)launch<2>(q, k, v, out, BH, N, scale, s);
-    case 4: return (int)launch<4>(q, k, v, out, BH, N, scale, s);
-    case 9: return (int)launch<9>(q, k, v, out, BH, N, scale, s);
-    case 13: return (int)launch<13>(q, k, v, out, BH, N, scale, s);
-    default: return (int)launch<16>(q, k, v, out, BH, N, scale, s);
+    case 2: return (int)launch<2>(maps, out, BH, N, slabs, (int)grid, s);
+    case 4: return (int)launch<4>(maps, out, BH, N, slabs, (int)grid, s);
+    case 9: return (int)launch<9>(maps, out, BH, N, slabs, (int)grid, s);
+    case 13: return (int)launch<13>(maps, out, BH, N, slabs, (int)grid, s);
+    default: return (int)launch<16>(maps, out, BH, N, slabs, (int)grid, s);
   }
 }
 

@@ -53,8 +53,8 @@ batched_bf16_kernel(const __grid_constant__ CUtensorMap qkv_map, const float* __
   const int wg = threadIdx.x / 128;
   setup(sm, mask, b, N);
   const int heads = wg < H ? (H - 1 - wg) / W + 1 : 0;
-  const ItemLoop L{&qkv_map, sm.rings + wg * RING, sm.bars + wg * SLOTS, sm.key_row, out, b, q0,
-                   N, H * HD, wg, W, heads, scale};
+  const ItemLoop<FusedQkv> L{{&qkv_map, out, b, N, H * HD}, sm.rings + wg * RING,
+                             sm.bars + wg * SLOTS, sm.key_row, q0, wg, W, heads, scale};
   NoTurns turns;
   attend_items<KT>(L, turns);
 }

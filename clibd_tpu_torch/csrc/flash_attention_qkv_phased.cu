@@ -68,8 +68,8 @@ phased_bf16_kernel(const __grid_constant__ CUtensorMap qkv_map, const float* __r
   const int wg = threadIdx.x / 128;
   setup(sm, mask, b, N);
   const int heads = G / W;  // W divides G
-  const ItemLoop L{&qkv_map, sm.rings + wg * RING, sm.bars + wg * SLOTS, sm.key_row, out, b, q0,
-                   N, H * HD, h0 + wg, W, heads, scale};
+  const ItemLoop<FusedQkv> L{{&qkv_map, out, b, N, H * HD}, sm.rings + wg * RING,
+                             sm.bars + wg * SLOTS, sm.key_row, q0, h0 + wg, W, heads, scale};
   Turns turns{wg, W, 0, 2 * heads - 1};
   turns.begin();
   attend_items<KT>(L, turns);

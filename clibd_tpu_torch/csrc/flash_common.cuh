@@ -2,8 +2,8 @@
 // tensor-core product, fragment packing and loads, asynchronous copies to
 // shared memory, warp/quad reductions, and the key-tiled attention cores of
 // the forward and out-projection kernels (the latter reading K and V from
-// TMA's swizzled tiles).  Included by every csrc/*.cu;
-// ops/cuda_build.py hashes it with each source.
+// TMA's swizzled tiles).  Included by the attention kernels and
+// scale_copy.cu; ops/cuda_build.py hashes it with each source.
 
 #pragma once
 
@@ -207,7 +207,11 @@ __device__ __forceinline__ void load_rows_a(uint32_t (&a)[HD / 16][4], const __n
 // (row stride HD+8) and V^T (row stride 16*KT+8) are staged in shared
 // memory, zero past N.  The whole 16 x 16*KT score block stays in
 // registers, and the score accumulators of key tile kt are the A fragment
-// of P for the P.V product.
+// of P for the P.V product.  No kernel of the tree calls it now: the earlier
+// mma.sync versions of attention_bhnd.cu and of the batched forward did,
+// and tools/exp_flash_sched.py and tools/exp_probe_sched.py rebuild those
+// versions (from git) against these headers to time them beside the
+// current ones.
 template <int KT>
 __device__ __forceinline__ void attend_rows_bf16(float (&o)[HD / 8][4], const __nv_bfloat16* qg,
                                                  long rs, const __nv_bfloat16* Ks,

@@ -1,35 +1,42 @@
 // The wgmma attention core of the experiment kernels
-// flash_attention_qkv_phased.cu and flash_attention_qkv_batched.cu, for
-// Hopper (sm_90a): one consumer warpgroup attends 64 query rows of one head
-// over the whole row of keys (N <= MAX_N = 256), with the arithmetic of the
-// TPU variants tools/exp_flash.py::_phased_kernel and _batched_kernel (and
-// of flash_attention_qkv_reference): S = q.k^T / 8 in fp32 plus the [B, N]
-// key mask, the exact fp32 row softmax over the whole row, P normalised and
-// then rounded to bf16, V read as bf16, P.V accumulated in fp32, the
-// context stored in bf16 to [B, N, H*64].
+// flash_attention_qkv_phased.cu and flash_attention_qkv_batched.cu and of
+// attention_bhnd.cu, for Hopper (sm_90a): one consumer warpgroup attends 64
+// query rows of one head over the whole row of keys (N <= MAX_N = 256),
+// with the arithmetic of the TPU variants tools/exp_flash.py::_phased_kernel
+// and _batched_kernel and tools/exp_attn.py::make_pallas_attn (and of
+// flash_attention_qkv_reference): S = q.k^T / 8 in fp32 plus the [B, N] key
+// mask (none for attention_bhnd), the exact fp32 row softmax over the whole
+// row, P normalised and then rounded to bf16, V read as bf16, P.V
+// accumulated in fp32, the context stored in bf16.  Where the boxes come
+// from and where the context goes is the layout policy an item loop is
+// built with: FusedQkv (qkv [B, N, 3D] in, [B, N, D] out: the phased and
+// batched kernels) or HeadSplit (q, k, v and the output [B*H, N, 64]:
+// attention_bhnd).
 //
-// What bounds it on an H100, at the harness's B=256 H=12: bytes, qkv read
-// and the context written once (8*B*N*D bytes: 310 MB at N=197, 0.0925 ms at
-// 3.35 TB/s; 209 MB and 0.0625 ms at N=133), against 4*B*H*N^2*64 operations
-// (30.5 GFLOP, 0.031 ms at 989 TFLOP/s).  Beside those, the exponentials
-// (B*H*N^2: 119 M at N=197, ~0.03 ms at the SFUs' 16 a cycle an SM) and the
-// fp32 work around them, and the K/V re-reads from L2 (every query tile of a
-// head loads the head's K and V).  Measured on the card (PERF.md §6,
-// tools/exp_flash_sched.py) none of these is the limit: with every load from
-// one batch element (all from L2), or K and V loaded once a head, or no
-// softmax at all, a kernel runs 2%, 5% and 22% faster; what remains is the
-// chain of one item -- loads, S, softmax, P.V, each waiting on the last --
-// at three warpgroups a SM.
+// What bounds it on an H100, at the harnesses' B=256 H=12: bytes, q, k, v
+// read and the context written once (8*B*N*D bytes: 310 MB at N=197,
+// 0.0925 ms at 3.35 TB/s; 209 MB and 0.0625 ms at N=133), against
+// 4*B*H*N^2*64 operations (30.5 GFLOP, 0.031 ms at 989 TFLOP/s).  Beside
+// those, the exponentials (B*H*N^2: 119 M at N=197, ~0.03 ms at the SFUs'
+// 16 a cycle an SM) and the fp32 work around them, and the K/V re-reads
+// from L2 (every query tile of a head loads the head's K and V).  Measured
+// on the card (PERF.md §6, tools/exp_flash_sched.py) none of these is the
+// limit: with every load from one batch element (all from L2), or K and V
+// loaded once a head, or no softmax at all, a kernel runs 2%, 5% and 22%
+// faster; what remains is the chain of one item -- loads, S, softmax, P.V,
+// each waiting on the last -- at three warpgroups a SM.
 //
 // One item of a warpgroup, (head h, query rows q0 .. q0+63, batch b):
 //  1. loads: q [64 x 64], then the head's K and V in blocks of 64 keys, each
-//     a [64, 64] box by TMA with the 128-byte swizzle from a 3-D map over qkv
-//     [B, N, 3D] (rows past N arrive as zeros), into the warpgroup's own ring
-//     of SLOTS = 9 boxes (one whole item at N = 256) with one mbarrier a
-//     slot.  The ring's boxes are the item sequence's q, K..., V..., q, ...
-//     in order; its thread 0 refills a slot as soon as the box that held it
-//     is released (q and K after the product S, V after P.V), so the next
-//     item's q and K load while this item's softmax runs;
+//     a [64, 64] box by TMA with the 128-byte swizzle from a 3-D map (over
+//     qkv [B, N, 3D], or over each of q, k, v as [B*H, N, 64]), so rows
+//     past N arrive as zeros, never the next batch's or head's, into the
+//     warpgroup's own ring of SLOTS = 9 boxes (one whole item at N = 256)
+//     with one mbarrier a slot.  The ring's boxes are the item sequence's
+//     q, K..., V..., q, ... in order; its thread 0 refills a slot as soon
+//     as the box that held it is released (q and K after the product S, V
+//     after P.V), so the next item's q and K load while this item's softmax
+//     runs;
 //  2. S = q.K^T on wgmma, SS form (q K-major, the K box K-major: a key's 64
 //     dims are contiguous), four k16 steps a block of 64 keys, m64n64k16 or
 //     the width the last block has left; the whole row stays in registers,
@@ -46,7 +53,7 @@
 //     MN-major, desc_sw128_mn, each k16 step 16 rows = 2 KB of it), KT
 //     steps;
 //  5. the bf16 context of the rows below N stored from registers, four bytes
-//     a thread and column pair.
+//     a thread and column pair, where the layout puts it.
 // No branch stands inside a sequence of wgmma: blocks and k16 steps past N
 // read the last loaded box again, their scores are -inf and their P zero
 // (with branches there, ptxas put a warpgroup.arrive before every product).
@@ -54,10 +61,11 @@
 // N keys, the mean of V, as in the plain version; keys past N get -inf and
 // weight 0, and V's rows past N are zeros.
 //
-// The schedules around it: attend_items walks one warpgroup's heads;
-// between the products of two warpgroups the phased kernel puts Turns, which
-// hands the tensor cores from one warpgroup to the next (named barriers),
-// and the batched kernel nothing (NoTurns).
+// The schedules around it: attend_items walks one warpgroup's items (heads,
+// or (batch, head) slabs); between the products of two warpgroups the
+// phased kernel puts Turns, which hands the tensor cores from one warpgroup
+// to the next (named barriers), and the batched kernel and attention_bhnd
+// nothing (NoTurns).
 //
 // Left on the table: a warpgroup waits for its own products and loads (no
 // second item's S in flight: the registers hold one row of S, and ptxas
@@ -147,39 +155,81 @@ struct NoTurns {
   __device__ __forceinline__ void release() {}
 };
 
-// One warpgroup's items: heads first, first + step, ... (`items` of them) of
-// query rows q0 .. q0+63 of batch b.
-struct ItemLoop {
+// Where an item's boxes come from and where its context goes: `load` puts
+// the [64, 64] box of part 0 (q), 1 (K) or 2 (V) of item h at `row` into
+// dst, `ctx(h, r)` is the context row r of item h, `stride` the elements
+// from one context row to the next, and N the rows of an item.
+//
+// The fused layout of the phased and batched kernels: one 3-D map over qkv
+// [B, N, 3D]; item h is head h of batch b, its q, K and V the columns h*64,
+// D + h*64 and 2D + h*64; the context [B, N, D].
+struct FusedQkv {
   const CUtensorMap* map;
+  __nv_bfloat16* out;
+  int b, N, D;
+  __device__ __forceinline__ void load(void* dst, uint64_t* bar, int part, int h, int row) const {
+    tma_load_3d(dst, map, bar, part * D + h * HD, row, b);
+  }
+  __device__ __forceinline__ __nv_bfloat16* ctx(int h, int r) const {
+    return out + ((long)b * N + r) * D + h * HD;
+  }
+  __device__ __forceinline__ int stride() const { return D; }
+};
+
+// The head-split layout of attention_bhnd: q, k and v [B*H, N, 64], one 3-D
+// map each; item h is the slab h = b*H + head, the map's third coordinate;
+// the context [B*H, N, 64].
+struct HeadSplit {
+  const CUtensorMap* q;
+  const CUtensorMap* k;
+  const CUtensorMap* v;
+  __nv_bfloat16* out;
+  int N;
+  __device__ __forceinline__ void load(void* dst, uint64_t* bar, int part, int h, int row) const {
+    tma_load_3d(dst, part == 0 ? q : part == 1 ? k : v, bar, 0, row, h);
+  }
+  __device__ __forceinline__ __nv_bfloat16* ctx(int h, int r) const {
+    return out + ((long)h * N + r) * HD;
+  }
+  __device__ __forceinline__ int stride() const { return HD; }
+};
+
+// One warpgroup's items: first, first + step, ... (`items` of them), each of
+// query rows q0 .. q0+63, in the layout IO.
+template <class IO>
+struct ItemLoop {
+  IO io;
   unsigned char* ring;
   uint64_t* full;
   const float* key_row;
-  __nv_bfloat16* out;
-  int b, q0, N, D, first, step, items;
+  int q0, first, step, items;
   float scale;
 };
 
 // box m of the warpgroup's sequence into slot m % SLOTS (thread 0 of the
 // warpgroup only)
-__device__ __forceinline__ void issue_box(const ItemLoop& L, int m, int nblk) {
+template <class IO>
+__device__ __forceinline__ void issue_box(const ItemLoop<IO>& L, int m, int nblk) {
   const int per = 1 + 2 * nblk, k = m % per;
   const int h = L.first + m / per * L.step;
   uint64_t* bar = L.full + m % SLOTS;
   unsigned char* dst = L.ring + (m % SLOTS) * BOX;
   mbar_arrive_expect_tx(bar, BOX);
   if (k == 0)
-    tma_load_3d(dst, L.map, bar, h * HD, L.q0, L.b);
+    L.io.load(dst, bar, 0, h, L.q0);
   else if (k <= nblk)
-    tma_load_3d(dst, L.map, bar, L.D + h * HD, (k - 1) * 64, L.b);
+    L.io.load(dst, bar, 1, h, (k - 1) * 64);
   else
-    tma_load_3d(dst, L.map, bar, 2 * L.D + h * HD, (k - 1 - nblk) * 64, L.b);
+    L.io.load(dst, bar, 2, h, (k - 1 - nblk) * 64);
 }
 
-__device__ __forceinline__ void wait_box(const ItemLoop& L, int m) {
+template <class IO>
+__device__ __forceinline__ void wait_box(const ItemLoop<IO>& L, int m) {
   mbar_wait(L.full + m % SLOTS, (m / SLOTS) & 1);
 }
 
-__device__ __forceinline__ const unsigned char* box(const ItemLoop& L, int m) {
+template <class IO>
+__device__ __forceinline__ const unsigned char* box(const ItemLoop<IO>& L, int m) {
   return L.ring + (m % SLOTS) * BOX;
 }
 
@@ -205,11 +255,11 @@ __device__ __forceinline__ void s_block(float* s, uint64_t qd, uint64_t kd) {
 // steps past N read the last loaded box again, and their scores are masked
 // (-inf) and their P zero, so no branch stands between the wgmma of a
 // sequence; only the loads follow N.
-template <int KT, class T>
-__device__ __forceinline__ void attend_items(const ItemLoop& L, T& turns) {
+template <int KT, class IO, class T>
+__device__ __forceinline__ void attend_items(const ItemLoop<IO>& L, T& turns) {
   const int tw = threadIdx.x % 128, warp = tw / 32, lane = tw % 32, t = lane & 3;
   const int wg = threadIdx.x / 128;
-  const int N = L.N, nblk = (N + 63) / 64;
+  const int N = L.io.N, nblk = (N + 63) / 64;
   const int per = 1 + 2 * nblk, total = L.items * per;
   int issued = 0;
   auto refill = [&](int released) {  // boxes below `released` are free
@@ -307,8 +357,8 @@ __device__ __forceinline__ void attend_items(const ItemLoop& L, T& turns) {
     refill(m0 + per);
 
     // ---- the context of the rows below N, bf16
-    __nv_bfloat16* o0 = L.out + ((long)L.b * N + r0) * L.D + h * HD + 2 * t;
-    __nv_bfloat16* o1 = o0 + 8L * L.D;
+    __nv_bfloat16* o0 = L.io.ctx(h, r0) + 2 * t;
+    __nv_bfloat16* o1 = o0 + 8L * L.io.stride();
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       if (r0 < N)

@@ -59,7 +59,8 @@ launches `csrc/attention_bhnd.cu`, on a CPU tensor it runs
 weights come out exactly 0, so the port pads nothing and masks the keys
 past N inside the kernel.  `make_pallas_attn`'s `np_pad` and `fuse_heads`
 arguments are unused in the JAX code itself and have no counterpart, nor
-has its batch block `bb` (one CTA per (batch, head) here).
+has its batch block `bb` (here a CTA walks a group of (batch, head) slabs
+for 64 query rows, on the `wgmma` core of the experiment forwards).
 
 `flash_attention_qkv_phased`, `flash_attention_qkv_batched` and
 `flash_attention_qkv_bwd_phased` are the ports of the experiment kernels of

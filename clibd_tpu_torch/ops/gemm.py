@@ -20,9 +20,10 @@ in a final rounding that such a difference can flip).
 
 Deliberately absent (TPU-only): the TPU tiles themselves (tm, tn 256-1024,
 tk 512-2048: VMEM blocks whose fp32 accumulator would be a 1 MB per CTA
-here; `TILES` asks the same question of tile shape and K depth in Hopper
-terms), `dimension_semantics` (`exp_mxu2.py:53-55`: the CTAs of a CUDA grid
-are independent by construction) and `pl.dot` against `jnp.dot`
+here; `TILES` asks the same question of tile shape in Hopper terms, each
+slot of K 64 deep, one 128-byte swizzled row), `dimension_semantics`
+(`exp_mxu2.py:53-55`: the CTAs of a CUDA grid are independent by
+construction) and `pl.dot` against `jnp.dot`
 (`exp_mxu.py:41-44`: one product instruction here).
 """
 
@@ -35,14 +36,15 @@ import torch
 
 from .cuda_build import DTYPE_CODE, launch
 
-# name -> (BM, BN, BK, warps, stages); mirrors CLIBD_GEMM_TILE in csrc/tiled_gemm.cu
+# name -> (BM, BN, BK, warps, stages); mirrors CLIBD_GEMM_TILE in
+# csrc/tiled_gemm.cu: 4 warps a consumer warpgroup and a producer warp a CTA;
+# the `_c2` tile is a cluster of two CTAs stacked along M, BM rows together
 TILES: Dict[str, Tuple[int, int, int, int, int]] = {
-    "t64x64x32": (64, 64, 32, 4, 3),
-    "t128x128x32_w4": (128, 128, 32, 4, 4),
-    "t128x128x32": (128, 128, 32, 8, 4),
-    "t128x128x64": (128, 128, 64, 8, 3),
-    "t128x256x32": (128, 256, 32, 8, 3),
-    "t256x128x32": (256, 128, 32, 8, 3),
+    "t64x64x64": (64, 64, 64, 5, 4),
+    "t128x128x64": (128, 128, 64, 9, 6),
+    "t128x256x64": (128, 256, 64, 9, 4),
+    "t256x128x64": (256, 128, 64, 9, 4),
+    "t256x256x64_c2": (256, 256, 64, 9, 4),
 }
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 

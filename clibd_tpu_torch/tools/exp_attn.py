@@ -27,8 +27,8 @@ ops.  Times are device times by CUDA events (`utils/profiling.cuda_ms`,
 median after warm-up runs); inputs are seeded with numpy as in the JAX
 script.  Needs a CUDA card and raises without one; prints the card's name
 and power limit first.  `make_pallas_attn`'s batch block `bb` (4 and 8 in
-the JAX script) has no counterpart: the kernel runs one CTA per (batch,
-head).
+the JAX script) has no counterpart: a CTA of the kernel walks a group of
+(batch, head) slabs for 64 query rows, the group picked per launch.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ MODES = ("all", "probe", "xla", "dpa", "pallas", "extra")
 B, H, N, HD = 256, 12, 197, 64
 COPY_SHAPE = (8192, 2048)  # fp32, 64 MB
 MATMUL_SIZE = 1024
-PROBE_TILE = "t128x128x32"
+PROBE_TILE = "t128x128x64"
 
 
 def timeit(fn, *args, iters=20, warmup=3) -> float:
@@ -167,7 +167,7 @@ def run_main(which: str) -> dict:
               flush=True)
         err = float((attention_bhnd(q, k, v).float() - attn_xla_current(q, k, v).float())
                     .abs().max())
-        out["attention_bhnd_ms"] = line("cuda attention_bhnd, one CTA per (b, h)",
+        out["attention_bhnd_ms"] = line("cuda attention_bhnd, wgmma core",
                                         timeit(attention_bhnd, q, k, v), f" maxerr={err:.4f}")
         out["attention_bhnd_maxerr"] = err
     return out

@@ -228,9 +228,7 @@ def _sections(src: str) -> str:
     return _edit(head + body, [('extern "C" {\n', PROF_READ)])
 
 
-C_LOADS = ("    tma_load_3d(dst, L.map, bar, h * HD, L.q0, L.b);\n",
-           "    tma_load_3d(dst, L.map, bar, L.D + h * HD, (k - 1) * 64, L.b);\n",
-           "    tma_load_3d(dst, L.map, bar, 2 * L.D + h * HD, (k - 1 - nblk) * 64, L.b);\n")
+C_LOAD = "    tma_load_3d(dst, map, bar, part * D + h * HD, row, b);\n"  # FusedQkv::load
 C_SOFTMAX_START = "    if (warp_live) {\n"
 C_SOFTMAX_END = "    } else {\n"
 C_NO_SOFTMAX = """    if (warp_live) {
@@ -267,7 +265,7 @@ def _l2_only(src: str) -> str:
     """every load from batch element 0: the same boxes for every CTA, so
     they come from L2 (not the same function)"""
     src = _inline_core(src)
-    return _edit(src, [(c, c.replace(", L.b);", ", 0);")) for c in C_LOADS])
+    return _edit(src, [(C_LOAD, C_LOAD.replace(", b);", ", 0);"))])
 
 
 def _no_softmax(src: str) -> str:
@@ -326,9 +324,10 @@ def variants_of(src: str) -> tuple:
     return kind, {name: edit(src) for name, edit in table.items()}, sections
 
 
-def build(sources: dict) -> dict:
-    """One nvcc per variant, all together → {name: (its CDLL, nvcc's log)}."""
-    out = build_dir() / "exp_flash_sched"
+def build(sources: dict, subdir: str = "exp_flash_sched") -> dict:
+    """One nvcc per variant, all together, into build_dir()/subdir → {name:
+    (its CDLL, nvcc's log)}."""
+    out = build_dir() / subdir
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in sources.items():

@@ -12,7 +12,7 @@ and `ms (TF/s)`, as the JAX script does.  The JAX script's question -- can
 a hand-written kernel approach the library's rate, so that a fused
 out-projection or an MLP megakernel becomes a win? -- is asked of this card.
 Its TPU tiles (tm, tn 256-1024, tk 512-2048) and `dimension_semantics` have
-no counterpart: `TILES` sweeps tile shape and K depth in Hopper terms, and
+no counterpart: `TILES` sweeps tile shape in Hopper terms, and
 the CTAs of a CUDA grid are independent by construction.  Device times by
 CUDA events (`utils/profiling.cuda_ms`); inputs seeded with numpy as in the
 JAX script.  Needs a CUDA card and raises without one; prints the card's

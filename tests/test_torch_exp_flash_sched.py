@@ -28,7 +28,7 @@ def test_every_variant_edits_the_committed_kernel(schedule):
     # a tick after each of the ten sections, and the start
     assert variants["sections"].count("clock64()") == 11 == len(SECTIONS)
     assert "clibd_prof" in variants["sections"]
-    assert variants["l2_only"].count(", 0);\n") == 3
+    assert variants["l2_only"].count(", 0);\n") == 1  # FusedQkv::load, every part of an item
     assert "fast_exp2" not in variants["no_softmax"].split("if (warp_live)")[1][:400]
     assert "if (k != 0 && L.q0 > 0)" in variants["kv_once"]
     assert variants["early_issue"].count("wait_box(L, m0 + 1 + ") == 4

@@ -544,6 +544,44 @@ def test_tiled_gemm_kernel_matches_plain_version(cuda_device, tile, out_dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tile", list(TILES))
+@pytest.mark.parametrize("shape", ["more_tiles_than_sms", "one_slot_of_k"])
+def test_tiled_gemm_kernel_at_its_edges(cuda_device, tile, shape):
+    """A persistent grid walking more tiles than the card has SMs (M != N, a
+    tile count that is no multiple of 132), and K of one 64-deep slot; BN >
+    64 with random B, so a wrong offset between B's 64-column boxes shows;
+    two launches bit-identical."""
+    bm, bn, bk = TILES[tile][:3]
+    M, N, K = (16 * bm, 9 * bn, 3 * bk) if shape == "more_tiles_than_sms" else (2 * bm, 3 * bn, bk)
+    rng = np.random.default_rng(M + N + K)
+    a, b = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(cuda_device,
+                                                                           torch.bfloat16)
+            for s in ((M, K), (K, N)))
+    for out_dtype in OUT_DTYPES:
+        got = tiled_matmul(a, b, tile, out_dtype)
+        assert torch.equal(got, tiled_matmul(a, b, tile, out_dtype))
+        want = tiled_matmul_reference(a, b, out_dtype).float()
+        assert float((got.float() - want).abs().max()) <= GEMM_REL_TOL[out_dtype] * float(
+            want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,N", [(1, 1, 1), (3, 12, 63), (3, 12, 64), (1, 1, 65), (3, 1, 256),
+                                   (1, 12, 256)])
+def test_attention_bhnd_kernel_at_its_edges(cuda_device, B, H, N):
+    """One key, a query tile one row short, a whole 64-key block and one key
+    past it, the 256 keys a row holds; B = 1 and 3, H = 1 and 12; two
+    launches bit-identical."""
+    rng = np.random.default_rng(B + H + N)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, H, N, 64), dtype=np.float32))
+               .to(cuda_device, torch.bfloat16) for _ in range(3))
+    got = attention_bhnd(q, k, v)
+    assert torch.equal(got, attention_bhnd(q, k, v))
+    assert float((got.float() - attention_bhnd_reference(q, k, v).float()).abs().max()) \
+        <= FP32_ATOL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,N", [(4, 197), (4, 133), (4, 20), (2, 256)])
 def test_attention_bhnd_kernel_matches_plain_version(cuda_device, B, N):
     rng = np.random.default_rng(N)
@@ -564,11 +602,11 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     z = torch.zeros(1000, 1024, device=cuda_device, dtype=torch.bfloat16)
     sq = torch.zeros(1024, 1024, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiples of the tile"):
-        tiled_matmul(z, sq, "t64x64x32")
+        tiled_matmul(z, sq, "t64x64x64")
     with pytest.raises(ValueError, match="multiples of the tile"):
-        tiled_matmul(sq[:, :1000].contiguous(), z, "t64x64x32")
+        tiled_matmul(sq[:, :1000].contiguous(), z, "t64x64x64")
     with pytest.raises(ValueError, match="contiguous"):
-        tiled_matmul(sq.t(), sq, "t64x64x32")
+        tiled_matmul(sq.t(), sq, "t64x64x64")
     with pytest.raises(TypeError, match="fp32 only"):
         scale_copy(torch.zeros(8, device=cuda_device, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):
@@ -596,7 +634,7 @@ def test_probe_kernels_have_no_fallback(cuda_device, monkeypatch):
     sq = torch.zeros(64, 64, device=cuda_device, dtype=torch.bfloat16)
     q = torch.zeros(1, 1, 20, 64, device=cuda_device, dtype=torch.bfloat16)
     for call in (lambda: scale_copy(torch.zeros(16, device=cuda_device)),
-                 lambda: tiled_matmul(sq, sq, "t64x64x32"),
+                 lambda: tiled_matmul(sq, sq, "t64x64x64"),
                  lambda: attention_bhnd(q, q, q)):
         with pytest.raises(RuntimeError, match="refused for the test"):
             call()

@@ -114,7 +114,7 @@ def test_gemm_matches_exp_mxu_tiled(monkeypatch):
     (ja, ta), (jb, tb) = _bf16_pair(rng, (512, 512)), _bf16_pair(rng, (512, 512))
     with pltpu.force_tpu_interpret_mode():
         want = script.make_tiled(256, 256)(ja, jb)
-    _close(tiled_matmul(ta, tb, "t128x128x32"), want, GEMM_TOL[torch.float32])
+    _close(tiled_matmul(ta, tb, "t128x128x64"), want, GEMM_TOL[torch.float32])
 
 
 @pytest.mark.parametrize("out_dtype", OUT_DTYPES, ids=["fp32", "bf16"])
@@ -128,12 +128,12 @@ def test_gemm_matches_exp_mxu2_tiled(monkeypatch, out_dtype):
     with pltpu.force_tpu_interpret_mode():
         # tk = 256: two k steps through the accumulator scratch
         want = script.make_tiled(256, 256, 256, out_bf16, out_bf16)(ja, jb)
-    got = tiled_matmul(ta, tb, "t64x64x32", out_dtype)
+    got = tiled_matmul(ta, tb, "t64x64x64", out_dtype)
     assert got.dtype == out_dtype
     _close(got, want, GEMM_TOL[out_dtype])
 
 
-@pytest.mark.parametrize("N", [20, 133])
+@pytest.mark.parametrize("N", [1, 20, 64, 133, 256])
 def test_attention_bhnd_matches_make_pallas_attn(monkeypatch, jax_exp_attn, N):
     for name, value in (("B", 2), ("H", 2), ("N", N)):
         monkeypatch.setattr(jax_exp_attn, name, value)
@@ -149,22 +149,25 @@ def test_attention_bhnd_matches_make_pallas_attn(monkeypatch, jax_exp_attn, N):
 
 def test_tiles_mirror_the_cuda_source():
     """ops/gemm.TILES names exactly the instantiations of csrc/tiled_gemm.cu,
-    with their (BM, BN, BK, warps, stages)."""
+    with their (BM, BN, BK, warps, stages): CLIBD_GEMM_TILE(name, BM, BN,
+    BK, CTAs of a cluster, consumer warpgroups, stages), a producer warp a
+    CTA."""
     src = (REPO / "clibd_tpu_torch/csrc/tiled_gemm.cu").read_text()
-    found = {m[0]: (int(m[1]), int(m[2]), int(m[3]), int(m[4]) * int(m[5]), int(m[6]))
-             for m in re.findall(r"^CLIBD_GEMM_TILE\((\w+), (\d+), (\d+), (\d+), (\d+), (\d+), "
+    found = {m[0]: (int(m[1]), int(m[2]), int(m[3]), 4 * int(m[5]) + 1, int(m[6]))
+             for m in re.findall(r"^CLIBD_GEMM_TILE\((\w+), (\d+), (\d+), (\d+), ([12]), (\d+), "
                                  r"(\d+)\)", src, re.M)}
     assert found == TILES
     assert 2 <= len(TILES) <= 6
-    assert "t64x64x32" in TILES and any(t[:2] == (128, 128) for t in TILES.values())
+    assert "t64x64x64" in TILES and any(t[:2] == (128, 128) for t in TILES.values())
+    assert all(t[2] == 64 for t in TILES.values())  # a slot is one 128-byte swizzled row deep
 
 
 @pytest.mark.parametrize("a_shape,b_shape,tile,dtype,error", [
-    ((1000, 1024), (1024, 1024), "t64x64x32", torch.float32, ValueError),
-    ((1024, 1000), (1000, 1024), "t64x64x32", torch.float32, ValueError),
-    ((128, 64), (64, 192), "t128x256x32", torch.float32, ValueError),
-    ((64, 64), (64, 64), "t32x32x32", torch.float32, ValueError),
-    ((64, 64), (64, 64), "t64x64x32", torch.float16, TypeError),
+    ((1000, 1024), (1024, 1024), "t64x64x64", torch.float32, ValueError),
+    ((1024, 1000), (1000, 1024), "t64x64x64", torch.float32, ValueError),
+    ((128, 64), (64, 192), "t128x256x64", torch.float32, ValueError),
+    ((64, 64), (64, 64), "t64x64x32", torch.float32, ValueError),
+    ((64, 64), (64, 64), "t64x64x64", torch.float16, TypeError),
 ])
 def test_gemm_refuses_what_the_kernel_does_not_take(a_shape, b_shape, tile, dtype, error):
     """Shapes off the tile raise on the CPU as on the card, before any
@@ -189,8 +192,8 @@ def test_harness_argument_parsing():
     for mode in exp_attn.MODES:
         assert exp_attn.parse_args([mode]).mode == mode
     assert exp_mxu2.parse_args([]).variants == []
-    assert exp_mxu2.parse_args(["cublas", "t64x64x32_bf16out"]).variants == \
-        ["cublas", "t64x64x32_bf16out"]
+    assert exp_mxu2.parse_args(["cublas", "t64x64x64_bf16out"]).variants == \
+        ["cublas", "t64x64x64_bf16out"]
     for bad in (lambda: exp_attn.parse_args(["flash"]),
                 lambda: exp_mxu2.parse_args(["t512x512x512"])):
         with pytest.raises(SystemExit):
