@@ -11,9 +11,9 @@ Phases, each of which raises on failure:
    into `build/kernels/` (one nvcc per source, all started together) and
    prints each build's time and ptxas' register, spill and C75xx lines; the
    three kernels on the wgmma attention core (phased, batched,
-   attention_bhnd) must keep every instance within 216 bytes of stack and
-   have no warpgroup.arrive injected (C7519), as before the core took its
-   layout policies.
+   attention_bhnd) and the phased backward on wgmma must keep every
+   instance within 216 bytes of stack and have no warpgroup.arrive injected
+   (C7519), as before the core took its layout policies.
 3. kernels, each against its plain PyTorch version at the four shapes of
    the paths (ViT N=197 H=12, BarcodeBERT N=133 H=12, BERT-small N=20 H=8
    and the overlap-tokenizer BarcodeBERT N=657 H=12, the last two with a
@@ -110,9 +110,11 @@ Phases, each of which raises on failure:
 10. probes: the kernels of the chip-probe harnesses, each against its plain
    version, then timed beside the plain version, the closest library call
    and the bound (CUDA events, median of 20):
-   - `scale_copy` on a seeded fp32 [8192, 2048] (and a 1027-element tail):
-     bit-exact; GB/s against 3.35 TB/s; library `torch.mul(x, 2.0)` and
-     `y.copy_(x)`;
+   - `scale_copy` on a seeded fp32 [8192, 2048] and at its edges (1, 3, 4,
+     5 and 1027 elements, one vector past a 16 KB ring slot, and a size
+     that wraps every CTA's ring with a ragged end): bit-exact; two
+     launches bit-identical; GB/s against 3.35 TB/s; library
+     `torch.mul(x, 2.0)` and `y.copy_(x)`;
    - `tiled_matmul` (bf16 in, fp32 accumulator), every tile, fp32 and bf16
      out, at 1024^3, 2048^3, 8192^3, M=4096 N=8192 K=2048 (a tile count no
      multiple of the SMs') and K=64 (one slot): max |kernel - plain| <=
@@ -141,7 +143,9 @@ Phases, each of which raises on failure:
      at N=197;
    - `flash_attention_qkv_bwd_phased`: max |kernel - plain| <= 2e-2 *
      max |plain| per part (dq, dk, dv), and the same against the backward
-     kernel's output;
+     kernel's output, first at its edges (N = 1, 63, 64, 65, 130 and 208;
+     odd B; H = 2 and 12, with and without a mask, a fully masked row);
+     two launches at B=256 bit-identical;
    then kernel (with its TFLOP/s, and the two forwards' times recorded in
    PERF.md before the core took its layout policies beside it), the production kernel it reschedules
    (`v0`), plain version, SDPA (forward or backward) and bound timed at
@@ -208,6 +212,11 @@ OUTPROJ_EDGES = ((1, 1, 12, False), (3, 63, 12, True), (1, 64, 8, False), (5, 65
                  (3, 65, 12, False), (1, 20, 8, True), (7, 1, 2, True), (2, 40, 4, True),
                  (3, 70, 6, False))
 L2_PROBE_MB = (4, 8, 12, 16)  # copies that fit the L2, for its copy rate
+# elements of the scale copy's edges: below one 16-byte vector, one vector,
+# one and a scalar, the old 1027-element tail, one vector past a 16 KB ring
+# slot, and one that wraps every CTA's ring of 8 slots 2.5 times with a
+# ragged end
+COPY_EDGES = (1, 3, 4, 5, 1027, 4100, 132 * 4096 * 20 + 4103)
 BIOCLIP_TRAIN_STEPS = 4
 SPLIT_ROWS = {"all_keys": 1100, "test_seen": 500, "test_unseen": 500}
 TRAIN_ROWS = {"train": 3000, "all_keys": 1100, "val_seen": 500, "val_unseen": 500}
@@ -227,6 +236,12 @@ EXP_FLASH_SHAPES = ((197, False), (133, True))
 EXP_FLASH_EDGES = ((3, 1, 2, False), (5, 64, 12, True), (3, 65, 2, True), (3, 256, 12, True),
                    (1, 63, 12, False), (7, 197, 2, True))
 EXP_FLASH_GROUPS = (1, 2, 3, 4, 6, 12)  # the phased kernel's head groups of H=12
+# (B, N, H, masked) edges of the phased backward: one key; a query block one
+# row short, whole, one row past (a block with one live row); N=130 (a third
+# block of two rows); the 208 keys it takes at most; odd B, H = 2 and 12,
+# with and without a mask (batch row 0 fully masked where masked)
+BWD_PHASED_EDGES = ((3, 1, 2, False), (5, 63, 12, True), (3, 64, 2, True), (1, 65, 12, False),
+                    (5, 130, 2, True), (3, 208, 12, True), (7, 208, 2, False))
 GEMM_REL_TOL = {"fp32": 1e-3, "bf16": 1e-2}  # max |kernel - plain| / max |plain|, by out dtype
 # (M, N, K) of the GEMM checks, every tile, fp32 and bf16 out: the three
 # harnesses' squares; a non-square shape whose tile count is no multiple of
@@ -242,10 +257,11 @@ BHND_SHAPES = ((256, 197), (64, 133), (64, 20))
 BHND_EDGES = ((1, 1, 1), (3, 12, 63), (1, 12, 64), (3, 1, 65), (5, 12, 256), (1, 1, 256),
               (7, 12, 197))
 # the wgmma attention kernels' ptxas limits (their report before the core
-# took its layout policies, at three warpgroups a SM): stack bytes of any
-# instance; no warpgroup.arrive injected (C7519)
+# took its layout policies, at three warpgroups a SM), which the phased
+# backward on wgmma is held to as well: stack bytes of any instance; no
+# warpgroup.arrive injected (C7519)
 WGMMA_ATTENTION_SOURCES = ("flash_attention_qkv_phased", "flash_attention_qkv_batched",
-                           "attention_bhnd")
+                           "attention_bhnd", "flash_attention_qkv_bwd_phased")
 WGMMA_MAX_STACK = 216
 # the two forward schedules' times that PERF.md §6 records from before the
 # core took its layout policies (NVIDIA H100 80GB HBM3, 700 W), B=256 H=12,
@@ -698,7 +714,10 @@ def train_slice_phase(card: str, label: str, gcfg, device, train_rows: dict) -> 
 
 
 def rel_err(got, want) -> float:
-    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    """max |got - want| / max |want|; 0 where both are all zeros (the phased
+    backward's dq and dk at N=1)."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
 
 
 def kernel_counters():
@@ -1146,12 +1165,17 @@ def scale_copy_checks(card: str) -> dict:
 
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((8192, 2048), dtype=np.float32)).cuda()
-    tail = torch.from_numpy(rng.standard_normal(1027, dtype=np.float32)).cuda()
-    for name, t in (("[8192, 2048]", x), ("1027-element tail", tail)):
+    edges = [(f"{n} elements", torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).cuda())
+             for n in COPY_EDGES]
+    for name, t in [("[8192, 2048]", x)] + edges:
         exact = torch.equal(scale_copy_cuda(t), scale_copy_reference(t))
         print(f"kernel scale_copy {name}: bit-exact against x * 2.0: {exact}")
         if not exact:
             fail(f"scale_copy differs from x * 2.0 on {name}")
+    del edges
+    if not torch.equal(scale_copy_cuda(x), scale_copy_cuda(x)):
+        fail("two launches of scale_copy on [8192, 2048] differ")
+    print("kernel scale_copy [8192, 2048]: two launches bit-identical")
     y = torch.empty_like(x)
     ms = cuda_ms(lambda: scale_copy_cuda(x))
     plain_ms = cuda_ms(lambda: scale_copy_reference(x))
@@ -1303,10 +1327,12 @@ def check_wgmma_ptxas(build_info: dict) -> None:
             print(f"ptxas {name}.cu: loaded from an earlier build, no report to check")
             continue
         stack = max(int(m) for m in re.findall(r"(\d+) bytes stack frame", log))
+        spills = max(int(m) for m in re.findall(r"(\d+) bytes spill stores", log))
         regs = max(int(m) for m in re.findall(r"Used (\d+) registers", log))
         injected = log.count("C7519")
-        print(f"ptxas {name}.cu: at most {regs} registers and {stack} bytes of stack an instance, "
-              f"{injected} C7519 warnings (limits: {WGMMA_MAX_STACK} bytes, none)")
+        print(f"ptxas {name}.cu: at most {regs} registers, {stack} bytes of stack and {spills} "
+              f"bytes of spill stores an instance, {injected} C7519 warnings (limits: "
+              f"{WGMMA_MAX_STACK} bytes of stack, none)")
         if stack > WGMMA_MAX_STACK or injected:
             fail(f"ptxas' report of {name}.cu is worse than its recorded limits")
 
@@ -1363,7 +1389,7 @@ def exp_flash_kernels_phase(card: str) -> dict:
     fwd = {"flash_attention_qkv_phased": flash_attention_qkv_phased_cuda,
            "flash_attention_qkv_batched": flash_attention_qkv_batched_cuda}
     shapes = {name: [] for name in EXP_FLASH_KERNELS}
-    edge_err = dict.fromkeys(fwd, 0.0)
+    edge_err = dict.fromkeys(EXP_FLASH_KERNELS, 0.0)
 
     def check_fwd(name, got, qkv, mask, Hh, what):
         """max |kernel - plain|, failing past KERNEL_TOL; the fully masked
@@ -1380,12 +1406,39 @@ def exp_flash_kernels_phase(card: str) -> dict:
             fail(f"{name} disagrees with its plain version at {what}: {e}")
         return e
 
+    def check_bwd(qkv, dout, mask, Hh, what):
+        """the phased backward against its plain version and the backward
+        kernel, per part, failing past BWD_REL_TOL → (its output, max
+        |kernel - plain|)"""
+        Dh = Hh * 64
+        got = flash_attention_qkv_bwd_phased_cuda(qkv, dout, Hh, mask)
+        plain = flash_attention_qkv_bwd_reference(qkv, dout, Hh, mask)
+        v0 = flash_attention_qkv_bwd_cuda(qkv, dout, Hh, mask)
+        torch.cuda.synchronize()
+        rel = [rel_err(got[..., i * Dh:(i + 1) * Dh], plain[..., i * Dh:(i + 1) * Dh])
+               for i in range(3)]
+        rel_v0 = [rel_err(got[..., i * Dh:(i + 1) * Dh], v0[..., i * Dh:(i + 1) * Dh])
+                  for i in range(3)]
+        print(f"kernel flash_attention_qkv_bwd_phased {what}: max|kernel-plain|/max|plain| dq "
+              f"{rel[0]:.3e} dk {rel[1]:.3e} dv {rel[2]:.3e}; against the backward kernel dq "
+              f"{rel_v0[0]:.3e} dk {rel_v0[1]:.3e} dv {rel_v0[2]:.3e} (tol {BWD_REL_TOL})")
+        if not torch.isfinite(got).all() or max(rel + rel_v0) > BWD_REL_TOL:
+            fail(f"the phased backward disagrees at {what}: {rel}, {rel_v0}")
+        return got, float((got.float() - plain.float()).abs().max())
+
     # the wgmma forward kernels' edges, and every head group of the phased one
     for B, N, Hh, masked in EXP_FLASH_EDGES:
         qkv, mask = make_qkv(B, N, Hh, masked, seed=N + B + 11)
         for name, fn in fwd.items():
             edge_err[name] = max(edge_err[name], check_fwd(
                 name, fn(qkv, Hh, mask), qkv, mask, Hh, f"edge B={B} N={N} H={Hh} mask={masked}"))
+    for B, N, Hh, masked in BWD_PHASED_EDGES:
+        qkv, mask = make_qkv(B, N, Hh, masked, seed=N + B + 17)
+        g = torch.Generator(device="cuda").manual_seed(N + B + 19)
+        dout = torch.randn(B, N, Hh * 64, generator=g, device="cuda").to(torch.bfloat16)
+        _, e = check_bwd(qkv, dout, mask, Hh, f"edge B={B} N={N} H={Hh} mask={masked}")
+        edge_err["flash_attention_qkv_bwd_phased"] = max(edge_err["flash_attention_qkv_bwd_phased"], e)
+    del qkv, mask, dout
     qkv, mask = make_qkv(5, 197, H, True, seed=197 + 5 + 13)
     for G in EXP_FLASH_GROUPS:
         edge_err["flash_attention_qkv_phased"] = max(
@@ -1406,23 +1459,12 @@ def exp_flash_kernels_phase(card: str) -> dict:
                 if B == 256 and not torch.equal(got, fn(qkv, H, mask)):
                     fail(f"two launches of {name} at B={B} N={N} differ")
                 del got
-            got = flash_attention_qkv_bwd_phased_cuda(qkv, dout, H, mask)
-            plain = flash_attention_qkv_bwd_reference(qkv, dout, H, mask)
-            v0 = flash_attention_qkv_bwd_cuda(qkv, dout, H, mask)
-            torch.cuda.synchronize()
-            rel = [rel_err(got[..., i * D:(i + 1) * D], plain[..., i * D:(i + 1) * D])
-                   for i in range(3)]
-            rel_v0 = [rel_err(got[..., i * D:(i + 1) * D], v0[..., i * D:(i + 1) * D])
-                      for i in range(3)]
-            print(f"kernel flash_attention_qkv_bwd_phased B={B} N={N} mask={masked}: "
-                  f"max|kernel-plain|/max|plain| dq {rel[0]:.3e} dk {rel[1]:.3e} dv {rel[2]:.3e}; "
-                  f"against the backward kernel dq {rel_v0[0]:.3e} dk {rel_v0[1]:.3e} dv "
-                  f"{rel_v0[2]:.3e} (tol {BWD_REL_TOL})")
-            if not torch.isfinite(got).all() or max(rel + rel_v0) > BWD_REL_TOL:
-                fail(f"the phased backward disagrees at B={B} N={N}: {rel}, {rel_v0}")
-            err["flash_attention_qkv_bwd_phased"] = max(
-                err["flash_attention_qkv_bwd_phased"], float((got.float() - plain.float()).abs().max()))
-            del got, plain, v0
+            got, e = check_bwd(qkv, dout, mask, H, f"B={B} N={N} mask={masked}")
+            err["flash_attention_qkv_bwd_phased"] = max(err["flash_attention_qkv_bwd_phased"], e)
+            if B == 256 and not torch.equal(got, flash_attention_qkv_bwd_phased_cuda(qkv, dout, H,
+                                                                                     mask)):
+                fail(f"two launches of flash_attention_qkv_bwd_phased at B={B} N={N} differ")
+            del got
         mask_bytes = B * N * 4 if masked else 0
         fwd_bound = bound(B * N * (3 * D + D) * 2 + mask_bytes, 4 * B * H * N * N * 64)
         bwd_bound = bound(B * N * (3 * D + D + 3 * D) * 2 + mask_bytes, 10 * B * H * N * N * 64)
@@ -1458,7 +1500,7 @@ def exp_flash_kernels_phase(card: str) -> dict:
                                  "H": H, "ms": ms, "v0_ms": v0_ms, "plain_ms": plain_ms,
                                  "library_ms": library_ms, "bound_ms": bound_ms,
                                  "bound_by": bound_by,
-                                 "max_abs_err": max(err[name], edge_err.get(name, 0.0))})
+                                 "max_abs_err": max(err[name], edge_err[name])})
         del qkv, mask, dout, leaf, lib_out, lib_grad
     torch.cuda.empty_cache()
 

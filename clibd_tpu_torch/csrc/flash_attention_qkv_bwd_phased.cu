@@ -1,5 +1,6 @@
 // Flash-attention backward over the fused qkv projection with P and dS
-// kept on chip between its phases, for Hopper (sm_90a).
+// kept on chip between its phases, for Hopper (sm_90a): wgmma products on
+// operands loaded by TMA.
 //
 // Replaces the TPU experiment kernel tools/exp_flash.py::_phased_bwd_kernel,
 // which computes the backward of flash_attention_qkv_bwd.cu with the chain
@@ -15,279 +16,341 @@
 // written into the fused layout (columns h*64, D + h*64, 2D + h*64).
 //
 // The schedule.  What phasing buys the TPU is that nothing of the chain is
-// computed twice while the phases stay independent.  The backward kernel
-// here recomputes instead: S and dP once in a row pass and again in a column
-// pass, and dP twice inside the row pass, because a CTA cannot hold an
-// N x N fp32 tile.  The Hopper counterpart keeps what the later phases need
-// -- Pb and dS, N x N in bf16 -- in shared memory, so each of S and dP is
-// computed once per (batch, head).  One CTA per (batch, head), 8 warps:
-//  * staging: K and V of the head in shared memory (cp.async);
-//  * row phase, 16 query rows per warp: S for all keys in registers, the
-//    exact fp32 softmax, dP = dO.V^T once into registers, rowsum(P * dP),
-//    then Pb and dS of the rows into shared memory, and dQ = dS.K (dS read
-//    back by ldmatrix, K by ldmatrix.trans) straight to device memory;
-//  * column phase, after a barrier: Q and dO are copied into the buffers K
-//    and V held, and each warp takes 16 keys: dV = Pb^T.dO and dK = dS^T.Q,
-//    the transposed A fragments by ldmatrix.trans from Pb and dS.
-// Pb and dS of a row past N are zero, so padded rows add nothing to dV, dK.
+// computed twice while the phases stay independent.  Here a CTA keeps what
+// the later phase needs -- Pb and dS, N x N in bf16 -- in shared memory, so
+// S is computed once per (batch, head).  One CTA per (batch, head), two
+// consumer warpgroups (256 threads, up to 255 registers a thread), thread 0
+// issuing every TMA load:
+//  * loads, all issued at the start: K and V of the head as one
+//    [16 KT, 64] box each (128-byte swizzle, a 3-D map over qkv [B, N, 3D]:
+//    rows past N arrive as zeros), and each 64-row query block's q and dO
+//    as [64, 64] boxes into the shared memory where that block's Pb and dS
+//    rows will go (the block's own rows are free until its warpgroup writes
+//    them), one mbarrier for K/V and one a block;
+//  * row phase, a warpgroup a query block (blocks wg, wg + 2, ...):
+//    S = q.K^T on wgmma (SS, as the forward core's S), the exact softmax in
+//    base 2 with P kept in fp32 (rows past N get P = 0), then dP = dO.V^T
+//    by the same products, both a whole row of keys in fp32 registers (104
+//    + 104 a thread at N=197); rowsum(P * dP), then Pb and dS packed into
+//    bf16 registers and stored into the block's rows once the products
+//    have read q and dO; dQ = dS.K on wgmma
+//    with dS from registers (RS, as the core's P.V) and K MN-major; dQ
+//    stored from registers;
+//  * a barrier; Q and dO of the head then land by TMA where K and V were;
+//  * column phase, a warpgroup a 64-key block: dV = Pb^T.dO and dK =
+//    dS^T.Q on wgmma, A transposed (MN-major) from the Pb and dS tiles, B
+//    MN-major; dK and dV stored from registers.
+// No branch stands inside a sequence of wgmma (a branch there makes ptxas
+// put a warpgroup.arrive before every product): every block runs the same
+// products, and rows and keys past N are zeros or get weight 0.
 //
-// Shared memory at N=197 (208 keys): Pb and dS 2 x 208 x 208 bf16
-// (173,056 B), the K/V (then Q/dO) buffers 2 x 208 x 64 bf16 (53,248 B) and
-// the per-key mask (832 B): 227,136 B of the 232,448 a CTA may have.  That
-// fits only without padded rows, so every tile is XOR-swizzled (the 16-byte
-// chunk index XORed with bits of the row) to keep the 8 rows of an ldmatrix
-// phase, and of a fragment store, on distinct banks.  N above 208 does not
-// fit; the wrapper refuses it before launching.  Registers: the row phase
-// holds the 16 x 208 fp32 P and dP (2 x 104 a thread) at once; ptxas' count
-// and spills are in PERF.md.
+// Shared memory.  Pb and dS are stored as A^T of the column phase: 8-query
+// groups of [Pb: 16 KT keys | dS: 16 KT keys], each in 32-byte-swizzled
+// atoms of 16 keys by 8 queries (desc_sw32_mn: an atom is 16 keys wide, so
+// the keys pad to 16 KT, not to a multiple of 64 as the 128-byte swizzle
+// would need); at N=197 (KT = 13, 208 keys) 173,056 B, grown to 176,128 so
+// that the last query block's q and dO boxes fit below its start.  With
+// the K/V (then Q/dO) tiles, 2 x 26,624 B, the key row and the mbarriers:
+// 231,488 of the 232,448 B a CTA may have.  N above 208 does not fit; the
+// wrapper refuses it before launching.  The column phase's last key block
+// reads A rows past 16 KT keys (the next group's bytes): they only reach
+// output rows past N, which are not stored.
 //
-// Left on the table: one CTA of 8 warps per SM; 13 row tiles over 8 warps
-// at N=197 (5 warps take two); Q and dO wait for the row phase to finish
-// before they are copied; wgmma and TMA.
+// What bounds it on an H100, at B=256 H=12 N=197: bytes, qkv and dO read
+// and dqkv written once (14 B N D: 0.162 ms at 3.35 TB/s), against 10 B H
+// N^2 64 operations (0.061 ms at 989 TFLOP/s).  Left on the table
+// (PERF.md §6 row 5c): one CTA an SM and nothing of one (batch, head)
+// overlapping the next, so every CTA waits for its first loads and for Q
+// and dO after the barrier; the last query block of 64 rows (5 live rows at
+// N=197) costs a whole block's products; each product waits for the one
+// before.
 
-#include "flash_common.cuh"
+#include "wgmma_attention.cuh"
 
 namespace {
 
 using namespace clibd;
+using wgattn::fast_exp2;
+using wgattn::LOG2E;
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int MAX_KT = 13;  // 208 keys: the largest N whose Pb and dS fit
-constexpr int CHUNKS = HD / 8;
+constexpr int THREADS = 256;  // two consumer warpgroups
+constexpr int MAX_KT = 13;    // 208 keys: the largest N whose Pb and dS fit
+constexpr int BOX = 64 * HD * 2;  // a [64, 64] bf16 box
+constexpr int BAR_KV = 0, BAR_BLOCK = 1, BAR_COL = 1 + MAX_N / 64, NBARS = BAR_COL + 1;
+constexpr int BAR_WG = 1;  // named barriers 1, 2: one a warpgroup
 
-// Element offset of (row, col) in a row-major bf16 tile of W columns, the
-// 16-byte chunk index XORed with the row bits that tell apart the 8 rows
-// sharing a 128-byte bank line: W*2 bytes is 0, 64 or 32/96 modulo 128, so
-// 1, 2 or 4 consecutive rows fall on distinct banks without it.
-template <int W>
-__device__ __forceinline__ int swz(int row, int col) {
-  constexpr int line = (W * 2) % 128;
-  constexpr int sh = line == 0 ? 0 : line == 64 ? 1 : 2;
-  return row * W + (col ^ (((row >> sh) & (7 >> sh)) << 3));
+// bytes of an 8-query group of Pb and dS: two rows of 16 KT keys, 8 deep
+__host__ __device__ constexpr int group_bytes(int kt) { return kt * 512; }
+
+// the Pb / dS area: 2 KT groups, and at least two boxes past the last query
+// block's start (its q and dO land there)
+__host__ __device__ constexpr int pbds_bytes(int kt) {
+  const int whole = 2 * kt * group_bytes(kt);
+  const int last = (16 * kt - 1) / 64 * 8 * group_bytes(kt) + 2 * BOX;
+  return ((whole > last ? whole : last) + 1023) / 1024 * 1024;
 }
 
-// shared memory of a launch with KT key tiles
-__host__ __device__ constexpr size_t smem_bytes(int kt) {
-  return (size_t)2 * (kt * 16) * (kt * 16) * 2 + (size_t)2 * (kt * 16) * HD * 2 + (size_t)kt * 16 * 4;
+// shared memory of a launch with KT key tiles: 1 KB of alignment slack, Pb
+// and dS, the two operand tiles, the key row, the mbarriers
+__host__ __device__ constexpr int smem_bytes(int kt) {
+  return 1024 + pbds_bytes(kt) + 2 * kt * 16 * HD * 2 + MAX_N * 4 + NBARS * 8;
 }
 
-// cp.async N rows of one head's 64 columns (`src`, row stride rs) into a
-// swizzled [.][HD] tile; rows past N keep their zeros
-__device__ __forceinline__ void copy_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, long rs,
-                                          int N) {
-  for (int idx = threadIdx.x; idx < N * CHUNKS; idx += THREADS) {
-    const int r = idx / CHUNKS, c = (idx % CHUNKS) * 8;
-    cp_async16(dst + swz<HD>(r, c), src + r * rs + c);
+// a 64 x 64 fp32 accumulator as bf16 rows row0 + (its rows) below N at dst
+// (row stride rs), four bytes a thread and column pair
+__device__ __forceinline__ void store_acc(__nv_bfloat16* dst, long rs, const float (&acc)[32],
+                                          int row0, int N) {
+  const int tw = threadIdx.x % 128, lane = tw % 32;
+  const int r0 = row0 + (tw / 32) * 16 + lane / 4, r1 = r0 + 8;
+  __nv_bfloat16* o0 = dst + (long)r0 * rs + 2 * (lane % 4);
+  __nv_bfloat16* o1 = o0 + 8 * rs;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (r0 < N)
+      *reinterpret_cast<__nv_bfloat162*>(o0 + i * 8) = __floats2bfloat162_rn(acc[4 * i], acc[4 * i + 1]);
+    if (r1 < N)
+      *reinterpret_cast<__nv_bfloat162*>(o1 + i * 8) =
+          __floats2bfloat162_rn(acc[4 * i + 2], acc[4 * i + 3]);
   }
 }
 
-// A fragments (16 rows from row0, 64 columns) of a head's rows in device
-// memory (row stride rs; rows at or past N read as 0)
-__device__ __forceinline__ void load_a_global(uint32_t (&a)[HD / 16][4], const __nv_bfloat16* src,
-                                              long rs, int row0, int N, int g, int t) {
-  const int r0 = row0 + g, r1 = r0 + 8;
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    const int c = ks * 16 + t * 2;
-    a[ks][0] = r0 < N ? ld_u32(src + r0 * rs + c) : 0u;
-    a[ks][1] = r1 < N ? ld_u32(src + r1 * rs + c) : 0u;
-    a[ks][2] = r0 < N ? ld_u32(src + r0 * rs + c + 8) : 0u;
-    a[ks][3] = r1 < N ? ld_u32(src + r1 * rs + c + 8) : 0u;
-  }
-}
-
-// acc (16 x 8) += A (16 x 64) . T[row0 .. row0+7, :]^T for a swizzled
-// [.][HD] bf16 tile T (its rows are the 8 output columns)
-__device__ __forceinline__ void mma_rows(float (&acc)[4], const uint32_t (&a)[HD / 16][4],
-                                         const __nv_bfloat16* tile, int row0, int g, int t) {
-  const int r = row0 + g;
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks)
-    mma_bf16_16816(acc, a[ks], ld_u32(tile + swz<HD>(r, ks * 16 + t * 2)),
-                   ld_u32(tile + swz<HD>(r, ks * 16 + t * 2 + 8)));
-}
-
-// acc (16 x 64) += A (16 x 16) . T[k0 .. k0+15, :] for a swizzled [.][HD]
-// bf16 tile T, read k-major by ldmatrix.trans
-__device__ __forceinline__ void mma_kmajor_swz(float (&acc)[HD / 8][4], const uint32_t (&a)[4],
-                                               const __nv_bfloat16* tile, int k0, int lane) {
-  const int r = k0 + (lane & 15);
-#pragma unroll
-  for (int j = 0; j < HD / 8; j += 2) {
-    uint32_t bfr[4];
-    ldmatrix_x4_trans(bfr, tile + swz<HD>(r, j * 8 + (lane >> 4) * 8));
-    mma_bf16_16816(acc[j], a, bfr[0], bfr[1]);
-    mma_bf16_16816(acc[j + 1], a, bfr[2], bfr[3]);
-  }
-}
-
+// One warpgroup's query block qb (rows 64 qb ..): its q and dO boxes at blk
+// and blk + BOX, K and V in the operand tiles.
 template <int KT>
-__global__ void __launch_bounds__(THREADS, 1)
-bwd_phased_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ dout,
-                       const float* __restrict__ mask, __nv_bfloat16* __restrict__ dqkv, int N,
-                       int H, float scale) {
-  constexpr int NPAD = KT * 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Pb = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [NPAD][NPAD], swizzled
-  __nv_bfloat16* dS = Pb + NPAD * NPAD;                             // [NPAD][NPAD], swizzled
-  __nv_bfloat16* buf0 = dS + NPAD * NPAD;                           // K, then Q: [NPAD][HD]
-  __nv_bfloat16* buf1 = buf0 + NPAD * HD;                           // V, then dO
-  float* key_add = reinterpret_cast<float*>(buf1 + NPAD * HD);      // the mask, -inf past N
+__device__ __forceinline__ void row_block(unsigned char* pbds, const unsigned char* kt,
+                                          const unsigned char* vt, const float* key_row,
+                                          uint64_t* bar, __nv_bfloat16* dq, long rs, int qb, int N,
+                                          float scale) {
+  constexpr int NPAD = KT * 16, GROUP = group_bytes(KT);
+  const int tw = threadIdx.x % 128, warp = tw / 32, lane = tw % 32, t = lane & 3;
+  const int wg = threadIdx.x / 128;
+  unsigned char* blk = pbds + qb * 8 * GROUP;
+  const int r0 = qb * 64 + warp * 16 + lane / 4, r1 = r0 + 8;  // this thread's rows
+  mbar_wait(bar, 0);
 
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int D = H * HD;
-  const long rs = 3L * D;  // qkv and dqkv row stride
-  const __nv_bfloat16* qg = qkv + (long)b * N * rs + h * HD;
-  const __nv_bfloat16* og = dout + (long)b * N * D + h * HD;
-  __nv_bfloat16* dg = dqkv + (long)b * N * rs + h * HD;
+  // ---- S = q.K^T, the whole row of keys (the forward core's S blocks)
+  float p[KT * 8];
+  fence_operand(p);
+  wgmma_fence();
+  const uint64_t qd = desc_sw128(blk);
+  wgattn::s_block<KT, 0>(p, qd, desc_sw128(kt));
+  wgattn::s_block<KT, 1>(p, qd, desc_sw128(kt + BOX));
+  wgattn::s_block<KT, 2>(p, qd, desc_sw128(kt + 2 * BOX));
+  wgattn::s_block<KT, 3>(p, qd, desc_sw128(kt + 3 * BOX));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operand(p);
 
-  // rows N .. NPAD-1 of both buffers are zero for K and V and stay so for Q and dO
-  for (int idx = threadIdx.x; idx < 2 * (NPAD - N) * CHUNKS; idx += THREADS) {
-    const int r = N + (idx / CHUNKS) % (NPAD - N), c = (idx % CHUNKS) * 8;
-    *reinterpret_cast<uint4*>((idx < (NPAD - N) * CHUNKS ? buf0 : buf1) + swz<HD>(r, c)) =
-        make_uint4(0, 0, 0, 0);
-  }
-  for (int j = threadIdx.x; j < NPAD; j += THREADS)
-    key_add[j] = j < N ? (mask ? mask[(long)b * N + j] : 0.f) : -INFINITY;
-  copy_tile(buf0, qg + D, rs, N);
-  copy_tile(buf1, qg + 2 * D, rs, N);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int tiles = (N + 15) / 16;
-
-  // ---- row phase: Pb and dS of every row into shared memory, and dQ
-  for (int mt = warp; mt < tiles; mt += WARPS) {
-    const int r0 = mt * 16 + g, r1 = r0 + 8;
-    float s[2 * KT][4];
-    {
-      uint32_t qa[HD / 16][4];
-      load_a_global(qa, qg, rs, mt * 16, N, g, t);
-#pragma unroll
-      for (int nt = 0; nt < 2 * KT; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        mma_rows(s[nt], qa, buf0, nt * 8, g, t);
-      }
-    }
+  // ---- the exact softmax of the thread's two rows, in base 2 (the key row
+  // is mask * log2 e, -inf past N); P stays fp32, 0 in rows past N.  Every
+  // warp takes it, also one whose rows are all past N
+  {
+    const float c = scale * LOG2E;
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int nt = 0; nt < 2 * KT; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float add = key_add[nt * 8 + t * 2 + j];
-        s[nt][j] = fmaf(s[nt][j], scale, add);
-        s[nt][2 + j] = fmaf(s[nt][2 + j], scale, add);
-        mx0 = fmaxf(mx0, s[nt][j]);
-        mx1 = fmaxf(mx1, s[nt][2 + j]);
-      }
+    for (int i = 0; i < 2 * KT; ++i) {
+      const float2 a = *reinterpret_cast<const float2*>(key_row + i * 8 + 2 * t);
+      p[4 * i] = fmaf(p[4 * i], c, a.x);
+      p[4 * i + 1] = fmaf(p[4 * i + 1], c, a.y);
+      p[4 * i + 2] = fmaf(p[4 * i + 2], c, a.x);
+      p[4 * i + 3] = fmaf(p[4 * i + 3], c, a.y);
+      mx0 = fmaxf(mx0, fmaxf(p[4 * i], p[4 * i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(p[4 * i + 2], p[4 * i + 3]));
     }
     mx0 = quad_max(mx0);
     mx1 = quad_max(mx1);
     float l0 = 0.f, l1 = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < 2 * KT; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[nt][j] = expf(s[nt][j] - mx0);
-        s[nt][2 + j] = expf(s[nt][2 + j] - mx1);
-        l0 += s[nt][j];
-        l1 += s[nt][2 + j];
-      }
+    for (int i = 0; i < 2 * KT; ++i) {
+      p[4 * i] = fast_exp2(p[4 * i] - mx0);
+      p[4 * i + 1] = fast_exp2(p[4 * i + 1] - mx0);
+      p[4 * i + 2] = fast_exp2(p[4 * i + 2] - mx1);
+      p[4 * i + 3] = fast_exp2(p[4 * i + 3] - mx1);
+      l0 += p[4 * i] + p[4 * i + 1];
+      l1 += p[4 * i + 2] + p[4 * i + 3];
     }
-    l0 = quad_sum(l0);
+    l0 = quad_sum(l0);  // every lane of the quad shuffles, also past N
     l1 = quad_sum(l1);
+    const float inv0 = r0 < N ? 1.f / l0 : 0.f, inv1 = r1 < N ? 1.f / l1 : 0.f;
 #pragma unroll
-    for (int nt = 0; nt < 2 * KT; ++nt) {  // s holds the fp32 P from here on
-      s[nt][0] /= l0;
-      s[nt][1] /= l0;
-      s[nt][2] /= l1;
-      s[nt][3] /= l1;
+    for (int i = 0; i < 2 * KT; ++i) {
+      p[4 * i] *= inv0;
+      p[4 * i + 1] *= inv0;
+      p[4 * i + 2] *= inv1;
+      p[4 * i + 3] *= inv1;
     }
+  }
 
-    float dp[2 * KT][4];
-    float d0 = 0.f, d1 = 0.f;
-    {
-      uint32_t oa[HD / 16][4];  // dO rows, A fragments
-      load_a_global(oa, og, D, mt * 16, N, g, t);
+  // ---- dP = dO.V^T, the whole row of keys, the same products as S
+  float dp[KT * 8];
+  fence_operand(dp);
+  wgmma_fence();
+  const uint64_t od = desc_sw128(blk + BOX);
+  wgattn::s_block<KT, 0>(dp, od, desc_sw128(vt));
+  wgattn::s_block<KT, 1>(dp, od, desc_sw128(vt + BOX));
+  wgattn::s_block<KT, 2>(dp, od, desc_sw128(vt + 2 * BOX));
+  wgattn::s_block<KT, 3>(dp, od, desc_sw128(vt + 3 * BOX));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operand(dp);
+
+  // ---- rowsum(P * dP) of the thread's two rows, then dS and Pb rounded and
+  // packed as A (n8 tile i: row r0 in [i/2][2(i%2)], row r1 in [i/2][2(i%2)+1])
+  float d0 = 0.f, d1 = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < 2 * KT; ++nt) {
-        dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-        mma_rows(dp[nt], oa, buf1, nt * 8, g, t);
-        d0 += s[nt][0] * dp[nt][0] + s[nt][1] * dp[nt][1];
-        d1 += s[nt][2] * dp[nt][2] + s[nt][3] * dp[nt][3];
+  for (int i = 0; i < 2 * KT; ++i) {
+    d0 += p[4 * i] * dp[4 * i] + p[4 * i + 1] * dp[4 * i + 1];
+    d1 += p[4 * i + 2] * dp[4 * i + 2] + p[4 * i + 3] * dp[4 * i + 3];
+  }
+  d0 = quad_sum(d0);
+  d1 = quad_sum(d1);
+  uint32_t ds[KT][4], pb[KT][4];
+#pragma unroll
+  for (int i = 0; i < 2 * KT; ++i) {
+    const int g = 4 * i;
+    ds[i / 2][2 * (i % 2)] = pack_bf16x2((p[g] * (dp[g] - d0)) * scale,
+                                         (p[g + 1] * (dp[g + 1] - d0)) * scale);
+    ds[i / 2][2 * (i % 2) + 1] = pack_bf16x2((p[g + 2] * (dp[g + 2] - d1)) * scale,
+                                             (p[g + 3] * (dp[g + 3] - d1)) * scale);
+    pb[i / 2][2 * (i % 2)] = pack_bf16x2(p[g], p[g + 1]);
+    pb[i / 2][2 * (i % 2) + 1] = pack_bf16x2(p[g + 2], p[g + 3]);
+  }
+  named_barrier(BAR_WG + wg, 128);  // every warp's products have read q and dO
+
+  // ---- Pb and dS of the rows below NPAD into the block's groups
+  const uint32_t kr = lane / 4;  // row within the 8-query group
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? r1 : r0;
+    if (r < NPAD) {
+      unsigned char* g = pbds + (r / 8) * GROUP;
+#pragma unroll
+      for (int n = 0; n < 2 * KT; ++n) {
+        const uint32_t off = (n / 2) * 256 + sw32_offset((n % 2) * 8 + 2 * t, kr);
+        *reinterpret_cast<uint32_t*>(g + off) = pb[n / 2][2 * (n % 2) + half];
+        *reinterpret_cast<uint32_t*>(g + KT * 256 + off) = ds[n / 2][2 * (n % 2) + half];
       }
     }
-    d0 = quad_sum(d0);
-    d1 = quad_sum(d1);
-    const bool live0 = r0 < N, live1 = r1 < N;
+  }
+
+  // ---- dQ = dS.K, dS from registers, K MN-major
+  float acc[32];
+  fence_operand(acc);
 #pragma unroll
-    for (int nt = 0; nt < 2 * KT; ++nt) {
-      const int col = nt * 8 + t * 2;
-      const uint32_t ds0 = pack_bf16x2((s[nt][0] * (dp[nt][0] - d0)) * scale,
-                                       (s[nt][1] * (dp[nt][1] - d0)) * scale);
-      const uint32_t ds1 = pack_bf16x2((s[nt][2] * (dp[nt][2] - d1)) * scale,
-                                       (s[nt][3] * (dp[nt][3] - d1)) * scale);
-      *reinterpret_cast<uint32_t*>(Pb + swz<NPAD>(r0, col)) = live0 ? pack_bf16x2(s[nt][0], s[nt][1]) : 0u;
-      *reinterpret_cast<uint32_t*>(Pb + swz<NPAD>(r1, col)) = live1 ? pack_bf16x2(s[nt][2], s[nt][3]) : 0u;
-      *reinterpret_cast<uint32_t*>(dS + swz<NPAD>(r0, col)) = live0 ? ds0 : 0u;
-      *reinterpret_cast<uint32_t*>(dS + swz<NPAD>(r1, col)) = live1 ? ds1 : 0u;
-    }
-    __syncwarp();  // the warp's dS rows are in shared memory
+  for (int kc = 0; kc < KT; ++kc) fence_operand(ds[kc]);
+  wgmma_fence();
+  const uint64_t kd = desc_sw128_mn(kt);
+#pragma unroll
+  for (int kc = 0; kc < KT; ++kc) WgmmaRS<64, 1>::mma(acc, ds[kc], desc_add(kd, kc * 2048), kc > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operand(acc);
+  store_acc(dq, rs, acc, qb * 64, N);
+}
 
-    float dq[HD / 8][4];
-    zero(dq);
-    for (int kt = 0; kt < tiles; ++kt) {
-      uint32_t a[4];
-      ldmatrix_x4(a, dS + swz<NPAD>(mt * 16 + (lane & 15), kt * 16 + (lane >> 4) * 8));
-      mma_kmajor_swz(dq, a, buf0, kt * 16, lane);
-    }
-    store_rows(dg, rs, dq, mt * 16, N, g, t);
+// One warpgroup's key block kb (keys 64 kb ..): dV = Pb^T.dO and dK = dS^T.Q
+template <int KT>
+__device__ __forceinline__ void column_block(const unsigned char* pbds, const unsigned char* qt,
+                                             const unsigned char* ot, __nv_bfloat16* dk,
+                                             __nv_bfloat16* dv, long rs, int kb, int N) {
+  constexpr int GROUP = group_bytes(KT);
+  float acc_v[32], acc_k[32];
+  fence_operand(acc_v);
+  fence_operand(acc_k);
+  wgmma_fence();
+  const uint64_t pd = desc_sw32_mn(pbds + kb * 1024, 256, GROUP);
+  const uint64_t od = desc_sw128_mn(ot), qd = desc_sw128_mn(qt);
+#pragma unroll
+  for (int kc = 0; kc < KT; ++kc) {  // 16 queries: two 8-query groups
+    const uint64_t a = desc_add(pd, kc * 2 * GROUP);
+    Wgmma<64, 1, 1>::mma(acc_v, a, desc_add(od, kc * 2048), kc > 0);
+    Wgmma<64, 1, 1>::mma(acc_k, desc_add(a, KT * 256), desc_add(qd, kc * 2048), kc > 0);
   }
-  __syncthreads();  // K and V are no longer read; Pb and dS are complete
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operand(acc_v);
+  fence_operand(acc_k);
+  store_acc(dk, rs, acc_k, kb * 64, N);
+  store_acc(dv, rs, acc_v, kb * 64, N);
+}
 
-  // ---- column phase: dK and dV, 16 keys per warp
-  copy_tile(buf0, qg, rs, N);
-  copy_tile(buf1, og, D, N);
-  cp_async_commit();
-  cp_async_wait<0>();
+template <int KT>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_phased_bf16_kernel(const __grid_constant__ CUtensorMap qkv_rows,
+                       const __grid_constant__ CUtensorMap qkv_all,
+                       const __grid_constant__ CUtensorMap dout_rows,
+                       const __grid_constant__ CUtensorMap dout_all, const float* __restrict__ mask,
+                       __nv_bfloat16* __restrict__ dqkv, int N, int H, float scale) {
+  constexpr int NPAD = KT * 16, TILE = NPAD * HD * 2, GROUP = group_bytes(KT);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* pbds = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* tile0 = pbds + pbds_bytes(KT);  // K, then Q
+  unsigned char* tile1 = tile0 + TILE;           // V, then dO
+  float* key_row = reinterpret_cast<float*>(tile1 + TILE);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(key_row + MAX_N);
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H, D = H * HD;
+  const long rs = 3L * D;  // dqkv row stride
+  const int nblk = (N + 63) / 64;
+  __nv_bfloat16* dg = dqkv + (long)b * N * rs + h * HD;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NBARS; ++i) mbar_init(bars + i, 1);
+    fence_barrier_init();
+    mbar_arrive_expect_tx(bars + BAR_KV, 2 * TILE);
+    tma_load_3d(tile0, &qkv_all, bars + BAR_KV, D + h * HD, 0, b);
+    tma_load_3d(tile1, &qkv_all, bars + BAR_KV, 2 * D + h * HD, 0, b);
+    for (int qb = 0; qb < nblk; ++qb) {
+      uint64_t* bar = bars + BAR_BLOCK + qb;
+      mbar_arrive_expect_tx(bar, 2 * BOX);
+      tma_load_3d(pbds + qb * 8 * GROUP, &qkv_rows, bar, h * HD, qb * 64, b);
+      tma_load_3d(pbds + qb * 8 * GROUP + BOX, &dout_rows, bar, h * HD, qb * 64, b);
+    }
+  }
+  wgattn::key_row(key_row, mask, b, N);
+  // rows 64 nblk .. NPAD-1 belong to no query block: zeros, for the column phase
+  for (int i = nblk * 8 * GROUP / 16 + threadIdx.x; i < 2 * KT * GROUP / 16; i += THREADS)
+    reinterpret_cast<uint4*>(pbds)[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
-  // lane's row and column in a 16 x 16 block read transposed by ldmatrix:
-  // matrices (keys 0-7, queries 0-7), (keys 8-15, queries 0-7), (keys 0-7,
-  // queries 8-15), (keys 8-15, queries 8-15) -- the A fragment of the transpose
-  const int tr_row = (lane & 7) + 8 * ((lane >> 4) & 1);
-  const int tr_col = 8 * ((lane >> 3) & 1);
-  for (int ct = warp; ct < tiles; ct += WARPS) {
-    float dk[HD / 8][4], dv[HD / 8][4];
-    zero(dk);
-    zero(dv);
-    for (int qt = 0; qt < tiles; ++qt) {
-      uint32_t pa[4], da[4];
-      ldmatrix_x4_trans(pa, Pb + swz<NPAD>(qt * 16 + tr_row, ct * 16 + tr_col));
-      ldmatrix_x4_trans(da, dS + swz<NPAD>(qt * 16 + tr_row, ct * 16 + tr_col));
-      mma_kmajor_swz(dv, pa, buf1, qt * 16, lane);
-      mma_kmajor_swz(dk, da, buf0, qt * 16, lane);
-    }
-    store_rows(dg + D, rs, dk, ct * 16, N, g, t);
-    store_rows(dg + 2 * D, rs, dv, ct * 16, N, g, t);
+
+  // ---- row phase
+  const int wg = threadIdx.x / 128;
+  mbar_wait(bars + BAR_KV, 0);
+  for (int qb = wg; qb < nblk; qb += 2)
+    row_block<KT>(pbds, tile0, tile1, key_row, bars + BAR_BLOCK + qb, dg, rs, qb, N, scale);
+  fence_proxy_async();  // Pb and dS, visible to the column phase's wgmma
+  __syncthreads();      // and K and V no longer read
+
+  // ---- column phase: Q and dO where K and V were
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(bars + BAR_COL, 2 * TILE);
+    tma_load_3d(tile0, &qkv_all, bars + BAR_COL, h * HD, 0, b);
+    tma_load_3d(tile1, &dout_all, bars + BAR_COL, h * HD, 0, b);
   }
+  mbar_wait(bars + BAR_COL, 0);
+  for (int kb = wg; kb < nblk; kb += 2)
+    column_block<KT>(pbds, tile0, tile1, dg + D, dg + 2 * D, rs, kb, N);
 }
 
 template <int KT>
 cudaError_t launch(const void* qkv, const void* dout, const float* mask, void* dqkv, int B, int N,
                    int H, cudaStream_t stream) {
-  const size_t smem = smem_bytes(KT);
+  const int D = H * HD;
+  CUtensorMap maps[4];
+  const uint32_t box[2] = {64, KT * 16};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t e = encode_bf16_sw128(maps + i, i < 2 ? qkv : dout, N, i < 2 ? 3 * D : D,
+                                            box[i % 2], B);
+    if (e != cudaSuccess) return e;
+  }
+  const int smem = smem_bytes(KT);
   cudaError_t e = cudaFuncSetAttribute(bwd_phased_bf16_kernel<KT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   bwd_phased_bf16_kernel<KT><<<B * H, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(dout), mask,
-      static_cast<__nv_bfloat16*>(dqkv), N, H, 1.0f / sqrtf((float)HD));
+      maps[0], maps[1], maps[2], maps[3], mask, static_cast<__nv_bfloat16*>(dqkv), N, H,
+      1.0f / sqrtf((float)HD));
   return cudaGetLastError();
 }
 
@@ -304,10 +367,10 @@ long clibd_flash_bwd_phased_smem_bytes(int N) {
   return N < 1 || kt_for(N) == 0 ? 0 : (long)smem_bytes(kt_for(N));
 }
 
-// qkv [B, N, 3*H*64] and dout [B, N, H*64] bf16 contiguous; mask [B, N] fp32
-// or null; dqkv [B, N, 3*H*64] bf16.  Launches on `stream` and returns
-// cudaGetLastError() (0 = launched); cudaErrorInvalidValue for shapes it does
-// not take.
+// qkv [B, N, 3*H*64] and dout [B, N, H*64] bf16 contiguous, 16-byte
+// aligned; mask [B, N] fp32 or null; dqkv [B, N, 3*H*64] bf16.  Launches on
+// `stream` and returns cudaGetLastError() (0 = launched);
+// cudaErrorInvalidValue for shapes it does not take.
 int clibd_flash_attention_qkv_bwd_phased(const void* qkv, const void* dout, const float* mask,
                                          void* dqkv, int B, int N, int H, void* stream) {
   const size_t smem = (size_t)clibd_flash_bwd_phased_smem_bytes(N);

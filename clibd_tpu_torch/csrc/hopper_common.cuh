@@ -1,13 +1,13 @@
 // Hopper (sm_90a) building blocks for the port's kernels: the wgmma
-// shared-memory descriptor and products (A from shared memory or from
+// shared-memory descriptors and products (A from shared memory or from
 // registers), mbarriers, TMA loads (plain and
 // multicast to a cluster) and stores, proxy fences, named and cluster
-// barriers, and the host-side encoding of a 2-D or 3-D bf16
-// tensor map.  Every operand these helpers describe has the 128-byte
-// swizzle: rows of 64 bf16 (128 bytes) in atoms of 8 rows (1 KB), so a
-// tile's base must be 1024-byte aligned; K-major, or MN-major for a
-// transposed B.  ops/cuda_build.py hashes this
-// header with each source.
+// barriers, and the host-side encoding of a 2-D or 3-D bf16 tensor map.
+// Operands loaded by TMA have the 128-byte swizzle: rows of 64 bf16 (128
+// bytes) in atoms of 8 rows (1 KB), so a tile's base must be 1024-byte
+// aligned; K-major, or MN-major for a transposed A or B.  Operands a kernel
+// writes itself may have the 32-byte swizzle (desc_sw32_mn), whose atoms are
+// 16 elements wide.  ops/cuda_build.py hashes this header with each source.
 
 #pragma once
 
@@ -205,6 +205,25 @@ __device__ __forceinline__ uint64_t desc_sw128_mn(const void* p, uint32_t lbo = 
          (1ull << 62);
 }
 
+// Descriptor of an MN-major, 32-byte-swizzled bf16 operand at p (layout
+// 3): atoms of 16 MN-elements by 8 k rows, each k row 32 bytes, 256 bytes
+// an atom (so 256-byte aligned), the 16-byte half of a row at MN-element
+// 8j of the atom stored at half j ^ (k row / 4 % 2) (bit 4 of the address
+// XORed with bit 7); atoms `lbo` bytes apart along MN (leading byte
+// offset) and `sbo` bytes apart from one 8-row group of k to the next
+// (stride byte offset).  Its atoms are a quarter of the 128-byte
+// swizzle's width, so an MN extent pads to 16 elements, not 64.
+__device__ __forceinline__ uint64_t desc_sw32_mn(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (3ull << 62);
+}
+
+// byte offset of (mn, k) in such an atom
+__device__ __forceinline__ uint32_t sw32_offset(int mn, int k) {
+  return k * 32 + ((((mn >> 3) ^ (k >> 2)) & 1) << 4) + (mn & 7) * 2;
+}
+
 // desc advanced by `bytes` (a multiple of 16)
 __device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
   return desc + (bytes >> 4);
@@ -238,48 +257,49 @@ __device__ __forceinline__ void fence_operand(uint32_t (&a)[K]) {
 }
 
 // d[64 x N] (+)= A[64 x 16] . B[16 x N] for N = 16, 32, 64, 128, 192 and
-// 256, A bf16 K-major in shared memory (desc_sw128), B bf16 in shared
-// memory K-major (TRANS_B 0: stored as B^T [N, 16], desc_sw128) or MN-major
-// (TRANS_B 1: stored as B [16, N], desc_sw128_mn), fp32 accumulator (N / 2
-// registers a thread); scale_d 0 overwrites d.  Accumulator
-// layout, for thread t of the warpgroup (warp w = t / 32, lane l): d[4j +
+// 256, A bf16 in shared memory K-major (TRANS_A 0: desc_sw128) or MN-major
+// (TRANS_A 1: stored as A^T [16, 64], desc_sw128_mn or desc_sw32_mn), B
+// bf16 in shared memory K-major (TRANS_B 0: stored as B^T [N, 16],
+// desc_sw128) or MN-major (TRANS_B 1: stored as B [16, N], desc_sw128_mn),
+// fp32 accumulator (N / 2 registers a thread); scale_d 0 overwrites d.
+// Accumulator layout, for thread t of the warpgroup (warp w = t / 32, lane l): d[4j +
 // {0, 1}] is row 16w + l/4, columns 8j + 2(l%4) + {0, 1}; d[4j + {2, 3}] the
 // same columns of row 16w + l/4 + 8.
-template <int N, int TRANS_B = 0>
+template <int N, int TRANS_B = 0, int TRANS_A = 0>
 struct Wgmma;
 
-template <int TB>
-struct Wgmma<16, TB> {
+template <int TB, int TA>
+struct Wgmma<16, TB, TA> {
   __device__ __forceinline__ static void mma(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, %8, %9, p, 1, 1, 0, %11;\n}\n"
+        "}, %8, %9, p, 1, 1, %12, %11;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
 };
 
-template <int TB>
-struct Wgmma<32, TB> {
+template <int TB, int TA>
+struct Wgmma<32, TB, TA> {
   __device__ __forceinline__ static void mma(float (&d)[16], uint64_t a, uint64_t b,
                                              int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+        "}, %16, %17, p, 1, 1, %20, %19;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
 };
 
-template <int TB>
-struct Wgmma<64, TB> {
+template <int TB, int TA>
+struct Wgmma<64, TB, TA> {
   __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a, uint64_t b,
                                              int scale_d) {
     asm volatile(
@@ -287,19 +307,19 @@ struct Wgmma<64, TB> {
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
 };
 
-template <int TB>
-struct Wgmma<128, TB> {
+template <int TB, int TA>
+struct Wgmma<128, TB, TA> {
   __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a, uint64_t b,
                                              int scale_d) {
     asm volatile(
@@ -309,7 +329,7 @@ struct Wgmma<128, TB> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -321,12 +341,12 @@ struct Wgmma<128, TB> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
 };
 
-template <int TB>
-struct Wgmma<192, TB> {
+template <int TB, int TA>
+struct Wgmma<192, TB, TA> {
   __device__ __forceinline__ static void mma(float (&d)[96], uint64_t a, uint64_t b,
                                              int scale_d) {
     asm volatile(
@@ -338,7 +358,7 @@ struct Wgmma<192, TB> {
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
         "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-        "}, %96, %97, p, 1, 1, 0, %99;\n}\n"
+        "}, %96, %97, p, 1, 1, %100, %99;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -355,12 +375,12 @@ struct Wgmma<192, TB> {
           "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
           "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
           "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
 };
 
-template <int TB>
-struct Wgmma<256, TB> {
+template <int TB, int TA>
+struct Wgmma<256, TB, TA> {
   __device__ __forceinline__ static void mma(float (&d)[128], uint64_t a, uint64_t b,
                                              int scale_d) {
     asm volatile(
@@ -374,7 +394,7 @@ struct Wgmma<256, TB> {
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+        "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -397,7 +417,7 @@ struct Wgmma<256, TB> {
           "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
           "+f"(d[126]), "+f"(d[127])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
 };
 

@@ -7,23 +7,35 @@
 //
 // What bounds it on an H100: one multiply per 8 bytes moved, so device
 // memory, nothing else: 2 * 4 * n bytes (134.2 MB at the probe's 64 MB
-// input, 0.040 ms at 3.35 TB/s).
+// input, 0.040 ms at 3.35 TB/s).  What it takes to get near that is enough
+// bytes in flight on every SM to cover the memory latency.
 //
-// Design: a grid-stride loop over 16-byte vectors (float4, neighbouring
-// threads on neighbouring addresses), four loads a thread issued before
-// their four stores so that enough bytes are in flight to cover the memory
-// latency, streaming cache hints (the data is touched once), a grid of at
-// most 8 CTAs per SM, and a scalar tail for the last n % 4 elements.  The
-// TPU kernel's [128, 2048] blocks are VMEM tiles with no counterpart here:
+// Design: a loop over 16-byte vectors (float4, neighbouring threads on
+// neighbouring addresses), UNROLL = 8 loads a thread issued before their
+// eight stores (128 bytes a thread in flight), plain loads and stores, and a
+// grid of one CTA per THREADS * UNROLL vectors (32 KB), so every thread
+// makes one pass; a scalar tail takes the last n % 4 elements.  The TPU
+// kernel's [128, 2048] blocks are VMEM tiles with no counterpart here:
 // nothing is staged on chip.  fp32 x * alpha rounds once, as the plain
 // version does, so the two agree bit for bit.
+//
+// Measured on the card (PERF.md §6 row 6, tools/exp_probe_sched.py --copy,
+// NVIDIA H100 80GB HBM3 at 700 W): the fastest of the designs tried, level
+// with torch.mul at 64 MB.  Slower there: the loop it replaced (four
+// vectors a thread, streaming __ldcs / __stcs hints, at most 8 CTAs an SM),
+// and rings of Hopper's 1-D bulk copies (cp.async.bulk loads, and bulk or
+// plain stores, through 4-32 KB shared-memory slots, one or two persistent
+// CTAs an SM), which streamed as fast out of L2 but 6-18% slower out of
+// device memory.  Left on the table: nothing measured against torch.mul and
+// y.copy_, which reach the same 2.7 TB/s (81% of the published rate).
 
-#include "flash_common.cuh"
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int UNROLL = 4;  // float4s a thread has in flight per step
+constexpr int UNROLL = 8;  // float4s a thread has in flight per step
 
 __global__ void __launch_bounds__(THREADS)
 scale_copy_kernel(const float4* __restrict__ x, float4* __restrict__ y, long n4, float alpha,
@@ -36,13 +48,12 @@ scale_copy_kernel(const float4* __restrict__ x, float4* __restrict__ y, long n4,
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const long i = base + (long)u * THREADS;
-      if (i < n4) v[u] = __ldcs(x + i);
+      if (i < n4) v[u] = x[i];
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const long i = base + (long)u * THREADS;
-      if (i < n4)
-        __stcs(y + i, make_float4(v[u].x * alpha, v[u].y * alpha, v[u].z * alpha, v[u].w * alpha));
+      if (i < n4) y[i] = make_float4(v[u].x * alpha, v[u].y * alpha, v[u].z * alpha, v[u].w * alpha);
     }
   }
   if (blockIdx.x == 0 && threadIdx.x < tail) yt[threadIdx.x] = xt[threadIdx.x] * alpha;
@@ -57,12 +68,9 @@ extern "C" {
 int clibd_scale_copy(const float* x, float* y, int n, float alpha, void* stream) {
   if (n < 0 || ((uintptr_t)x | (uintptr_t)y) % 16) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   const long n4 = n / 4;
   const long want = (n4 + THREADS * UNROLL - 1) / (THREADS * UNROLL);
-  const int blocks = (int)(want < 1 ? 1 : (want < 8L * sms ? want : 8L * sms));
+  const int blocks = (int)(want < 1 ? 1 : want);
   scale_copy_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(y), n4, alpha, x + 4 * n4,
       y + 4 * n4, (int)(n - 4 * n4));

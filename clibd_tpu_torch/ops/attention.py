@@ -77,8 +77,11 @@ warpgroup's softmax runs while the next one's products are in flight;
 three warpgroups walk every head free of each other.  Both take N <= 256
 and, unlike the bf16 forward kernel above, round P to bf16 after the
 normalisation, as the numerics below do.  `csrc/flash_attention_qkv_bwd_phased.cu`
-keeps Pb and dS of a (batch, head) in shared memory so S and dP are
-computed once.  Each computes what its JAX variant does, so its plain
+keeps Pb and dS of a (batch, head) in shared memory so S is computed once:
+a CTA of two warpgroups per (batch, head), every product on `wgmma` with
+its operands loaded by TMA (a row phase of 64-query blocks: S, the softmax,
+dP in 64-key chunks, dQ; then a column phase of 64-key blocks: dV and dK
+from Pb and dS read transposed).  Each computes what its JAX variant does, so its plain
 version is the forward's or the backward's (`flash_attention_qkv_reference`,
 `flash_attention_qkv_bwd_reference`), and a CPU tensor runs that.  They
 take bf16 only (TypeError otherwise), have no autograd (the JAX variants

@@ -4,13 +4,15 @@ Pallas kernel, `tools/exp_attn.py::probe_pallas_bandwidth` (`kern`, o = i *
 
 `scale_copy(x, alpha=2.0)` returns a new fp32 tensor of x's shape.  On a
 CUDA tensor it launches the hand-written kernel (`csrc/scale_copy.cu`: a
-grid-stride loop of 16-byte vectors and a scalar tail); on a CPU tensor it
-runs the plain version, `scale_copy_reference`.  An fp32 product rounds
-once, so the two agree bit for bit.  There is no fallback from the card to
-the plain version: a build or launch error raises.
+persistent grid, one contiguous range of 16-byte vectors a CTA, moved in
+16 KB chunks by Hopper's 1-D bulk copies through a ring of 8 slots in
+shared memory and multiplied there in place; a scalar tail); on a CPU
+tensor it runs the plain version, `scale_copy_reference`.  An fp32 product
+rounds once, so the two agree bit for bit.  There is no fallback from the
+card to the plain version: a build or launch error raises.
 
 Deliberately absent (TPU-only): the probe's [128, 2048] VMEM blocks and its
-grid of 64; the kernel stages nothing on chip.
+grid of 64; the ring's 16 KB slots are their counterpart.
 """
 
 from __future__ import annotations

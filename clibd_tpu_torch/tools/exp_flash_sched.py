@@ -1,10 +1,13 @@
-"""Where do the phased and batched forward kernels' times go?
+"""Where do the phased forward and backward kernels' times go?
 
     python3 -m clibd_tpu_torch.tools.exp_flash_sched [--phased FILE] [--batched FILE]
+        [--bwd FILE ...]
 
 Builds scratch variants of the two forward schedules of `tools/exp_flash.py`
 -- FILE, by default the committed `csrc/flash_attention_qkv_phased.cu` and
-`csrc/flash_attention_qkv_batched.cu` -- side by side into
+`csrc/flash_attention_qkv_batched.cu` -- and of its phased backward (each
+`--bwd` FILE, by default the committed
+`csrc/flash_attention_qkv_bwd_phased.cu`) side by side into
 `build/exp_flash_sched/`, and in one process, at the harness's shapes (B=256,
 H=12, bf16; N=197 unmasked and N=133 with a random key mask):
 
@@ -36,6 +39,19 @@ registers, no context tile: still one CTA of 4 warps a SM, two stages of
 K and V) and `no_tile_1stage` (the same with one stage: three CTAs, 12
 warps a SM).
 
+The backward's variants (`bwd_variants`) are `kernel` and `sections`: the
+clock64 cycles of thread 0 a CTA, for the committed kernel (`BWD_SECTIONS`:
+the loads issued and K/V waited for, the row phase, the barrier after it,
+the wait for Q and dO, the column phase; and through each query block of
+warpgroup 0: the wait for q and dO, S, the softmax, dP, rowsum(P * dP)
+with dS and Pb, the warpgroup's barrier, the Pb/dS stores, dQ) and for the
+previous one
+(`PREV_BWD_SECTIONS`, `git show 60df5e0:...`: an mma.sync kernel fed by
+cp.async; K/V staged, the row phase, the barrier, the Q/dO copy with its
+wait, the column phase).  Each is checked against the plain version on the
+first 8 batch rows and timed twice, interleaved, beside the backward kernel
+(`v0`) and SDPA's backward.  A source of neither kind is built as it is.
+
 Needs a CUDA card and nvcc, and raises without; prints the card's name and
 power limit first.
 """
@@ -49,7 +65,12 @@ from pathlib import Path
 
 import torch
 
-from ..ops.attention import flash_attention_qkv_cuda, flash_attention_qkv_reference
+from ..ops.attention import (
+    flash_attention_qkv_bwd_cuda,
+    flash_attention_qkv_bwd_reference,
+    flash_attention_qkv_cuda,
+    flash_attention_qkv_reference,
+)
 from ..ops.cuda_build import CSRC, NVCC_FLAGS, build_dir, find_nvcc
 from ..utils.profiling import card_line, cuda_ms
 from .exp_flash import sdpa
@@ -374,21 +395,99 @@ class Variant:
             raise RuntimeError(f"launch failed: CUDA error {rc}")
 
 
-def main() -> None:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phased", type=Path, default=SOURCES["phased"])
-    parser.add_argument("--batched", type=Path, default=SOURCES["batched"])
-    args = parser.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("exp_flash_sched needs a CUDA card")
-    card = card_line()
-    print(card, flush=True)
-    sections, sources = {}, {}
-    for schedule, path in (("phased", args.phased), ("batched", args.batched)):
-        kind, variants, names = variants_of(path.read_text())
-        sections[schedule] = (kind, names)
-        sources.update({f"{schedule}_{n}": text for n, text in variants.items()})
-    libs = build(sources)
+# ---------------------------------------------------------------------------
+# the phased backward: the committed kernel (wgmma on TMA-loaded operands)
+# and the previous one (mma.sync from cp.async copies)
+# ---------------------------------------------------------------------------
+BWD_SOURCE = CSRC / "flash_attention_qkv_bwd_phased.cu"
+BWD_START = "  __nv_bfloat16* dg = dqkv + (long)b * N * rs + h * HD;\n"  # both kinds
+PREV_BWD_MARK = "mma_kmajor_swz(dv, pa, buf1, qt * 16, lane);"
+PBW_STAGED = ("  copy_tile(buf1, qg + 2 * D, rs, N);\n  cp_async_commit();\n  cp_async_wait<0>();\n"
+              "  __syncthreads();\n")
+PBW_ROWS = "  __syncthreads();  // K and V are no longer read; Pb and dS are complete\n"
+PBW_COPIED = ("  copy_tile(buf1, og, D, N);\n  cp_async_commit();\n  cp_async_wait<0>();\n"
+              "  __syncthreads();\n")
+PBW_END = "    store_rows(dg + 2 * D, rs, dv, ct * 16, N, g, t);\n  }\n}\n"
+PREV_BWD_SECTIONS = ("K/V staged (issue, wait, barrier)", "row phase", "barrier after it",
+                     "Q/dO copy and wait", "column phase")
+BWD_MARK = "column_block<KT>(pbds, tile0, tile1"
+BW_KV = "  mbar_wait(bars + BAR_KV, 0);\n"
+BW_ROWS = "  fence_proxy_async();  // Pb and dS, visible to the column phase's wgmma\n"
+BW_BARRIER = "  __syncthreads();      // and K and V no longer read\n"
+BW_COL = "  mbar_wait(bars + BAR_COL, 0);\n"
+BW_END = "    column_block<KT>(pbds, tile0, tile1, dg + D, dg + 2 * D, rs, kb, N);\n}\n"
+# row_block, through each query block of warpgroup 0: (anchor, where the
+# tick goes: after it, before it, or both)
+RB_START = "  const int r0 = qb * 64 + warp * 16 + lane / 4, r1 = r0 + 8;  // this thread's rows\n"
+RB_END = "  store_acc(dq, rs, acc, qb * 64, N);\n}\n"
+RB_TICKS = (("  mbar_wait(bar, 0);\n", "after"),
+            ("  wgmma_wait<0>();\n  fence_operand(p);\n", "after"),
+            ("  // ---- dP = dO.V^T", "before"),
+            ("  wgmma_wait<0>();\n  fence_operand(dp);\n", "after"),
+            ("  named_barrier(BAR_WG + wg, 128);  // every warp's products have read q and dO\n",
+             "both"),
+            ("  // ---- dQ = dS.K", "before"))
+BWD_SECTIONS = ("loads issued, key row, K/V wait", "row phase", "barrier after it", "Q/dO wait",
+                "column phase") + tuple(f"block: {s}" for s in (
+                    "q/dO wait", "S", "softmax", "dP", "rowsum, dS and Pb", "warpgroup barrier",
+                    "Pb/dS stores", "dQ and its store"))
+
+
+def _stamps(names) -> str:
+    return "".join(f"  const long long {n} = clock64();\n" for n in names)
+
+
+def _prev_bwd_sections(src: str) -> str:
+    return _profiled(src, [
+        (BWD_START, BWD_START + _stamps(["p0"])),
+        (PBW_STAGED, PBW_STAGED + _stamps(["p1"])),
+        (PBW_ROWS, _stamps(["p2"]) + PBW_ROWS + _stamps(["p3"])),
+        (PBW_COPIED, PBW_COPIED + _stamps(["p4"])),
+        (PBW_END, PBW_END[:-2] + _atomics(["p1 - p0", "p2 - p1", "p3 - p2", "p4 - p3",
+                                            "clock64() - p4"]) + "}\n"),
+    ])
+
+
+def _row_tick(k: int) -> str:
+    return ("  c1_ = clock64();\n  if (threadIdx.x == 0) atomicAdd(g_prof + "
+            f"{k}, (unsigned long long)(c1_ - c0_));\n  c0_ = c1_;\n")
+
+
+def _bwd_sections(src: str) -> str:
+    """clock64 ticks of thread 0: the kernel's five stretches in g_prof[0..4],
+    warpgroup 0's query blocks in g_prof[5..12] and their count in g_prof[13]"""
+    edits = [(BWD_START, BWD_START + _stamps(["p0"])),
+             (BW_KV, BW_KV + _stamps(["p1"])),
+             (BW_ROWS, _stamps(["p2"]) + BW_ROWS),
+             (BW_BARRIER, BW_BARRIER + _stamps(["p3"])),
+             (BW_COL, BW_COL + _stamps(["p4"])),
+             (BW_END, BW_END[:-2] + _atomics(["p1 - p0", "p2 - p1", "p3 - p2", "p4 - p3",
+                                              "clock64() - p4"]) + "}\n"),
+             (RB_START, RB_START + "  long long c0_ = clock64(), c1_;\n")]
+    k = 5
+    for anchor, where in RB_TICKS:
+        before = _row_tick(k) if where != "after" else ""
+        k += where != "after"
+        after = _row_tick(k) if where != "before" else ""
+        k += where != "before"
+        edits.append((anchor, before + anchor + after))
+    edits.append((RB_END, RB_END[:-2] + _row_tick(k)
+                   + "  if (threadIdx.x == 0) atomicAdd(g_prof + 13, 1ull);\n}\n"))
+    return _profiled(src, edits)
+
+
+def bwd_variants(src: str) -> tuple:
+    """(kind, {name: source}, section names) of a backward source: `kernel`
+    as it is and `sections` for the committed and the previous kernel; a
+    source of neither kind is built as it is, with no sections"""
+    if BWD_MARK in src:
+        return "bwd", {"kernel": src, "sections": _bwd_sections(src)}, BWD_SECTIONS
+    if PREV_BWD_MARK in src:
+        return "prev_bwd", {"kernel": src, "sections": _prev_bwd_sections(src)}, PREV_BWD_SECTIONS
+    return "other", {"kernel": src}, ()
+
+
+def _report_ptxas(libs: dict) -> None:
     for name, (_, log) in libs.items():
         lines = log.splitlines()
         for line in lines:
@@ -397,17 +496,113 @@ def main() -> None:
         injected = sum("C7519" in line for line in lines)
         if injected:
             print(f"  ptxas {name}: {injected} warpgroup.arrive injected (C7519)", flush=True)
+
+
+def _inputs(N: int, masked: bool, g, dev):
+    qkv = torch.randn(B, N, 3 * H * 64, generator=g, device=dev).to(torch.bfloat16)
+    mask = None
+    if masked:
+        keep = torch.rand(B, N, generator=g, device=dev) > 0.3
+        keep[:, 0] = True
+        mask = (~keep).float() * torch.finfo(torch.float32).min
+    return qkv, mask
+
+
+def _interleaved(runs: dict) -> dict:
+    times = {n: [] for n in runs}
+    for n in list(runs) + list(runs)[::-1]:
+        times[n].append(cuda_ms(runs[n]))
+    return times
+
+
+def run_bwd(paths, card: str) -> None:
+    """Every backward source's variants at SHAPES: checked, timed beside v0
+    and SDPA's backward, and the sections variants' clock64 profile."""
+    texts, kinds = {}, {}
+    for i, path in enumerate(paths):
+        kind, variants, names = bwd_variants(path.read_text())
+        kinds[f"bwd{i}"] = (kind, names)
+        texts.update({f"bwd{i}_{n}": text for n, text in variants.items()})
+    libs = build(texts)
+    _report_ptxas(libs)
+    fns = {}
+    for name, (lib, _) in libs.items():
+        fn = lib.clibd_flash_attention_qkv_bwd_phased
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fns[name] = fn
+
+    def call(fn, qkv, dout, mask, out):
+        rc = fn(qkv.data_ptr(), dout.data_ptr(), None if mask is None else mask.data_ptr(),
+                out.data_ptr(), B, qkv.shape[1], H, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"launch failed: CUDA error {rc}")
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    D = H * 64
+    for N, masked in SHAPES:
+        qkv, mask = _inputs(N, masked, g, dev)
+        dout = torch.randn(B, N, D, generator=g, device=dev).to(torch.bfloat16)
+        out = torch.empty_like(qkv)
+        m8 = None if mask is None else mask[:8]
+        want = flash_attention_qkv_bwd_reference(qkv[:8], dout[:8], H, m8).float()
+        runs = {}
+        for n, fn in fns.items():
+            if n.endswith("_sections"):
+                continue
+            out.zero_()
+            call(fn, qkv, dout, mask, out)
+            torch.cuda.synchronize()
+            got = out[:8].float()
+            rel = [float((got[..., i * D:(i + 1) * D] - want[..., i * D:(i + 1) * D]).abs().max())
+                   / float(want[..., i * D:(i + 1) * D].abs().max()) for i in range(3)]
+            print(f"N={N} mask={masked} {n}: max|variant - plain| / max|plain| on 8 rows, dq "
+                  f"{rel[0]:.3e} dk {rel[1]:.3e} dv {rel[2]:.3e}", flush=True)
+            runs[n] = lambda fn=fn: call(fn, qkv, dout, mask, out)
+        runs["v0 (backward kernel)"] = lambda: flash_attention_qkv_bwd_cuda(qkv, dout, H, mask)
+        leaf = qkv.detach().requires_grad_()
+        lib_out = sdpa(leaf, H, mask)
+        lib_grad = dout.view(B, N, H, 64).transpose(1, 2)
+        runs["sdpa backward"] = lambda: torch.autograd.grad(lib_out, leaf, lib_grad,
+                                                            retain_graph=True)
+        print(f"backward B={B} H={H} N={N} mask={masked}, ms  [{card}]", flush=True)
+        for n, ts in _interleaved(runs).items():
+            print(f"  {n:28s} {', '.join(f'{t:.4f}' for t in ts)}", flush=True)
+        for prefix, (kind, names) in kinds.items():
+            if not names:
+                continue
+            lib = libs[f"{prefix}_sections"][0]
+            prof = (ctypes.c_ulonglong * 16)()
+            lib.clibd_prof.argtypes = [ctypes.c_void_p]
+            lib.clibd_prof(ctypes.addressof(prof))
+            call(fns[f"{prefix}_sections"], qkv, dout, mask, out)
+            torch.cuda.synchronize()
+            lib.clibd_prof(ctypes.addressof(prof))
+            print(f"  clock64 sections of {prefix} ({kind}), thread 0, cycles a CTA: " + ", ".join(
+                f"{s} {prof[i] / (B * H):.0f}" for i, s in enumerate(names[:5])), flush=True)
+            if len(names) > 5:
+                blocks = max(prof[13], 1)
+                print(f"  ... and a query block of warpgroup 0 ({blocks} blocks): " + ", ".join(
+                    f"{s[7:]} {prof[5 + i] / blocks:.0f}" for i, s in enumerate(names[5:])),
+                    flush=True)
+        del qkv, mask, dout, out, leaf, lib_out, lib_grad
+        torch.cuda.empty_cache()
+
+
+def run_forward(args, card: str) -> None:
+    sections, sources = {}, {}
+    for schedule, path in (("phased", args.phased), ("batched", args.batched)):
+        kind, variants, names = variants_of(path.read_text())
+        sections[schedule] = (kind, names)
+        sources.update({f"{schedule}_{n}": text for n, text in variants.items()})
+    libs = build(sources)
+    _report_ptxas(libs)
     dev = torch.device("cuda")
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     variants = {name: Variant(name.split("_", 1)[0], lib) for name, (lib, _) in libs.items()}
     g = torch.Generator(device=dev).manual_seed(0)
     for N, masked in SHAPES:
-        qkv = torch.randn(B, N, 3 * H * 64, generator=g, device=dev).to(torch.bfloat16)
-        mask = None
-        if masked:
-            keep = torch.rand(B, N, generator=g, device=dev) > 0.3
-            keep[:, 0] = True
-            mask = (~keep).float() * torch.finfo(torch.float32).min
+        qkv, mask = _inputs(N, masked, g, dev)
         out = torch.empty(B, N, H * 64, device=dev, dtype=torch.bfloat16)
         want = flash_attention_qkv_reference(qkv[:8], H, None if mask is None else mask[:8]).float()
         groups = {n: (v.group(N, limit) if v.schedule == "phased" else 0)
@@ -429,9 +624,7 @@ def main() -> None:
                     runs[f"{n} G={G}"] = lambda v=v, G=G: v(qkv, mask, out, G)
         runs["v0 (forward kernel)"] = lambda: flash_attention_qkv_cuda(qkv, H, mask)
         runs["sdpa"] = lambda: sdpa(qkv, H, mask)
-        times = {n: [] for n in runs}
-        for n in list(runs) + list(runs)[::-1]:
-            times[n].append(cuda_ms(runs[n]))
+        times = _interleaved(runs)
         print(f"B={B} H={H} N={N} mask={masked}, ms  [{card}]", flush=True)
         for n, ts in times.items():
             print(f"  {n:28s} {', '.join(f'{t:.4f}' for t in ts)}", flush=True)
@@ -453,6 +646,20 @@ def main() -> None:
                 f"{s} {prof[i] / ctas:.0f}" for i, s in enumerate(names)), flush=True)
         del qkv, mask, out
         torch.cuda.empty_cache()
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phased", type=Path, default=SOURCES["phased"])
+    parser.add_argument("--batched", type=Path, default=SOURCES["batched"])
+    parser.add_argument("--bwd", type=Path, action="append", default=[])
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("exp_flash_sched needs a CUDA card")
+    card = card_line()
+    print(card, flush=True)
+    run_forward(args, card)
+    run_bwd(args.bwd or [BWD_SOURCE], card)
 
 
 if __name__ == "__main__":

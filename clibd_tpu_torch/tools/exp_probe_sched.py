@@ -1,13 +1,15 @@
-"""Where do the two probe kernels' times go, and which of their designs is fastest?
+"""Where do the probe kernels' times go, and which of their designs is fastest?
 
     python3 -m clibd_tpu_torch.tools.exp_probe_sched [--attn FILE ...] [--gemm FILE ...]
+        [--copy FILE ...]
 
 Builds scratch variants of the probe kernels `ops/attention.attention_bhnd`
-(separate q, k, v) and `ops/gemm.tiled_matmul` -- each FILE, by default the
-committed `csrc/attention_bhnd.cu` and `csrc/tiled_gemm.cu`; a FILE may also
-be an earlier version of either (`git show <commit>:clibd_tpu_torch/csrc/
-<file>`), which exports the same entry points -- side by side into
-`build/exp_probe_sched/`, and in one process:
+(separate q, k, v), `ops/gemm.tiled_matmul` and `ops/elementwise.scale_copy`
+-- each FILE, by default the committed `csrc/attention_bhnd.cu`,
+`csrc/tiled_gemm.cu` and `csrc/scale_copy.cu`; a FILE may also be an earlier
+version of one (`git show <commit>:clibd_tpu_torch/csrc/<file>`), which
+exports the same entry points -- side by side into `build/exp_probe_sched/`,
+and in one process:
 
 - attention at B=256 H=12 N=197, B=64 N=133 and B=64 N=20 (bf16): every
   variant checked against the plain version on the first 4 batch rows, then
@@ -24,14 +26,24 @@ be an earlier version of either (`git show <commit>:clibd_tpu_torch/csrc/
   `wgmma_attention.cuh` they include, which is inlined into them): the
   phased (at every head group of H=12) and batched forwards built from DIR
   and from the committed sources, on the same inputs at `FLASH_SHAPES`, and
-  the count of output elements in which they differ.
+  the count of output elements in which they differ;
+- the copy y = 2 x in fp32: every variant bit-exact against x * 2 at
+  `COPY_SIZES` elements (one element to one that wraps the ring with a
+  ragged end), then timed twice, interleaved, beside `torch.mul(x, 2.0)`
+  and `y.copy_(x)` at 64 MB (the probe's [8192, 2048]) and at each of
+  `L2_MB` (copies that fit the L2), with the slope of time against bytes
+  over those (the L2's copy rate).
 
 The variants are text edits of the committed kernels' sources
-(`attn_variants`, `gemm_variants`): the attention kernel with the (batch,
-head) slabs a CTA walks fixed at each of `SLAB_COUNTS` (the kernel picks
-them per launch, `slabs_for`); the GEMM with the tile order row by row
-(`GROUP_M` = 1) and in groups of 8, and `sections`.  An earlier version is
-built as it is.
+(`attn_variants`, `gemm_variants`, `copy_variants`): the attention kernel
+with the (batch, head) slabs a CTA walks fixed at each of `SLAB_COUNTS` (the
+kernel picks them per launch, `slabs_for`); the GEMM with the tile order row
+by row (`GROUP_M` = 1) and in groups of 8, and `sections`; the copy with
+four vectors a thread in flight (`unroll4`), its grid capped at 8 CTAs an SM
+(`capped`) and the streaming `__ldcs` / `__stcs` hints (`hints`).  The copy
+it replaced (`git show 60df5e0:...`) gets a `no_hints` variant: plain loads
+and stores in place of its hints.  Any other earlier version is built as it
+is.
 
 Needs a CUDA card and nvcc, and raises without; prints the card's name and
 power limit first.
@@ -50,11 +62,12 @@ import torch.nn.functional as F
 from ..ops.attention import attention_bhnd_reference
 from ..ops.cuda_build import CSRC
 from ..ops.gemm import tiled_matmul_reference
-from ..utils.profiling import card_line, cuda_ms
-from .exp_flash_sched import PROF_DECL, PROF_READ, Variant, _atomics, _edit, build
+from ..utils.profiling import card_line
+from .exp_flash_sched import PROF_DECL, PROF_READ, Variant, _atomics, _edit, _interleaved, build
 
 ATTN_SOURCE = CSRC / "attention_bhnd.cu"
 GEMM_SOURCE = CSRC / "tiled_gemm.cu"
+COPY_SOURCE = CSRC / "scale_copy.cu"
 ATTN_SHAPES = ((256, 197), (64, 133), (64, 20))
 H = 12
 GEMM_SIZES = (1024, 2048, 8192)
@@ -62,6 +75,31 @@ SLAB_COUNTS = (3, 6, 12, 24)
 FLASH = ("phased", "batched")
 FLASH_SHAPES = ((3, 1, False), (5, 64, True), (3, 65, False), (256, 197, False), (256, 133, True),
                 (3, 256, True))  # (B, N, masked) at H=12
+
+# elements of the copy's checks: below one vector, one vector, one and a
+# scalar, a ragged small one, one past a 16 KB slot, and one that wraps an
+# 8-slot ring several times on every CTA with a ragged end
+COPY_SIZES = (1, 3, 4, 5, 4099, 4097, 132 * 4096 * 20 + 4103)
+COPY_MB = 64
+L2_MB = (4, 8, 12, 16)
+# the committed copy's variants (text edits): four vectors a thread in
+# flight, the grid capped at 8 CTAs an SM (a grid-stride loop), and the
+# streaming cache hints; the loop it replaced gets its hints taken out
+COPY_UNROLL = "constexpr int UNROLL = 8;"
+COPY_GRID = "  const int blocks = (int)(want < 1 ? 1 : want);\n"
+COPY_LOAD = "if (i < n4) v[u] = x[i];"
+COPY_STORE = ("if (i < n4) y[i] = make_float4(v[u].x * alpha, v[u].y * alpha, v[u].z * alpha, "
+              "v[u].w * alpha);")
+COPY_VARIANTS = {
+    "unroll4": [(COPY_UNROLL, "constexpr int UNROLL = 4;")],
+    "capped": [(COPY_GRID, "  int device = 0, sms = 0;\n  cudaGetDevice(&device);\n"
+                "  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);\n"
+                "  const int blocks = (int)(want < 1 ? 1 : (want < 8L * sms ? want : 8L * sms));\n")],
+    "hints": [(COPY_LOAD, "if (i < n4) v[u] = __ldcs(x + i);"),
+              (COPY_STORE, "if (i < n4) __stcs(y + i, " + COPY_STORE[len("if (i < n4) y[i] = "):-1]
+               + ");")]}
+COPY_HINTS = [("if (i < n4) v[u] = __ldcs(x + i);", "if (i < n4) v[u] = x[i];"),
+              ("__stcs(y + i, make_float4(", "(y[i] = make_float4(")]
 
 SLABS_RETURN = "  return best;\n"  # of slabs_for
 GROUP_LINE = "constexpr int GROUP_M = 16;"
@@ -127,6 +165,18 @@ def gemm_variants(src: str) -> dict:
     return out
 
 
+def copy_variants(src: str) -> dict:
+    """{name: source}: the source as it is; the committed copy with four
+    vectors a thread, a capped grid and the streaming hints; the loop it
+    replaced without its hints"""
+    out = {"kernel": src}
+    if all(old in src for edits in COPY_VARIANTS.values() for old, _ in edits):
+        out.update({name: _edit(src, edits) for name, edits in COPY_VARIANTS.items()})
+    elif all(old in src for old, _ in COPY_HINTS):
+        out["no_hints"] = _edit(src, COPY_HINTS)
+    return out
+
+
 def tiles_of(src: str) -> list:
     return TILE_LINE.findall(src)
 
@@ -148,13 +198,6 @@ def _ptxas(libs: dict) -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "C75" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
-
-
-def _interleaved(runs: dict) -> dict:
-    times = {n: [] for n in runs}
-    for n in list(runs) + list(runs)[::-1]:
-        times[n].append(cuda_ms(runs[n]))
-    return times
 
 
 def run_attention(sources: list, card: str) -> None:
@@ -242,6 +285,54 @@ def run_gemm(sources: list, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def _slope(sizes_mb, times_ms) -> float:
+    """least-squares TB/s of bytes moved (read and written) against ms"""
+    xs = [2 * m * 2 ** 20 for m in sizes_mb]
+    mx, my = sum(xs) / len(xs), sum(times_ms) / len(times_ms)
+    cov = sum((x - mx) * (y - my) for x, y in zip(xs, times_ms))
+    var = sum((x - mx) ** 2 for x in xs)
+    return var / cov / 1e9 if cov > 0 else float("nan")
+
+
+def run_copy(sources: list, card: str) -> None:
+    libs = build({f"copy{i}_{n}": text for i, src in enumerate(sources)
+                  for n, text in copy_variants(src).items()}, "exp_probe_sched")
+    _ptxas(libs)
+    fns = {n: _bind(lib, "clibd_scale_copy", [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_float,
+                                                                      ctypes.c_void_p])
+           for n, (lib, _) in libs.items()}
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for n in COPY_SIZES:
+        x = torch.randn(n, generator=g, device="cuda")
+        y = torch.full_like(x, float("nan"))
+        for name, fn in fns.items():
+            _call(fn, x.data_ptr(), y.data_ptr(), n, 2.0)
+            torch.cuda.synchronize()
+            if not torch.equal(y, x * 2.0):
+                raise RuntimeError(f"copy variant {name} differs from x * 2 at n={n}")
+    print(f"copy: every variant bit-exact against x * 2 at n = {COPY_SIZES}", flush=True)
+    curves = {}
+    for mb in (COPY_MB,) + L2_MB:
+        x = torch.randn(mb * 2 ** 18, generator=g, device="cuda")
+        y = torch.empty_like(x)
+        runs = {name: (lambda fn=fn: _call(fn, x.data_ptr(), y.data_ptr(), x.numel(), 2.0))
+                for name, fn in fns.items()}
+        runs["torch.mul"] = lambda: torch.mul(x, 2.0)
+        runs["y.copy_(x)"] = lambda: y.copy_(x)
+        print(f"copy fp32 {mb} MB, ms (GB/s of the first)  [{card}]", flush=True)
+        for name, ts in _interleaved(runs).items():
+            print(f"  {name:28s} {', '.join(f'{t:.4f}' for t in ts)}  "
+                  f"({2 * x.nbytes / ts[0] / 1e6:.1f})", flush=True)
+            if mb in L2_MB:
+                curves.setdefault(name, []).append(ts)
+        del x, y
+    for name, ts in curves.items():
+        print(f"copy {name}: L2 slope over {L2_MB} MB, TB/s, each pass: " + ", ".join(
+            f"{_slope(L2_MB, [t[k] for t in ts]):.2f}" for k in range(2)) + f"  [{card}]",
+            flush=True)
+    torch.cuda.empty_cache()
+
+
 def run_flash_same(old_dir: Path) -> None:
     """the earlier and the committed phased and batched forwards on the same
     inputs: how many output elements differ"""
@@ -283,6 +374,7 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--attn", type=Path, action="append", default=[])
     parser.add_argument("--gemm", type=Path, action="append", default=[])
+    parser.add_argument("--copy", type=Path, action="append", default=[])
     parser.add_argument("--flash-from", type=Path)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -291,6 +383,7 @@ def main(argv=None) -> None:
     print(card, flush=True)
     run_attention([p.read_text() for p in args.attn or [ATTN_SOURCE]], card)
     run_gemm([p.read_text() for p in args.gemm or [GEMM_SOURCE]], card)
+    run_copy([p.read_text() for p in args.copy or [COPY_SOURCE]], card)
     if args.flash_from:
         run_flash_same(args.flash_from)
 

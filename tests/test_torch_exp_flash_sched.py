@@ -39,3 +39,35 @@ def test_warpgroups_match_the_phased_kernel():
     src = SOURCES["phased"].read_text()
     assert "return G <= 3 ? G : G % 3 == 0 ? 3 : 2;" in src
     assert [warpgroups(G) for G in (1, 2, 3, 4, 6, 8, 12)] == [1, 2, 3, 2, 3, 2, 3]
+
+
+def test_every_bwd_variant_edits_the_committed_kernel():
+    """the committed backward's sections: five stretches of the kernel and
+    eight of warpgroup 0's query blocks, each a tick of thread 0"""
+    from clibd_tpu_torch.tools.exp_flash_sched import BWD_SECTIONS, BWD_SOURCE, bwd_variants
+
+    src = BWD_SOURCE.read_text()
+    kind, variants, sections = bwd_variants(src)
+    assert kind == "bwd" and set(variants) == {"kernel", "sections"}
+    assert variants["kernel"] == src and sections == BWD_SECTIONS and len(sections) == 13
+    text = variants["sections"]
+    # five stamps of the kernel, the block's start and its eight ticks, the end
+    assert text.count("clock64()") == 5 + 1 + 8 + 1
+    slots = {int(s) for s in __import__("re").findall(r"g_prof \+ (\d+)", text)}
+    assert slots == set(range(14))  # and the count of blocks in g_prof[13]
+    assert "clibd_prof" in text
+
+
+def test_an_earlier_bwd_source_is_built_as_it_is():
+    """a backward source of neither known kind has no edited variants; the
+    previous mma.sync kernel's anchors give it its five sections"""
+    from clibd_tpu_torch.tools import exp_flash_sched as tool
+
+    src = "// an earlier kernel\nextern \"C\" int clibd_flash_attention_qkv_bwd_phased();\n"
+    assert tool.bwd_variants(src) == ("other", {"kernel": src}, ())
+    prev = ("namespace {\n" + tool.PREV_BWD_MARK + "\n" + tool.BWD_START + tool.PBW_STAGED
+            + tool.PBW_ROWS + tool.PBW_COPIED + tool.PBW_END + 'extern "C" {\n')
+    kind, variants, sections = tool.bwd_variants(prev)
+    assert kind == "prev_bwd" and sections == tool.PREV_BWD_SECTIONS
+    assert variants["sections"].count("clock64()") == len(sections) + 1
+    assert variants["sections"].count("atomicAdd(g_prof") == len(sections)

@@ -59,3 +59,40 @@ def test_the_harness_needs_a_card():
         pytest.skip("a card is present: the harness would run")
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         main([])
+
+
+def test_copy_variants_edit_the_committed_kernel():
+    from clibd_tpu_torch.tools.exp_probe_sched import COPY_SOURCE, COPY_VARIANTS, copy_variants
+
+    src = COPY_SOURCE.read_text()
+    variants = copy_variants(src)
+    assert set(variants) == {"kernel", "unroll4", "capped", "hints"} == {"kernel"} | set(COPY_VARIANTS)
+    assert variants["kernel"] == src
+    for name, edits in COPY_VARIANTS.items():
+        for old, new in edits:
+            assert new in variants[name] and old not in variants[name]
+    for hint in ("__ldcs(", "__stcs("):  # one streaming load and one store in the kernel
+        assert variants["hints"].count(hint) == src.count(hint) + 1
+    for text in variants.values():  # every edit keeps its statement whole
+        assert text.count("(") - text.count(")") == src.count("(") - src.count(")")
+
+
+def test_the_grid_stride_copy_gets_a_variant_without_hints():
+    """the copy the ring replaced: its streaming loads and stores become
+    plain ones; a copy with neither seam is built as it is"""
+    from clibd_tpu_torch.tools.exp_probe_sched import COPY_HINTS, copy_variants
+
+    src = "".join(f"    {old}v[u].x));\n" for old, _ in COPY_HINTS)
+    variants = copy_variants(src)
+    assert set(variants) == {"kernel", "no_hints"}
+    assert "__ldcs" not in variants["no_hints"] and "__stcs" not in variants["no_hints"]
+    plain = "// an earlier copy\nextern \"C\" int clibd_scale_copy();\n"
+    assert copy_variants(plain) == {"kernel": plain}
+
+
+def test_the_l2_slope_is_the_rate_of_a_straight_line():
+    from clibd_tpu_torch.tools.exp_probe_sched import L2_MB, _slope
+
+    rate = 4.5e12  # bytes a second
+    times = [2 * mb * 2 ** 20 / rate * 1e3 + 0.004 for mb in L2_MB]  # ms, with a fixed cost
+    assert abs(_slope(L2_MB, times) - 4.5) < 1e-9

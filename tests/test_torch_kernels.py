@@ -205,10 +205,11 @@ def test_tiny_model_on_the_card_matches_the_cpu(cuda_device):
 
 
 def _parts_err(got, want, H):
-    """max |got - want| / max |want| for each of dq, dk, dv."""
+    """max |got - want| / max |want| for each of dq, dk, dv (0 where both are
+    all zeros: at N=1 dS, so dq and dk, are exactly 0)."""
     D = H * 64
     return [float((got[..., i * D:(i + 1) * D].float() - want[..., i * D:(i + 1) * D].float())
-                  .abs().max() / want[..., i * D:(i + 1) * D].float().abs().max())
+                  .abs().max() / want[..., i * D:(i + 1) * D].float().abs().max().clamp_min(1e-30))
             for i in range(3)]
 
 
@@ -511,8 +512,15 @@ def test_tiny_bioclip_with_fused_kernels_on_the_card_matches_the_cpu(cuda_device
 GEMM_REL_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
 
 
+# the copy's sizes: the probe's, odd ones below one 16-byte vector, one, and
+# one and a scalar, and one that wraps each CTA's ring of 8 slots of 16 KB
+# 2.5 times with a ragged end (random data, so a slot refilled before its
+# store has read it shows)
+SCALE_COPY_SIZES = [8192 * 2048, 4099, 3, 1, 4, 5, 132 * 4096 * 20 + 4103]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [8192 * 2048, 4099, 3])
+@pytest.mark.parametrize("n", SCALE_COPY_SIZES)
 def test_scale_copy_kernel_is_exact(cuda_device, n):
     x = torch.from_numpy(np.random.default_rng(n).standard_normal(n, dtype=np.float32))
     x = x.to(cuda_device)
@@ -521,6 +529,7 @@ def test_scale_copy_kernel_is_exact(cuda_device, n):
     torch.cuda.synchronize()
     assert scale_copy.launches == before + 1
     assert torch.equal(got, x * 2.0)
+    assert torch.equal(got, scale_copy(x, 2.0))  # two launches, the same bits
 
 
 @pytest.mark.cuda
@@ -714,6 +723,40 @@ def test_bwd_phased_kernel_matches_plain_version_and_bwd_kernel(cuda_device, N, 
     assert got.dtype == torch.bfloat16 and got.shape == t.shape and torch.isfinite(got).all()
     assert max(_parts_err(got, flash_attention_qkv_bwd_reference(t, g, H, m), H)) <= BWD_REL_TOL
     assert max(_parts_err(got, flash_attention_qkv_bwd(t, g, H, m), H)) <= BWD_REL_TOL
+
+
+# the phased backward's edges (B, N, H, masked): one key; a query block one
+# row short, whole, one row past; the 208 keys it takes at most; odd B,
+# H = 1, 2 and 12, batch row 0 fully masked where masked
+BWD_PHASED_EDGES = [(3, 1, 2, False), (5, 63, 12, True), (3, 64, 1, True), (1, 65, 12, False),
+                    (5, 130, 2, True), (3, 208, 12, True), (7, 208, 1, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,masked", BWD_PHASED_EDGES)
+def test_bwd_phased_kernel_at_its_edges(cuda_device, B, N, H, masked):
+    qkv, mask = _inputs(B, N, H, masked, seed=N + 5)
+    dout = np.random.default_rng(N + 6).standard_normal((B, N, H * 64)).astype(np.float32)
+    t = torch.from_numpy(qkv).to(cuda_device, torch.bfloat16)
+    g = torch.from_numpy(dout).to(cuda_device, torch.bfloat16)
+    m = None if mask is None else torch.from_numpy(mask).to(cuda_device)
+    got = flash_attention_qkv_bwd_phased(t, g, H, m)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert max(_parts_err(got, flash_attention_qkv_bwd_reference(t, g, H, m), H)) <= BWD_REL_TOL
+    assert max(_parts_err(got, flash_attention_qkv_bwd(t, g, H, m), H)) <= BWD_REL_TOL
+
+
+@pytest.mark.cuda
+def test_bwd_phased_kernel_is_deterministic(cuda_device):
+    """Two launches on the same inputs give the same bits (no atomics)."""
+    qkv, mask = _inputs(6, 197, 12, True, seed=13)
+    dout = np.random.default_rng(14).standard_normal((6, 197, 768)).astype(np.float32)
+    t = torch.from_numpy(qkv).to(cuda_device, torch.bfloat16)
+    g = torch.from_numpy(dout).to(cuda_device, torch.bfloat16)
+    m = torch.from_numpy(mask).to(cuda_device)
+    assert torch.equal(flash_attention_qkv_bwd_phased(t, g, 12, m),
+                       flash_attention_qkv_bwd_phased(t, g, 12, m))
 
 
 @pytest.mark.cuda
