@@ -158,7 +158,32 @@ Phases, each of which raises on failure:
    the harness's `v0` (46 and 48 launches), no other kernel, and every
    parity row must be OK.
 
-Phases 3-5 run with both opt-in kernels off, as the flagship recipe does.
+12. serve: first `flash_attention_qkv` against its plain version at the
+   serving path's batch sizes, B = 1, 3 and 32, for ViT N=197, BarcodeBERT
+   N=133 and BERT-small N=20 H=8 masked (max |kernel - plain| <= 2e-2),
+   kernel and SDPA timed at B = 1 and 32 beside the CTA count.  Then the
+   flagship recipe (full width, bf16, seeded init) served:
+   `InferenceService` on the card with `pre_warm()` over the buckets 1-32,
+   behind `make_server` on port 0; 64 concurrent /embed requests (JPEGs made
+   with PIL and barcodes), 4 text queries (a WordPiece vocabulary the phase
+   writes from its taxonomy names), then /search for an image, a barcode,
+   an image against the DNA keys and a text, against a 21,118-row gallery
+   (the BIOSCAN-1M key gallery's size) built with `KeySet.from_arrays`
+   (the card machine has no h5py) with each query's embedding planted.
+   Checks finite unit-norm embeddings, coalescing (fewer batches than
+   requests), exactly 12 / 12 / 4 forward launches per device call of the
+   image / DNA / text tower (counted under the path "serve"), each search's
+   top-1 the planted row at score 1 ± 1e-4; then the served rows against a
+   direct forward at B=1 (cosine >= 0.999), a row of a bucket bit-identical
+   beside zeros and beside other images, the gallery modes (fp32 exact; int8
+   with the 4x host re-rank: the exact top-k, scores <= 1e-5 apart; int8
+   alone: the planted top-1, its score within 0.02 of exact), each search
+   timed at a query batch of 1 and 32, and the `tools/bench_serve` load (16
+   clients x 8 requests, coalesced and unbatched: req/s, mean device batch,
+   p50/p95).
+
+Phases 3-5 and 12 run with both opt-in kernels off, as the flagship recipe
+does.
 The last three lines are the kernel summary JSON, the card line, and
 `{"ok": true, "device": {...}}`.
 """
@@ -222,6 +247,24 @@ SPLIT_ROWS = {"all_keys": 1100, "test_seen": 500, "test_unseen": 500}
 TRAIN_ROWS = {"train": 3000, "all_keys": 1100, "val_seen": 500, "val_unseen": 500}
 # the overlap path: 4 steps of batch 500 and one eval
 OVERLAP_TRAIN_ROWS = {"train": 2000, "all_keys": 1100, "val_seen": 500, "val_unseen": 500}
+# phase 12, serving: the forward kernel at the service's batch sizes (B=1
+# and 32 timed); the buckets; the BIOSCAN-1M key gallery's rows
+# (tools/bench_knn.py); the load of the bench_serve runs
+SERVE_ROW1_B = (1, 3, 32)
+SERVE_ROW1_TIMED_B = (1, 32)
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
+SERVE_WINDOW_MS = 8.0
+SERVE_EMBEDS = 64          # concurrent /embed requests, each a JPEG and a barcode
+SERVE_TEXTS = ("diptera cecidomyiidae porricondyla", "hymenoptera braconidae aphidius",
+               "diptera sciaridae bradysia", "coleoptera staphylinidae atheta")
+GALLERY_ROWS = 21118
+GALLERY_K = 16             # the KeySet's fixed device width (max_k)
+SERVE_LOAD = (16, 8)       # bench_serve clients x requests per client
+SERVE_COSINE_MIN = 0.999   # served row against a direct forward at B=1
+SEARCH_SCORE_TOL = 1e-4    # a planted row's score against 1
+RERANK_SCORE_TOL = 1e-5    # int8 + re-rank against exact fp32
+INT8_SCORE_TOL = 0.02      # int8 without re-rank against exact (tests/test_knn.py's bound)
+INT8_MARGIN = 0.01         # exact top-1 margin above which int8 must keep the top-1
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores, published
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores, published
@@ -325,6 +368,33 @@ def kernel_entry(name, source, replaces, shapes):
             "bound_by": vit["bound_by"], "library_ms": vit["library_ms"], "by_shape": shapes}
 
 
+def check_forward(qkv, mask, H, what) -> float:
+    """The forward kernel against its plain version → max |kernel - plain|,
+    failing past KERNEL_TOL; the fully masked row (batch row 0 of a masked
+    input) must be the mean of V."""
+    import torch
+
+    from clibd_tpu_torch.ops.attention import (flash_attention_qkv_cuda,
+                                               flash_attention_qkv_reference)
+
+    N = qkv.shape[1]
+    got = flash_attention_qkv_cuda(qkv, H, mask).float()
+    want = flash_attention_qkv_reference(qkv, H, mask).float()
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        fail(f"forward kernel output not finite at {what}")
+    err = float((got - want).abs().max())
+    if mask is not None:
+        v = qkv[0, :, 2 * H * 64:].float()
+        err_uniform = float((got[0] - v.mean(0, keepdim=True).expand(N, -1)).abs().max())
+        if err_uniform > KERNEL_TOL:
+            fail(f"fully masked row not uniform at {what}: max|Δ| {err_uniform}")
+    print(f"kernel flash_attention_qkv {what}: max|kernel-plain| {err:.3e} (tol {KERNEL_TOL})")
+    if err > KERNEL_TOL:
+        fail(f"forward kernel disagrees with its plain version at {what}: {err} > {KERNEL_TOL}")
+    return err
+
+
 def forward_kernel_phase(card: str) -> dict:
     import torch
 
@@ -332,32 +402,12 @@ def forward_kernel_phase(card: str) -> dict:
                                                flash_attention_qkv_reference)
     from clibd_tpu_torch.utils.profiling import cuda_ms
 
-    def check(qkv, mask, H, what):
-        """max |kernel - plain|, failing past KERNEL_TOL; the fully masked
-        row (batch row 0 of a masked input) must be the mean of V."""
-        N = qkv.shape[1]
-        got = flash_attention_qkv_cuda(qkv, H, mask).float()
-        want = flash_attention_qkv_reference(qkv, H, mask).float()
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            fail(f"forward kernel output not finite at {what}")
-        err = float((got - want).abs().max())
-        if mask is not None:
-            v = qkv[0, :, 2 * H * 64:].float()
-            err_uniform = float((got[0] - v.mean(0, keepdim=True).expand(N, -1)).abs().max())
-            if err_uniform > KERNEL_TOL:
-                fail(f"fully masked row not uniform at {what}: max|Δ| {err_uniform}")
-        print(f"kernel flash_attention_qkv {what}: max|kernel-plain| {err:.3e} (tol {KERNEL_TOL})")
-        if err > KERNEL_TOL:
-            fail(f"forward kernel disagrees with its plain version at {what}: {err} > {KERNEL_TOL}")
-        return err
-
     shapes = []
     for name, N, H, masked in SHAPES:
         err, plain_B = 0.0, plain_batch(N)
         for B in sorted({64, plain_B}):  # 500: the main path's batch
             qkv, mask = make_qkv(B, N, H, masked, seed=N + B)
-            err = max(err, check(qkv, mask, H, f"{name} B={B} N={N} H={H} mask={masked}"))
+            err = max(err, check_forward(qkv, mask, H, f"{name} B={B} N={N} H={H} mask={masked}"))
             if B == plain_B:
                 plain_ms = cuda_ms(lambda: flash_attention_qkv_reference(qkv, H, mask))
         if plain_B != 500:
@@ -377,7 +427,7 @@ def forward_kernel_phase(card: str) -> dict:
         del qkv, mask
     # past the whole-row kernels' 256 keys: the key-tiled kernel takes any N
     qkv, mask = make_qkv(4, 300, 12, True, seed=300)
-    check(qkv, mask, 12, "B=4 N=300 H=12 mask=True (taken: any N)")
+    check_forward(qkv, mask, 12, "B=4 N=300 H=12 mask=True (taken: any N)")
     torch.cuda.empty_cache()
     return kernel_entry("flash_attention_qkv", "clibd_tpu_torch/csrc/flash_attention_qkv.cu",
                         "clibd_tpu/ops/pallas/attention.py:143", shapes)
@@ -1558,6 +1608,344 @@ def flash_experiments_path_phase(card: str, entries: dict) -> None:
     add_launches(entries, "exp_flash", {k: counts[k] for k in EXP_FLASH_KERNELS})
 
 
+def serve_row1_phase(card: str, fwd: dict) -> None:
+    """Row 1 at the serving path's batch sizes: against its plain version at
+    B = 1, 3 and 32 for ViT N=197, BarcodeBERT N=133 and BERT-small N=20
+    (masked), then kernel and SDPA timed at B = 1 and 32; the rows go into
+    the forward kernel's entry under "serve_shapes"."""
+    import torch
+
+    from clibd_tpu_torch.ops.attention import flash_attention_qkv_cuda
+    from clibd_tpu_torch.utils.profiling import cuda_ms
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for name, N, H, masked in SHAPES[:3]:
+        for B in SERVE_ROW1_B:
+            qkv, mask = make_qkv(B, N, H, masked, seed=7 * N + B)
+            err = check_forward(qkv, mask, H, f"serve {name} B={B} N={N} H={H} mask={masked}")
+            if B not in SERVE_ROW1_TIMED_B:
+                continue
+            ms = cuda_ms(lambda: flash_attention_qkv_cuda(qkv, H, mask))
+            library_ms = cuda_ms(lambda: library_attention(qkv, H, mask))
+            D = H * 64
+            bound_ms, bound_by = bound(B * N * 4 * D * 2 + (B * N * 4 if masked else 0),
+                                       4 * B * H * N * N * 64)
+            ctas = B * H * math.ceil(N / 64)
+            print(f"time flash_attention_qkv serve {name} B={B} N={N}: kernel {ms:.4f} ms, "
+                  f"library (sdpa) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+                  f"{ctas} CTAs of 64 query rows on {sms} SMs  [{card}]")
+            rows.append({"shape": name, "B": B, "N": N, "H": H, "ms": ms,
+                         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "ctas": ctas, "max_abs_err": err})
+    fwd["serve_shapes"] = rows
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], max(r["max_abs_err"] for r in rows))
+
+
+def serve_images(rng, n: int) -> list:
+    """n JPEGs of 200-400 px a side, each a colour gradient of its own under
+    noise, so that their embeddings differ more than those of plain noise."""
+    import io
+
+    from PIL import Image
+
+    out = []
+    for _ in range(n):
+        h, w = (int(x) for x in rng.integers(200, 401, 2))
+        lo, hi = rng.integers(0, 256, (2, 3))
+        ramp = np.linspace(0.0, 1.0, w)[None, :, None]
+        img = lo + (hi - lo) * ramp + rng.normal(0, 24, (h, w, 3))
+        buf = io.BytesIO()
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(buf, format="JPEG")
+        out.append(buf.getvalue())
+    return out
+
+
+def serve_labels(n: int) -> dict:
+    """The gallery's taxonomy, row i labelled from SERVE_TEXTS[i % 4] with a
+    species of its own → {level: [n names]}."""
+    levels = {"order": [], "family": [], "genus": [], "species": []}
+    for i in range(n):
+        order, family, genus = SERVE_TEXTS[i % len(SERVE_TEXTS)].split()
+        for level, name in (("order", order), ("family", family), ("genus", genus),
+                            ("species", f"{genus} sp{i}")):
+            levels[level].append(name)
+    return levels
+
+
+def unit_rows(rng, n: int, d: int) -> np.ndarray:
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def gallery_mode_checks(card: str, image: np.ndarray, device) -> None:
+    """The three gallery modes, fp32 exact, int8 with the 4x re-rank and
+    int8 alone, on GALLERY_ROWS seeded unit rows searched with served image
+    embeddings: first with one of them planted (row 7), then with every one
+    planted (row 7 + 311 i), searched 32 at a time; each mode timed at a
+    query batch of 1 and 32 on the second (host clock around the whole
+    search, which returns host arrays; median of 10 after 2)."""
+    import statistics
+
+    from clibd_tpu_torch.engine.serve import KeySet
+
+    key = "encoded_image_feature"
+    labels = serve_labels(GALLERY_ROWS)
+    base = unit_rows(np.random.default_rng(21118), GALLERY_ROWS, image.shape[1])
+
+    def modes(feats):
+        ks = {"fp32 exact": KeySet.from_arrays({key: feats}, labels, max_k=GALLERY_K,
+                                               device=device),
+              "int8 + re-rank": KeySet.from_arrays({key: feats}, labels, max_k=GALLERY_K,
+                                                   dtype="int8", device=device),
+              "int8": KeySet.from_arrays({key: feats}, labels, max_k=GALLERY_K, dtype="int8",
+                                         rerank_oversample=0, device=device)}
+        if (ks["int8 + re-rank"].selector, ks["int8"].selector) != ("approx", "exact"):
+            fail("the int8 galleries do not keep the JAX package's selector policy")
+        return ks
+
+    # one planted row: every mode finds it, at its scores' limits
+    feats = base.copy()
+    feats[7] = image[0]
+    found = {m: ks.search(image[:1], key, GALLERY_K) for m, ks in modes(feats).items()}
+    ex_s = found["fp32 exact"][0]
+    errs = {"fp32 exact": abs(float(ex_s[0, 0]) - 1), "int8 + re-rank": float(
+        np.abs(found["int8 + re-rank"][0] - ex_s).max()),
+        "int8": abs(float(found["int8"][0][0, 0] - ex_s[0, 0]))}
+    tols = {"fp32 exact": SEARCH_SCORE_TOL, "int8 + re-rank": RERANK_SCORE_TOL,
+            "int8": INT8_SCORE_TOL}
+    for m, (s, i) in found.items():
+        if i[0, 0] != 7 or errs[m] > tols[m]:
+            fail(f"gallery {m}: top-1 {i[0, 0]} (planted 7), score error {errs[m]} > {tols[m]}")
+    if not np.array_equal(found["int8 + re-rank"][1], found["fp32 exact"][1]):
+        fail("int8 + re-rank top-k differs from exact fp32 with one planted row")
+    print(f"gallery {GALLERY_ROWS} x {image.shape[1]}, one served image embedding planted: "
+          f"every mode's top-1 the planted row; fp32 exact score 1 ± {errs['fp32 exact']:.2e}, "
+          f"int8 + re-rank top-{GALLERY_K} equal to exact, scores {errs['int8 + re-rank']:.2e} "
+          f"apart, int8 score {errs['int8']:.2e} from exact")
+
+    # every served embedding planted, searched 32 at a time
+    feats = base.copy()
+    rows = 7 + 311 * np.arange(len(image))
+    feats[rows] = image
+    ks = modes(feats)
+    queries = image[:max(SERVE_ROW1_TIMED_B)]
+    own = rows[:len(queries)]
+    found = {m: k.search(queries, key, GALLERY_K) for m, k in ks.items()}
+    ex_s, ex_i = found["fp32 exact"]
+    same_vector = np.array([np.array_equal(feats[i], feats[o]) for i, o in zip(ex_i[:, 0], own)])
+    if not same_vector.all() or np.abs(ex_s[:, 0] - 1).max() > SEARCH_SCORE_TOL:
+        fail(f"fp32 exact gallery: top-1 not the planted row or its score not 1 ± "
+             f"{SEARCH_SCORE_TOL}: {ex_i[:, 0]} against {own}, scores {ex_s[:, 0]}")
+    rr_s, rr_i = found["int8 + re-rank"]
+    if np.abs(rr_s - ex_s).max() > RERANK_SCORE_TOL:
+        fail(f"int8 + re-rank scores {np.abs(rr_s - ex_s).max()} from exact fp32")
+    gaps = np.diff(ex_s, axis=1)
+    # places whose exact score is more than the tolerance from both
+    # neighbours' (the k-th's next neighbour is not returned: left out)
+    apart = np.ones_like(ex_s, bool)
+    apart[:, 1:] &= -gaps > RERANK_SCORE_TOL
+    apart[:, :-1] &= -gaps > RERANK_SCORE_TOL
+    apart[:, -1] = False
+    if not np.array_equal(rr_i[apart], ex_i[apart]) or not np.array_equal(rr_i[:, 0], ex_i[:, 0]):
+        fail("int8 + re-rank indices differ from exact fp32 top-k")
+    q8_s, q8_i = found["int8"]
+    clear = ex_s[:, 0] - ex_s[:, 1] > INT8_MARGIN
+    score_err = float(np.abs(q8_s[:, 0] - ex_s[:, 0]).max())
+    if score_err > INT8_SCORE_TOL or not np.array_equal(q8_i[clear, 0], own[clear]):
+        fail(f"int8 gallery: top-1 score {score_err} from exact or top-1 not the planted row "
+             f"where the margin exceeds {INT8_MARGIN}")
+    off = image @ image.T - 2 * np.eye(len(image), dtype=np.float32)
+    print(f"gallery with all {len(image)} served image embeddings planted (largest cosine "
+          f"between two of them {off.max():.6f}), {len(queries)} queries: fp32 exact top-1 the "
+          f"planted row, scores 1 ± {np.abs(ex_s[:, 0] - 1).max():.2e}; int8 + re-rank scores "
+          f"{np.abs(rr_s - ex_s).max():.2e} from exact, indices equal at every top-1 and at "
+          f"{int(apart.sum())} of {apart.size} places apart by > {RERANK_SCORE_TOL}; int8 top-1 "
+          f"score {score_err:.2e} from exact, the planted row at all {int(clear.sum())} of "
+          f"{len(clear)} queries with an exact margin > {INT8_MARGIN}")
+    for mode, k in ks.items():
+        times = []
+        for b in SERVE_ROW1_TIMED_B:
+            for _ in range(2):
+                k.search(queries[:b], key, GALLERY_K)
+            runs = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                k.search(queries[:b], key, GALLERY_K)
+                runs.append((time.perf_counter() - t0) * 1e3)
+            times.append(f"{statistics.median(runs):.4f} ms at {b} queries")
+        print(f"search {mode}, k={GALLERY_K}: {', '.join(times)}  [{card}]")
+
+
+def serve_phase(card: str, entries: dict, device) -> None:
+    """The flagship recipe served: InferenceService with pre_warm behind
+    make_server, SERVE_EMBEDS concurrent /embed requests (a JPEG and a
+    barcode each), the text queries, and /search (image, DNA, image against
+    the DNA keys, text) against a gallery built with KeySet.from_arrays; the
+    forward kernel's launches counted over that drive, per device call of
+    each modality.  Then the served rows against a direct forward, row
+    isolation in a bucket, the gallery modes, and the bench_serve load."""
+    import base64
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from clibd_tpu_torch.config import load_config
+    from clibd_tpu_torch.engine.extract import to_device
+    from clibd_tpu_torch.engine.serve import InferenceService, KeySet, make_server
+    from clibd_tpu_torch.models import clibd_apply, init_clibd_model
+    from clibd_tpu_torch.tools import bench_serve
+
+    mc = load_config(experiment=EXPERIMENT).model_config
+    if not (mc.amp and mc.image.enable and mc.dna.enable and mc.language.enable
+            and mc.backbone != "open_clip" and mc.output_dim == 768):
+        fail(f"{EXPERIMENT} is not the bf16 tri-modal recipe with 768-d embeddings")
+    per_call = {"image": mc.image.vit.num_layers, "dna": mc.dna.bert.num_layers,
+                "language": mc.language.bert.num_layers}
+    model = init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed), device)
+    rng = np.random.default_rng(12)
+    jpegs = serve_images(rng, SERVE_EMBEDS)
+    barcodes = ["".join(rng.choice(list("ACGT"), size=int(rng.integers(400, 660))))
+                for _ in range(SERVE_EMBEDS)]
+    words = sorted({w for t in SERVE_TEXTS for w in t.split()})
+    vocab_words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words
+    if len(vocab_words) > mc.language.bert.vocab_size:
+        fail("the phase's vocabulary has ids past the text tower's")
+    image_size = mc.image.vit.image_size
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = os.path.join(tmp, "vocab.txt")
+        Path(vocab).write_text("\n".join(vocab_words) + "\n")
+        t0 = time.perf_counter()
+        service = InferenceService(model, mc, buckets=SERVE_BUCKETS, window_ms=SERVE_WINDOW_MS,
+                                   image_size=image_size, resize_to=round(image_size * 256 / 224),
+                                   language_vocab=vocab, text_max_len=mc.language.max_len,
+                                   device=device)
+        service.pre_warm()
+        print(f"serve: service up and every bucket {SERVE_BUCKETS} of the three modalities "
+              f"warmed in {time.perf_counter() - t0:.2f} s  [{card}]")
+        server = make_server(service, host="127.0.0.1", port=0)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+
+        def post(path, payload):
+            req = urllib.request.Request(url + path, data=json.dumps(payload).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return json.loads(r.read())
+
+        def group(what, fn, items, modalities):
+            """Concurrent requests → their replies; fails unless the forward
+            kernel ran per_call[m] times per device call of each modality m
+            (every request of a group carries the same modalities)."""
+            b0, l0 = service.stats.batches, read_counts()["flash_attention_qkv"]
+            with ThreadPoolExecutor(len(items)) as pool:
+                out = list(pool.map(fn, items))
+            batches = service.stats.batches - b0
+            launches = read_counts()["flash_attention_qkv"] - l0
+            want = batches * sum(per_call[m] for m in modalities)
+            print(f"serve {what}: {len(items)} requests in {batches} device batches, "
+                  f"{launches} forward-kernel launches (expected {want}: "
+                  f"{' + '.join(f'{per_call[m]} {m}' for m in modalities)} per batch)")
+            if launches != want:
+                fail(f"serve {what}: {launches} forward launches, expected {want}")
+            return out, batches
+
+        b64 = [base64.b64encode(j).decode() for j in jpegs]
+        try:
+            reset_counts()
+            embeds, batches = group(
+                "/embed image+DNA", lambda i: post("/embed", {"image_b64": b64[i],
+                                                              "dna": barcodes[i]}),
+                range(SERVE_EMBEDS), ("image", "dna"))
+            if batches >= SERVE_EMBEDS:
+                fail(f"no coalescing: {SERVE_EMBEDS} requests in {batches} batches")
+            texts, _ = group("/embed text", lambda t: post("/embed", {"text": t}), SERVE_TEXTS,
+                             ("language",))
+            emb = {"image": np.asarray([e["image"] for e in embeds], np.float32),
+                   "dna": np.asarray([e["dna"] for e in embeds], np.float32),
+                   "language": np.asarray([t["language"] for t in texts], np.float32)}
+            for m, x in emb.items():
+                norm_err = float(np.abs(np.linalg.norm(x, axis=1) - 1).max())
+                if x.shape[1] != mc.output_dim or not np.isfinite(x).all() or norm_err > 1e-3:
+                    fail(f"served {m} embeddings: shape {x.shape}, finite "
+                         f"{np.isfinite(x).all()}, max |norm-1| {norm_err}")
+            # the /search gallery: one planted row per query, the rest seeded
+            # unit rows (the cross-modal image query planted in the DNA keys)
+            g = np.random.default_rng(4)
+            feats = {f"encoded_{m}_feature": unit_rows(g, GALLERY_ROWS, mc.output_dim)
+                     for m in ("image", "dna", "language")}
+            planted = {"image": 1234, "dna": 777, "cross": 4321, "language": 99}
+            feats["encoded_image_feature"][planted["image"]] = emb["image"][0]
+            feats["encoded_dna_feature"][planted["dna"]] = emb["dna"][1]
+            feats["encoded_dna_feature"][planted["cross"]] = emb["image"][2]
+            feats["encoded_language_feature"][planted["language"]] = emb["language"][0]
+            labels = serve_labels(GALLERY_ROWS)
+            service.keys = KeySet.from_arrays(feats, labels, max_k=GALLERY_K, device=device)
+            for what, payload, modality, row in (
+                    ("image", {"image_b64": b64[0]}, "image", planted["image"]),
+                    ("DNA", {"dna": barcodes[1]}, "dna", planted["dna"]),
+                    ("image against the DNA keys", {"image_b64": b64[2], "against": "dna"},
+                     "image", planted["cross"]),
+                    ("text", {"text": SERVE_TEXTS[0]}, "language", planted["language"])):
+                (res,), _ = group(f"/search {what}", lambda p: post("/search", {**p, "k": 5}),
+                                  [payload], (modality,))
+                top, score = res[modality]["predictions"][0], res[modality]["scores"][0]
+                if top["species"] != labels["species"][row] or abs(score - 1) > SEARCH_SCORE_TOL:
+                    fail(f"/search {what}: top-1 {top} score {score}, expected the planted "
+                         f"row {row} ({labels['species'][row]}) at 1 ± {SEARCH_SCORE_TOL}")
+                print(f"serve /search {what}: top-1 the planted row {row}, score {score:.7f}")
+            counts = read_counts()
+            stats = json.loads(urllib.request.urlopen(url + "/stats", timeout=60).read())
+            print(f"serve /stats: {stats}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+    others = {k: v for k, v in counts.items() if k != "flash_attention_qkv" and v}
+    if others:
+        fail(f"the serve path launched other kernels: {others}")
+    add_launches(entries, "serve", {"flash_attention_qkv": counts["flash_attention_qkv"]})
+
+    # served rows against a direct forward at B=1, and one row of a bucket
+    # bit-identical whatever its neighbours
+    cos = {"image": [], "dna": []}
+    with torch.inference_mode():
+        for i in range(8):
+            x = to_device(service.preprocess_image(jpegs[i])[None], device)
+            d = to_device(service.preprocess_dna(barcodes[i])[None], device)
+            out = clibd_apply(model, mc, image_input=x, dna_input=d)
+            for m in cos:
+                a = out[m][0].float().cpu().numpy()
+                cos[m].append(float(a @ emb[m][i] / np.linalg.norm(a) / np.linalg.norm(emb[m][i])))
+    for m, c in cos.items():
+        print(f"serve {m} rows against a direct forward at B=1: min cosine {min(c):.6f} "
+              f"(need >= {SERVE_COSINE_MIN})")
+        if min(c) < SERVE_COSINE_MIN:
+            fail(f"served {m} rows disagree with a direct forward: {c}")
+    x0 = service.preprocess_image(jpegs[0])
+    x1 = service.preprocess_image(jpegs[1])
+    zeros = service._apply["image"](np.stack([x0] + [np.zeros_like(x0)] * 3))
+    mixed = service._apply["image"](np.stack([x0] + [x1] * 3))
+    if not np.array_equal(zeros[0], mixed[0]):
+        fail("a served row depends on its bucket neighbours")
+    print("serve: a row of a bucket of 4 is bit-identical beside zeros and beside other images")
+
+    gallery_mode_checks(card, emb["image"], device)
+
+    clients, per_client = SERVE_LOAD
+    res = bench_serve.bench(model, mc, clients, per_client, device)
+    for label, _, _ in bench_serve.MODES:
+        r = res[label]
+        print(f"serve load {label}: {r['req_per_s']:.2f} req/s, mean device batch "
+              f"{r['mean_batch']:.2f}, p50 {r['p50_ms']:.2f} ms, p95 {r['p95_ms']:.2f} ms "
+              f"({r['requests']} requests of a JPEG and a barcode, {clients} clients)  [{card}]")
+    print(f"serve load: micro-batching speedup {res['speedup']:.2f}x  [{card}]")
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1611,6 +1999,9 @@ def main() -> int:
     probes_path_phase(card, entries)
     entries.update(exp_flash_kernels_phase(card))
     flash_experiments_path_phase(card, entries)
+    serve_row1_phase(card, entries["flash_attention_qkv"])
+    with kernel_knobs(False, "xla"):
+        serve_phase(card, entries, cuda)
     if "jax" in sys.modules or any(m == "clibd_tpu" or m.startswith("clibd_tpu.")
                                    for m in sys.modules):
         fail("jax or the JAX package was imported: the port must run without them")

@@ -1,12 +1,19 @@
 """Command line of the port (`python -m clibd_tpu_torch.cli`):
 
-  train --experiment <cfg.yaml> [--hdf5 data.hdf5] [--output-dir DIR]
-        [--train-split SPLIT] [--resume [DIR]] [--device cuda] [k=v ...]
-  eval  --experiment <cfg.yaml> [--hdf5 data.hdf5] [--device cuda] [k=v ...]
+  train          --experiment <cfg.yaml> [--hdf5 data.hdf5] [--output-dir DIR]
+                 [--train-split SPLIT] [--resume [DIR]] [--device cuda] [k=v ...]
+  eval           --experiment <cfg.yaml> [--hdf5 data.hdf5] [--device cuda] [k=v ...]
+  extract        --experiment <cfg.yaml> [--split all_keys] [--out emb.hdf5]
+                 [--stream [--resume]] [--device cuda] [k=v ...]
+  extract-single --experiment <cfg.yaml> [--image img.jpg] [--barcode ACGT...]
+                 [--out emb.json] [--device cuda] [k=v ...]
+  serve          --experiment <cfg.yaml> [--keys gallery.hdf5] [--port 8000]
+                 [--window-ms 4] [--max-batch 32] [--keys-dtype int8] ...
+                 [--device cuda] [k=v ...]
 
-the counterparts of `clibd train` and `clibd eval`, the subcommands ported
-so far.  Both run on the card; `--device cpu` runs them on the CPU (the
-kernels' plain versions), and only when asked.
+the counterparts of `clibd train`, `eval`, `extract`, `extract-single` and
+`serve`, the subcommands ported so far.  Each runs on the card; `--device
+cpu` runs it on the CPU (the kernels' plain versions), and only when asked.
 """
 
 from __future__ import annotations
@@ -15,6 +22,8 @@ import argparse
 from typing import List, Optional
 
 from .eval_cmds import cmd_eval
+from .extract_cmds import cmd_extract, cmd_extract_single
+from .ops_cmds import cmd_serve
 from .train_cmds import cmd_train
 
 
@@ -41,5 +50,58 @@ def main(argv: Optional[List[str]] = None) -> int:
     common(p_eval)
     p_eval.add_argument("--unimodel", default=None, metavar="SIMCLR_CKPT",
                         help="SimCLR image-encoder eval (not ported yet)")
+
+    p_extract = sub.add_parser("extract", help="embedding export (save_embedding/)")
+    common(p_extract)
+    p_extract.add_argument("--split", default="all_keys")
+    p_extract.add_argument("--out", default="embeddings.hdf5")
+    p_extract.add_argument("--stream", action="store_true",
+                           help="append per batch (resizable HDF5, for exports that do not "
+                                "fit in host memory)")
+    p_extract.add_argument("--resume", action="store_true",
+                           help="with --stream: continue a partial output (bit-identical to "
+                                "an uninterrupted run)")
+
+    p_single = sub.add_parser(
+        "extract-single", help="embed one image/barcode (save_embedding/extract_single_image.py)")
+    common(p_single)
+    p_single.add_argument("--image", default=None)
+    p_single.add_argument("--barcode", default=None)
+    p_single.add_argument("--out", default=None)
+
+    p_serve = sub.add_parser("serve", help="resident HTTP inference server (micro-batched "
+                                           "embed + top-k search)")
+    common(p_serve)
+    p_serve.add_argument("--host", default="127.0.0.1")
+    p_serve.add_argument("--port", type=int, default=8000)
+    p_serve.add_argument("--keys", default=None,
+                         help="save_embedding_export HDF5 gallery for /search")
+    p_serve.add_argument("--window-ms", type=float, default=4.0,
+                         help="micro-batch coalescing window")
+    p_serve.add_argument("--max-batch", type=int, default=32)
+    p_serve.add_argument("--no-warm", action="store_true",
+                         help="skip running every (modality, bucket) forward at startup")
+    p_serve.add_argument("--shard-keys", action="store_true",
+                         help="shard the gallery over the local cards (not ported yet)")
+    p_serve.add_argument("--keys-dtype", default="float32", choices=("float32", "int8"),
+                         help="int8: 4x smaller gallery on the card (approximate scores)")
+    p_serve.add_argument("--keys-rerank", type=int, default=4,
+                         help="oversample factor of the exact host re-rank against the "
+                              "original fp32 rows; on for int8 galleries and for fp32 under "
+                              "--keys-selector approx (0 = trust the card's ranks, no host "
+                              "fp32 copy)")
+    p_serve.add_argument("--keys-selector", default="auto", choices=("auto", "exact", "approx"),
+                         help="candidate selection policy, as in the JAX package: auto = "
+                              "approx for int8 galleries with a re-rank, exact otherwise "
+                              "(approx selects exactly on the card)")
+    p_serve.add_argument("--reload-watch", type=float, default=0.0, metavar="SECONDS",
+                         help="poll the --keys file and hot-reload the gallery when it "
+                              "changes (stable across two polls); 0 = off")
+    p_serve.add_argument("--language-vocab", default=None,
+                         help="WordPiece vocab.txt enabling taxonomy-text queries")
+    p_serve.add_argument("--max-queue", type=int, default=1024,
+                         help="shed load (503) beyond this request backlog")
     args = parser.parse_args(argv)
-    return {"train": cmd_train, "eval": cmd_eval}[args.command](args, args.overrides)
+    return {"train": cmd_train, "eval": cmd_eval, "extract": cmd_extract,
+            "extract-single": cmd_extract_single,
+            "serve": cmd_serve}[args.command](args, args.overrides)

@@ -14,22 +14,30 @@ forward is launched, and the host waits for that copy only after batch i+1
 has been launched.  Inputs go up from pinned memory without blocking, so the
 loader builds the next batch while the card computes.
 
+The embedding export (`extract.py:340-511`): `save_embedding_export` writes
+a split dict as the reference's gzip HDF5 (encoded_*_feature and the
+per-level label lists); `stream_extract_split` appends each batch to it
+through `AppendableEmbeddingWriter` instead, with the same one-step-delayed
+drain, and resumes a killed run from its consistent prefix.  The ragged last
+batch needs no padding here (eager PyTorch has no compiled batch shape).
+h5py is imported where a file is opened.
+
 Not ported yet: host-sharded multi-process extraction
-(`extract_split_multihost`), `stream_extract_split` and
-`AppendableEmbeddingWriter`, `save_embedding_export`.
+(`extract_split_multihost`, ROADMAP.md Queue 1 item 6).
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ..config import ExperimentConfig
+from ..config import LEVELS, ExperimentConfig
 from ..models.clibd import CLIBD, clibd_apply
 
 ALL_TYPE_OF_FEATURES_OF_QUERY = [
@@ -41,6 +49,7 @@ ALL_TYPE_OF_FEATURES_OF_QUERY = [
 ]
 ALL_TYPE_OF_FEATURES_OF_KEY = ALL_TYPE_OF_FEATURES_OF_QUERY + ["all_key_features"]
 MODALITIES = ("image", "dna", "language")
+EXPORT_FEATURES = ("encoded_image_feature", "encoded_dna_feature", "encoded_language_feature")
 
 
 def to_device(batch, device: torch.device):
@@ -68,29 +77,24 @@ def make_encode_step(cfg: ExperimentConfig, model: CLIBD, compute_dtype=torch.bf
     return step
 
 
-def extract_split(model: CLIBD, cfg: ExperimentConfig, loader, for_key_set: bool = False,
-                  compute_dtype=None, progress: bool = False) -> Dict:
-    """Encode every batch of `loader` (the `BioscanLoader` interface:
-    `batches(epoch, shuffle)`, `label_dicts()`, `ids()`) on the model's
-    device → the split dict.  compute_dtype follows cfg.amp by default."""
+def _encode_batches(model: CLIBD, cfg: ExperimentConfig, batches, compute_dtype):
+    """Encode each batch on the model's device → yields, one batch late, its
+    embeddings as fp32 host arrays {modality: [B, D]}.  Batch i's outputs go
+    to pinned host memory asynchronously right after its forward is
+    launched, and are waited for only after batch i+1 has been launched."""
     if compute_dtype is None:
         compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
     device = next(model.parameters()).device
     step = make_encode_step(cfg, model, compute_dtype)
-
-    feats: Dict[str, list] = {m: [] for m in MODALITIES}
-    t0 = time.time()
-    total = 0
     pending = None  # (host tensors, copy-done event) of the previous batch
 
     def drain(item):
         host, done = item
         if done is not None:
             done.synchronize()
-        for k, v in host.items():
-            feats[k].append(v.numpy().astype(np.float32, copy=False))
+        return {k: v.numpy().astype(np.float32, copy=False) for k, v in host.items()}
 
-    for batch in loader.batches(epoch=0, shuffle=False):
+    for batch in batches:
         model_batch = {k: batch[k] for k in MODALITIES if k in batch}
         out = step(to_device(model_batch, device))
         host = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
@@ -98,15 +102,29 @@ def extract_split(model: CLIBD, cfg: ExperimentConfig, loader, for_key_set: bool
         if device.type == "cuda":
             done = torch.cuda.Event()
             done.record()
-        total += next(iter(host.values())).shape[0]
         if pending is not None:
-            drain(pending)
+            yield drain(pending)
         pending = (host, done)
+    if pending is not None:
+        yield drain(pending)
+
+
+def extract_split(model: CLIBD, cfg: ExperimentConfig, loader, for_key_set: bool = False,
+                  compute_dtype=None, progress: bool = False) -> Dict:
+    """Encode every batch of `loader` (the `BioscanLoader` interface:
+    `batches(epoch, shuffle)`, `label_dicts()`, `ids()`) on the model's
+    device → the split dict.  compute_dtype follows cfg.amp by default."""
+    feats: Dict[str, list] = {m: [] for m in MODALITIES}
+    t0 = time.time()
+    total = 0
+    for host in _encode_batches(model, cfg, loader.batches(epoch=0, shuffle=False),
+                                compute_dtype):
+        for k, v in host.items():
+            feats[k].append(v)
+        total += next(iter(host.values())).shape[0]
         if progress:
             dt = time.time() - t0
             print(f"\rencoded {total} samples ({total / max(dt, 1e-9):.1f}/s)", end="")
-    if pending is not None:
-        drain(pending)
     if progress:
         print()
 
@@ -206,3 +224,136 @@ def load_extracted_features(path: str, labels_path: str, processed_id_path: str)
     keys_dict["processed_id_list"] = ids["key_id_list"]
     keys_dict["all_processed_id_list"] = ids["key_id_list"] * reps
     return seen_dict, unseen_dict, keys_dict
+
+
+# ---------------------------------------------------------------------------
+# Embedding export (`extract.py:340-511`; reference scripts/save_embedding/
+# extract_embedding.py: gzip HDF5 with encoded_*_feature + per-level label
+# lists, Embedding.md:1-30)
+# ---------------------------------------------------------------------------
+
+
+def save_embedding_export(path: str, split_dict: Dict, compress: bool = True) -> None:
+    import h5py
+
+    kw = {"compression": "gzip"} if compress else {}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with h5py.File(path, "w") as f:
+        for t in EXPORT_FEATURES:
+            if split_dict.get(t) is not None:
+                f.create_dataset(t, data=split_dict[t], **kw)
+        labels = split_dict["label_list"]
+        for level in LEVELS:
+            names = np.array([lab[level].encode() for lab in labels])
+            f.create_dataset(f"{level}_list", data=names, **kw)
+        f.create_dataset("file_name",
+                         data=np.array([s.encode() for s in split_dict["file_name_list"]]), **kw)
+
+
+class AppendableEmbeddingWriter:
+    """Batch-resizable gzip HDF5 embedding writer (reference
+    scripts/save_embedding/extract_embedding_for_backend.py): datasets are
+    created with unlimited maxshape and appended per batch, so large exports
+    stream without holding everything in RAM."""
+
+    def __init__(self, path: str, feature_dim: int, compress: bool = True,
+                 resume: bool = False):
+        import h5py
+
+        self._str_dtype = h5py.string_dtype()
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        mode = "a" if (resume and os.path.exists(path)) else "w"
+        self.file = h5py.File(path, mode)
+        self.kw = {"compression": "gzip"} if compress else {}
+        self.feature_dim = feature_dim
+        self._datasets = {name: self.file[name] for name in self.file.keys()} if mode == "a" else {}
+        # a kill mid-append can leave datasets at different lengths (they are
+        # resized one at a time): the consistent prefix is the minimum
+        self._n = min(ds.shape[0] for ds in self._datasets.values()) if self._datasets else 0
+
+    @property
+    def n_rows(self) -> int:
+        """Rows present in every dataset (the consistent prefix)."""
+        return self._n
+
+    def truncate(self, n: int) -> None:
+        """Trim every dataset to its first `n` rows: resume cuts a killed
+        run's possibly inconsistent tail back to a batch boundary."""
+        for ds in self._datasets.values():
+            if ds.shape[0] > n:
+                ds.resize(n, axis=0)
+        self._n = min(n, self._n)
+
+    def _ensure(self, name: str, shape_tail, dtype):
+        if name not in self._datasets:
+            self._datasets[name] = self.file.create_dataset(
+                name, shape=(0, *shape_tail), maxshape=(None, *shape_tail), dtype=dtype,
+                chunks=True, **self.kw)
+        return self._datasets[name]
+
+    def _append_rows(self, name: str, rows, shape_tail, dtype) -> None:
+        ds = self._ensure(name, shape_tail, dtype)
+        start = ds.shape[0]
+        ds.resize(start + len(rows), axis=0)
+        ds[start:start + len(rows)] = rows
+
+    def append(self, features: Dict[str, np.ndarray], label_dicts, file_names) -> None:
+        n = len(file_names)
+        if n == 0:
+            return  # ds[-0:] would select every row
+        for t, arr in features.items():
+            if arr is not None:
+                self._append_rows(t, arr, (arr.shape[1],), np.float32)
+        for level in LEVELS:
+            self._append_rows(f"{level}_list", [lab[level] for lab in label_dicts], (),
+                              self._str_dtype)
+        self._append_rows("file_name", list(file_names), (), self._str_dtype)
+        self._n += n
+
+    def close(self) -> None:
+        self.file.close()
+
+
+def stream_extract_split(model: CLIBD, cfg: ExperimentConfig, loader, out_path: str,
+                         resume: bool = False, compress: bool = True, progress: bool = False,
+                         max_batches: Optional[int] = None, compute_dtype=None) -> int:
+    """Streaming embedding export: encode a split batch by batch on the
+    model's device and append each batch to `out_path`
+    (`AppendableEmbeddingWriter`), writing batch i while the card encodes
+    batch i+1.
+
+    resume=True continues a partial output: its consistent prefix is cut to
+    a batch boundary and extraction restarts at that batch
+    (`loader.batches(start_batch=...)`); the loader's fixed shuffle=False
+    order makes the file bit-identical to an uninterrupted run.
+    max_batches stops after that many batches.  Returns the records written
+    by this call.  Single process."""
+    bs = loader.spec.batch_size
+    labels = loader.label_dicts()
+    ids = loader.ids()
+    writer = AppendableEmbeddingWriter(out_path, feature_dim=cfg.output_dim, compress=compress,
+                                       resume=resume)
+    try:
+        done = (writer.n_rows // bs) * bs  # consistent prefix → batch boundary
+        if resume and writer.n_rows != done:
+            writer.truncate(done)
+        batches = loader.batches(epoch=0, shuffle=False, start_batch=done // bs)
+        if max_batches is not None:
+            batches = itertools.islice(batches, max_batches)
+        t0 = time.time()
+        written = 0
+        for host in _encode_batches(model, cfg, batches, compute_dtype):
+            n = next(iter(host.values())).shape[0]
+            writer.append({f"encoded_{k}_feature": v for k, v in host.items()},
+                          labels[done:done + n], ids[done:done + n])
+            done += n
+            written += n
+            if progress:
+                dt = time.time() - t0
+                print(f"\rstreamed {done}/{len(labels)} records "
+                      f"({written / max(dt, 1e-9):.1f}/s this run)", end="")
+        if progress:
+            print()
+    finally:
+        writer.close()
+    return written

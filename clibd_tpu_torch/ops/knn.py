@@ -1,30 +1,76 @@
-"""Exact kNN retrieval: the port of the exact fp32 path of
-`clibd_tpu/ops/knn.py` (L2-normalised inner-product search as a matmul plus
-top-k, the reference's FAISS IndexFlatIP).
+"""kNN retrieval: the port of `clibd_tpu/ops/knn.py` on one device
+(L2-normalised inner-product search as a matmul plus top-k, the reference's
+FAISS IndexFlatIP).
 
-Scores are an fp32 `torch.matmul` with TF32 off (the package sets it at
-import; the counterpart of `Precision.HIGHEST`), and selection is
-`top_k_lower_index_first`: `jax.lax.top_k`'s order, equal scores lower key
-index first, which `torch.topk` does not promise.  Queries go through in
-chunks of `query_chunk` rows, a Python loop in place of `lax.map`, each
-padded with zero rows to a multiple of 8 so that identical keys score
-identically (see `knn_search`).  These are large plain products that the
-JAX package leaves to XLA, and the port leaves to cuBLAS.
+Scores over an fp32 gallery are an fp32 `torch.matmul` with TF32 off (the
+package sets it at import; the counterpart of `Precision.HIGHEST`), and
+selection is `top_k_lower_index_first`: `jax.lax.top_k`'s order, equal
+scores lower key index first, which `torch.topk` does not promise.  Queries
+go through in chunks of `query_chunk` rows, a Python loop in place of
+`lax.map`, each padded with zero rows to a multiple of 8 so that identical
+keys score identically (see `knn_search`).  These are large plain products
+that the JAX package leaves to XLA, and the port leaves to cuBLAS.
 
-Not ported yet: the int8 `QuantizedKeys` gallery, `selector="approx"`, the
-query- and key-sharded multi-device searches and `rerank_candidates`.
+The int8 gallery (`QuantizedKeys`, `prepare_keys(dtype="int8")`) holds each
+L2-normalised key row as int8 with one fp32 scale, 4x smaller than fp32.
+JAX scores it as dot(bf16(q), bf16(int8 keys)) with fp32 accumulation,
+times the scale.  Here the query is rounded to bf16 and back, and the int8
+keys are widened to fp32 `KEY_CHUNK` rows at a time (exact: int8 values and
+bf16 queries are both exact in fp32, and so is each product), so only the
+summation order differs from JAX; no fp32 copy of the whole gallery is ever
+held.  `rerank_candidates` re-ranks an oversampled candidate set exactly
+against the original fp32 rows on the host.
+
+`selector="approx"` wraps `jax.lax.approx_max_k`, the TPU's partial-reduce
+selection; it has no counterpart on the card and selects exactly here (on
+the CPU JAX lowers it exactly too).  The query- and key-sharded searches
+(`mesh=`, `shard="keys"`) wait for the multi-GPU port (ROADMAP.md Queue 1
+item 6).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from ..models.clibd import l2_normalize
 
-_LATER = "is not ported to clibd_tpu_torch yet (ROADMAP.md: int8/approx/sharded kNN)"
+_MULTI_GPU = ("is not ported to clibd_tpu_torch yet (ROADMAP.md Queue 1 item 6: "
+              "multi-GPU, the sharded kNN)")
+# int8 key rows widened to fp32 at a time: 64k x 768 fp32 is 192 MiB
+KEY_CHUNK = 65536
+
+
+class QuantizedKeys(NamedTuple):
+    """int8 gallery (`clibd_tpu/ops/knn.py:27-42`): per-row symmetric
+    quantisation of the L2-normalised keys, q = round(row / scale), scale =
+    max|row| / 127."""
+
+    q: torch.Tensor       # [N, D] int8
+    scale: torch.Tensor   # [N] fp32 per-row dequantisation scale
+    n_valid: int          # rows that are keys (rows past it are padding)
+
+
+def quantize_keys(keys: np.ndarray, chunk: int = 262144) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side L2-normalise + per-row int8 quantisation, in chunks (copied
+    from `clibd_tpu/ops/knn.py:44-61`) → (q int8 [N, D], scale fp32 [N]).
+    As there, a float32 ndarray is normalised in place (its chunks are
+    views), which the re-rank's host copy of the rows does not mind."""
+    keys = np.asarray(keys)
+    n = keys.shape[0]
+    q = np.empty(keys.shape, np.int8)
+    scale = np.empty((n,), np.float32)
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        block = np.asarray(keys[lo:hi], np.float32)
+        block /= np.maximum(np.linalg.norm(block, axis=1, keepdims=True), 1e-12)
+        s = np.max(np.abs(block), axis=1) / 127.0
+        s = np.maximum(s, 1e-12)
+        q[lo:hi] = np.round(block / s[:, None]).astype(np.int8)
+        scale[lo:hi] = s
+    return q, scale
 
 
 def _as_tensor(x, device) -> torch.Tensor:
@@ -33,11 +79,21 @@ def _as_tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(x, np.float32)).to(device)
 
 
-def prepare_keys(keys, device: torch.device | str = "cuda", dtype: str = "float32") -> torch.Tensor:
+def prepare_keys(keys, device: torch.device | str = "cuda", dtype: str = "float32", mesh=None):
     """Upload and L2-normalise a key matrix once, for reuse across the eval
-    grid."""
-    if dtype != "float32":
-        raise NotImplementedError(f"prepare_keys dtype={dtype!r} {_LATER}")
+    grid → an fp32 tensor; dtype="int8": a `QuantizedKeys` gallery (int8
+    rows and fp32 scales on `device`), which `knn_search` takes wherever a
+    key matrix goes."""
+    if mesh is not None:
+        raise NotImplementedError(f"prepare_keys(mesh=...) {_MULTI_GPU}")
+    if dtype not in ("float32", "int8"):
+        raise ValueError(f"dtype must be 'float32' or 'int8', got {dtype!r}")
+    if dtype == "int8":
+        if isinstance(keys, torch.Tensor):
+            keys = keys.detach().cpu().numpy().copy()  # leave the caller's tensor as it is
+        q, scale = quantize_keys(keys)
+        return QuantizedKeys(torch.from_numpy(q).to(device), torch.from_numpy(scale).to(device),
+                             q.shape[0])
     return l2_normalize(_as_tensor(keys, device))
 
 
@@ -65,25 +121,61 @@ def top_k_lower_index_first(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor,
     return vals.gather(1, order), idx.gather(1, order)
 
 
+def _scores(q: torch.Tensor, keys: torch.Tensor, scale) -> torch.Tensor:
+    """One query chunk's scores [rows, N] fp32: an fp32 product for fp32
+    keys; for int8 keys the bf16-rounded query against `KEY_CHUNK` key rows
+    at a time widened to fp32, times their scales, written into one buffer
+    (so that selection runs once over the whole row)."""
+    if scale is None:
+        return torch.matmul(q, keys.T)
+    q = q.to(torch.bfloat16).float()
+    out = q.new_empty(q.shape[0], keys.shape[0])
+    for lo in range(0, keys.shape[0], KEY_CHUNK):
+        hi = lo + KEY_CHUNK
+        out[:, lo:hi] = torch.matmul(q, keys[lo:hi].float().T) * scale[lo:hi]
+    return out
+
+
 def knn_search(queries, keys, k: int = 5, query_chunk: int = 4096, normalize: bool = True,
-               keys_normalized: bool = False, selector: str = "exact",
+               keys_normalized: bool = False, selector: str = "exact", mesh=None,
+               shard: str = "queries", n_valid_keys: int = None,
                device: torch.device | str = "cuda") -> Tuple[np.ndarray, np.ndarray]:
     """→ (similarities [N, k] fp32, indices [N, k] int64), sorted descending.
 
     Runs where a tensor input lies (keys first, then queries); numpy inputs
     go to `device`, the card unless the caller asks for the CPU.
-    keys_normalized=True: keys came from prepare_keys."""
-    if selector != "exact":
-        raise NotImplementedError(f"selector={selector!r} {_LATER}")
+    keys_normalized=True: keys came from prepare_keys.  keys may be a
+    `QuantizedKeys` (approximate scores; see the module docstring).
+    n_valid_keys: only the first n_valid_keys rows are keys (default: all,
+    or a `QuantizedKeys`' n_valid).  selector="approx" selects exactly (the
+    TPU's approx_max_k has no counterpart here)."""
+    if mesh is not None or shard != "queries":
+        raise NotImplementedError(f"knn_search(mesh=..., shard={shard!r}) {_MULTI_GPU}")
+    if selector not in ("exact", "approx"):
+        raise ValueError(f"selector must be 'exact' or 'approx', got {selector!r}")
+    scale = None
+    if isinstance(keys, QuantizedKeys):
+        keys, scale, qk_valid = keys.q, keys.scale, keys.n_valid
+        if n_valid_keys is None:
+            n_valid_keys = qk_valid
+        keys_normalized = True  # quantised after normalisation
     tensors = [x for x in (keys, queries) if isinstance(x, torch.Tensor)]
     device = tensors[0].device if tensors else torch.device(device)
     queries = _as_tensor(queries, device)
-    keys = _as_tensor(keys, device)
+    if scale is None:
+        keys = _as_tensor(keys, device)
+    else:
+        keys = torch.as_tensor(keys).to(device)
+        scale = _as_tensor(scale, device)
+    n_valid = int(n_valid_keys if n_valid_keys is not None else keys.shape[0])
+    keys = keys[:n_valid]
+    if scale is not None:
+        scale = scale[:n_valid]
     if normalize:
         queries = l2_normalize(queries)
         if not keys_normalized:
             keys = l2_normalize(keys)
-    k = int(min(k, keys.shape[0]))
+    k = int(min(k, n_valid))
     query_chunk = int(max(1, query_chunk))
     sims, idx = [], []
     for lo in range(0, queries.shape[0], query_chunk):
@@ -94,13 +186,37 @@ def knn_search(queries, keys, k: int = 5, query_chunk: int = 4096, normalize: bo
         # their position, and an exact tie would no longer be one (the
         # reference pads every chunk to query_chunk rows)
         q = torch.cat([q, q.new_zeros((-rows) % 8, q.shape[1])])
-        scores = torch.matmul(q, keys.T)[:rows]
-        s, i = top_k_lower_index_first(scores, k)
+        s, i = top_k_lower_index_first(_scores(q, keys, scale)[:rows], k)
         sims.append(s)
         idx.append(i)
     if not sims:
         return np.zeros((0, k), np.float32), np.zeros((0, k), np.int64)
     return torch.cat(sims).cpu().numpy(), torch.cat(idx).cpu().numpy()
+
+
+def rerank_candidates(queries: np.ndarray, cand_idx: np.ndarray, keys_fp32, k: int,
+                      normalize_queries: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact host-side re-rank of an oversampled candidate set (copied from
+    `clibd_tpu/ops/knn.py:359-388`): search the int8 gallery at k *
+    oversample, then score those candidates against the original fp32 rows
+    here.  queries [N, D]; cand_idx [N, M] from knn_search; keys_fp32 the
+    original key matrix (unnormalised is fine), h5py dataset or ndarray.
+    → (sims [N, k], idx [N, k]) exact, sorted descending."""
+    queries = np.asarray(queries, np.float32)
+    if normalize_queries:
+        queries = queries / np.maximum(
+            np.linalg.norm(queries, axis=1, keepdims=True), 1e-12)
+    cand_idx = np.asarray(cand_idx)
+    uniq, inv = np.unique(cand_idx, return_inverse=True)
+    rows = np.asarray(keys_fp32[uniq] if isinstance(keys_fp32, np.ndarray)
+                      else keys_fp32[list(uniq)], np.float32)
+    rows /= np.maximum(np.linalg.norm(rows, axis=1, keepdims=True), 1e-12)
+    gathered = rows[inv.reshape(cand_idx.shape)]        # [N, M, D]
+    scores = np.einsum("nd,nmd->nm", queries, gathered)  # exact fp32
+    k = min(k, cand_idx.shape[1])
+    order = np.argsort(-scores, axis=1, kind="stable")[:, :k]
+    return (np.take_along_axis(scores, order, axis=1),
+            np.take_along_axis(cand_idx, order, axis=1))
 
 
 def find_k_closest_records(query_feature, keys_feature, key_file_names, k: int = 5,

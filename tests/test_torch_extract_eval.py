@@ -279,10 +279,17 @@ def test_options_not_ported_raise(tmp_path):
     cfg.image.input_type = "image_features"
     with pytest.raises(NotImplementedError, match="MLP encoder"):
         CLIBD(cfg)
-    with pytest.raises(NotImplementedError, match="int8"):
-        port_knn.prepare_keys(np.ones((3, 4), np.float32), dtype="int8")
-    with pytest.raises(NotImplementedError, match="approx"):
-        port_knn.knn_search(np.ones((3, 4)), np.ones((3, 4)), selector="approx")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        port_knn.prepare_keys(np.ones((3, 4), np.float32), device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="item 6"):
+        port_knn.knn_search(np.ones((3, 4)), np.ones((3, 4)), mesh=object(), device="cpu")
+    exp = tmp_path / "tiny.yaml"
+    exp.write_text(TINY_EXP)
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m", "clibd_tpu_torch.cli", "serve", "-e", str(exp),
+                           "--device", "cpu", "--shard-keys"], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
     proc = _run_cli(tmp_path, "inference_and_eval_setting.retrieve_images=true")
     assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
     proc = _run_cli(tmp_path, "--unimodel", "simclr.npz")

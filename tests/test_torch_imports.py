@@ -37,7 +37,9 @@ def test_the_walk_covers_the_port():
     for tool in ("profile_extract", "exp_attn", "exp_mxu", "exp_mxu2", "exp_flash",
                  "exp_mlp_activation"):
         assert f"clibd_tpu_torch/tools/{tool}.py" in PORT_FILES
-    assert "clibd_tpu_torch/engine/train.py" in PORT_FILES
+    for module in ("engine/train.py", "engine/serve.py", "engine/extract.py", "ops/knn.py",
+                   "cli/extract_cmds.py", "cli/ops_cmds.py", "tools/bench_serve.py"):
+        assert f"clibd_tpu_torch/{module}" in PORT_FILES
     assert len(PORT_FILES) >= 45, PORT_FILES
 
 
@@ -57,6 +59,7 @@ def test_the_walk_catches_a_forbidden_import(tmp_path, monkeypatch):
 
 def _entry_points():
     from clibd_tpu_torch.engine.evaluate import inference_and_eval
+    from clibd_tpu_torch.engine.serve import InferenceService, KeySet
     from clibd_tpu_torch.engine.train import Trainer
     from clibd_tpu_torch.models import init_clibd_model, load_model_npz, model_from_jax
     from clibd_tpu_torch.ops.knn import (find_k_closest_records, knn_search, make_prediction,
@@ -67,19 +70,22 @@ def _entry_points():
             "load_model_npz": load_model_npz, "inference_and_eval": inference_and_eval,
             "prepare_keys": prepare_keys, "Trainer": Trainer.__init__, "knn_search": knn_search,
             "find_k_closest_records": find_k_closest_records, "make_prediction": make_prediction,
-            "StepTimer": StepTimer.__init__, "PhaseTimer": PhaseTimer.__init__}
+            "StepTimer": StepTimer.__init__, "PhaseTimer": PhaseTimer.__init__,
+            "InferenceService": InferenceService.__init__, "KeySet": KeySet.__init__,
+            "KeySet.from_arrays": KeySet.from_arrays}
 
 
 @pytest.mark.parametrize("name", ["init_clibd_model", "model_from_jax", "load_model_npz",
                                   "inference_and_eval", "prepare_keys", "Trainer", "knn_search",
                                   "find_k_closest_records", "make_prediction", "StepTimer",
-                                  "PhaseTimer"])
+                                  "PhaseTimer", "InferenceService", "KeySet",
+                                  "KeySet.from_arrays"])
 def test_entry_point_defaults_to_cuda(name):
     fn = _entry_points()[name]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
-@pytest.mark.parametrize("command", ["train", "eval"])
+@pytest.mark.parametrize("command", ["train", "eval", "extract", "extract-single", "serve"])
 def test_cli_defaults_to_cuda_with_no_fallback(command):
     proc = subprocess.run([sys.executable, "-m", "clibd_tpu_torch.cli", command, "--help"],
                           cwd=REPO, capture_output=True, text=True, timeout=120)
@@ -126,3 +132,38 @@ def test_numpy_inputs_and_timers_go_to_the_card(call):
         return
     with pytest.raises((AssertionError, RuntimeError)):
         run()
+
+
+SERVE_EXP = """
+model_output_name: no_card
+dataset: bioscan_1m
+output_dim: 16
+load_ckpt: false
+image:
+  vit: {image_size: 224, patch_size: 32, hidden_size: 32, num_layers: 1, num_heads: 2,
+        mlp_dim: 64}
+dna:
+  bert: {vocab_size: 1027, hidden_size: 32, num_layers: 1, num_heads: 2,
+         intermediate_size: 64, max_position_embeddings: 140, with_mlm_head: true}
+language:
+  bert: {vocab_size: 1000, hidden_size: 32, num_layers: 1, num_heads: 2,
+         intermediate_size: 64, max_position_embeddings: 24}
+"""
+
+
+@pytest.mark.parametrize("argv", [["extract-single", "--barcode", "ACGTACGT"],
+                                  ["serve", "--port", "0", "--no-warm"],
+                                  ["extract", "--hdf5", "missing.hdf5", "--stream"]])
+def test_export_and_serve_commands_need_the_card(argv, tmp_path):
+    """Without `--device cpu` the new subcommands go to the card: where there
+    is none they exit with an error before any work, never on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the commands would run on it")
+    exp = tmp_path / "exp.yaml"
+    exp.write_text(SERVE_EXP)
+    proc = subprocess.run([sys.executable, "-m", "clibd_tpu_torch.cli", argv[0], "-e", str(exp),
+                           *argv[1:], f"project_root_path={tmp_path}"],
+                          cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr or "cuda" in proc.stderr, proc.stderr[-2000:]
+    assert "serving on" not in proc.stdout
