@@ -181,9 +181,38 @@ Phases, each of which raises on failure:
    timed at a query batch of 1 and 32, and the `tools/bench_serve` load (16
    clients x 8 requests, coalesced and unbatched: req/s, mean device batch,
    p50/p95).
+13. import: the reference's torch checkpoints, written here at the
+   flagship's full width independently of the port's importer
+   (`draw_port_params` draws the CLIBD module's parameters from a seeded
+   generator, `reference_state_dict` lays them out in the reference's names
+   and layouts: torch [out, in] weights, BERT's separate q/k/v, the OIHW
+   patch conv, the "module." prefix) with `torch.save`: the flagship's
+   best.pth, and the LoRA recipe
+   for_bioscan_1m/lora_vit_lora_barcode_bert_lora_bert_ssl.yaml's (rank 4,
+   B non-zero) under the legacy names, with a padded vocabulary and the MLM
+   decoder's bias at cls.predictions.bias.  verify-parity's convert leg
+   must be ok on both; both load through `cli.common._resolve_params` with
+   model_config.ckpt_path set, onto the card, every parameter the written
+   tensor bit for bit (import seconds and the file's GB printed).  Then
+   the flagship import's bf16 extraction of the synthetic splits, drawn as
+   specimens of 40 species (`SyntheticSplit(species=40)`): exactly 28
+   forward launches per batch and 12 / 12 / 4 for one batch per tower
+   alone (the path "import_eval"), no other kernel, finite unit-norm
+   embeddings, bf16 against fp32 cosine >= 0.99 per row, samples/s printed;
+   verify-parity's legs on the kernel trio against the plain versions'
+   trio: `compare_embeddings` ok at cosine 0.99, `compare_top1` ok at 0.5%
+   for each tower's queries against its own keys (a seeded init aligns no
+   modality with another, so the cross-modal cells are chance: the whole
+   grid is printed, not held); the LoRA import's fp32 embeddings against
+   the plain layout carrying W_qkv with the adapters merged in
+   (`models/lora.py::merge_lora_into_qkv`) under the recipe with
+   disable_lora, cosine >= 0.9999 per row; last, the flagship with
+   `image.input_type: feature` over 512-wide image features (the MLP
+   encoder): no launch from the image tower, 12 from the DNA tower and 4
+   from the text tower per batch (the path "feature_eval").
 
-Phases 3-5 and 12 run with both opt-in kernels off, as the flagship recipe
-does.
+Phases 3-5, 12 and 13 run with both opt-in kernels off, as the flagship
+recipe does.
 The last three lines are the kernel summary JSON, the card line, and
 `{"ok": true, "device": {...}}`.
 """
@@ -265,6 +294,14 @@ SEARCH_SCORE_TOL = 1e-4    # a planted row's score against 1
 RERANK_SCORE_TOL = 1e-5    # int8 + re-rank against exact fp32
 INT8_SCORE_TOL = 0.02      # int8 without re-rank against exact (tests/test_knn.py's bound)
 INT8_MARGIN = 0.01         # exact top-1 margin above which int8 must keep the top-1
+# phase 13: the LoRA recipe imported beside the flagship; the writer's seed;
+# the LoRA import against its merged plain form (fp32, per row); the width of
+# the feature-input flagship's image features
+IMPORT_LORA = "for_bioscan_1m/lora_vit_lora_barcode_bert_lora_bert_ssl.yaml"
+IMPORT_SEED = 13
+IMPORT_COSINE_MIN = 0.9999
+IMPORT_SPECIES = 40
+FEATURE_DIM = 512
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores, published
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores, published
@@ -593,13 +630,7 @@ def eval_slice_phase(card: str, label: str, mc, device, split_rows: dict) -> dic
 
     for name, d in (("all_keys", keys_dict), ("test_seen", seen_dict),
                     ("test_unseen", unseen_dict)):
-        for m in ("image", "dna", "language"):
-            emb = d[f"encoded_{m}_feature"]
-            if emb.shape != (split_rows[name], mc.output_dim) or not np.isfinite(emb).all():
-                fail(f"{name} {m} embeddings: shape {emb.shape} or not finite")
-            norm_err = float(np.abs(np.linalg.norm(emb, axis=1) - 1).max())
-            if norm_err > 1e-3:
-                fail(f"{name} {m} embeddings not unit-norm: max |norm-1| {norm_err}")
+        check_embeddings(name, d, split_rows[name], mc.output_dim)
     if keys_dict["all_key_features"].shape != (3 * split_rows["all_keys"], mc.output_dim):
         fail(f"all_key_features shape {keys_dict['all_key_features'].shape}")
 
@@ -630,6 +661,7 @@ def train_slice_phase(card: str, label: str, gcfg, device, train_rows: dict) -> 
     import torch
 
     from clibd_tpu_torch.data import SyntheticSplit
+    from clibd_tpu_torch.engine.checkpoint import load_model_any
     from clibd_tpu_torch.engine.extract import to_device
     from clibd_tpu_torch.engine.train import (
         ScheduledAdamW,
@@ -638,7 +670,7 @@ def train_slice_phase(card: str, label: str, gcfg, device, train_rows: dict) -> 
         make_loss_fn,
         make_train_step,
     )
-    from clibd_tpu_torch.models import init_clibd_model, load_model_npz
+    from clibd_tpu_torch.models import init_clibd_model
     from clibd_tpu_torch.ops.attention import flash_attention_qkv, flash_attention_qkv_bwd
     from clibd_tpu_torch.tools.profile_extract import plain_kernels
 
@@ -710,7 +742,7 @@ def train_slice_phase(card: str, label: str, gcfg, device, train_rows: dict) -> 
         for sub in ("last", "best"):
             if not os.path.exists(os.path.join(out_dir, sub, "params.npz")):
                 fail(f"{sub}/ was not written")
-        reloaded = load_model_npz(os.path.join(out_dir, "best"), mc, device)
+        reloaded = load_model_any(os.path.join(out_dir, "best"), mc, device)
         n_reloaded = sum(p.numel() for p in reloaded.parameters())
         if n_reloaded != sum(p.numel() for p in model.parameters()):
             fail("best/ reloads with another parameter count")
@@ -1946,6 +1978,429 @@ def serve_phase(card: str, entries: dict, device) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the reference's torch checkpoints, written here independently of
+# the port's importer and read back through it
+# ---------------------------------------------------------------------------
+
+
+def draw_port_params(mc, generator) -> dict:
+    """Every parameter of the `CLIBD` module for `mc`, under the module's
+    names and layouts ([in, out] weights, stacked [L, ...] blocks, one fused
+    qkv, LoRA adapters where the recipe has them), drawn from `generator`:
+    N(0, 0.02) everywhere, plus 1 on LayerNorm scales, so that no two
+    tensors of a layout are alike."""
+    import torch
+
+    from clibd_tpu_torch.models import CLIBD
+
+    with torch.device("meta"):
+        shapes = {n: p.shape for n, p in CLIBD(mc).named_parameters()}
+    out = {}
+    for name, shape in shapes.items():
+        t = torch.randn(shape, generator=generator) * 0.02
+        if name.endswith("scale") and name != "logit_scale":
+            t += 1.0
+        out[name] = t
+    out["logit_scale"] = torch.tensor(mc.init_logit_scale, dtype=torch.float32)
+    return out
+
+
+def _sub(params: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
+
+
+def vit_state_dict(vit: dict) -> dict:
+    """A port ViT's parameters (names below `image_encoder.`) → the timm
+    `vit_base_patch16_224` state dict: Linear weights [out, in], the patch
+    embedding as an OIHW conv; with LoRA, timm's qkv wrapped as the
+    reference's `attn.qkv.qkv` beside `linear_{a,b}_{q,v}`."""
+    w = vit["patch_embed.w"]
+    D = w.shape[1]
+    p = round((w.shape[0] // 3) ** 0.5)
+    sd = {"cls_token": vit["cls_token"], "pos_embed": vit["pos_embed"],
+          "patch_embed.proj.weight": w.reshape(p, p, 3, D).permute(3, 2, 0, 1),
+          "patch_embed.proj.bias": vit["patch_embed.b"],
+          "norm.weight": vit["norm.scale"], "norm.bias": vit["norm.bias"],
+          "head.weight": vit["head.w"].T, "head.bias": vit["head.b"]}
+    lora = "lora.a_q" in vit
+    for i in range(vit["blocks.qkv_w"].shape[0]):
+        b = {k[len("blocks."):]: v[i] for k, v in vit.items() if k.startswith("blocks.")}
+        pre = f"blocks.{i}."
+        qkv = pre + ("attn.qkv.qkv." if lora else "attn.qkv.")
+        sd[qkv + "weight"], sd[qkv + "bias"] = b["qkv_w"].T, b["qkv_b"]
+        if lora:
+            for n in ("q", "v"):
+                sd[pre + f"attn.qkv.linear_a_{n}.weight"] = vit[f"lora.a_{n}"][i].T
+                sd[pre + f"attn.qkv.linear_b_{n}.weight"] = vit[f"lora.b_{n}"][i].T
+        for ref, ours in (("attn.proj", "out"), ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
+            sd[pre + ref + ".weight"], sd[pre + ref + ".bias"] = b[ours + "_w"].T, b[ours + "_b"]
+        for ref, ours in (("norm1", "ln1"), ("norm2", "ln2")):
+            sd[pre + ref + ".weight"], sd[pre + ref + ".bias"] = b[ours + "_scale"], b[ours + "_bias"]
+    return sd
+
+
+def bert_state_dict(bert: dict, prefix: str = "", vocab_extra: int = 0,
+                    decoder_bias_at: str = "decoder.bias", generator=None) -> dict:
+    """A port BERT's parameters → the HF `BertModel` (prefix "") or
+    `BertForMaskedLM` (prefix "bert.", MLM head under `cls.predictions.`)
+    state dict: separate q/k/v, Linear weights [out, in]; with LoRA the
+    reference's `query.w` / `query.w_a` / `query.w_b` (and value).
+    `vocab_extra` rows are appended to the word embeddings (a padded
+    vocabulary the importer cuts); `decoder_bias_at` is "decoder.bias" or
+    "bias" (`cls.predictions.bias`)."""
+    import torch
+
+    word = bert["embeddings.word"]
+    if vocab_extra:
+        word = torch.cat([word, torch.randn(vocab_extra, word.shape[1], generator=generator)])
+    sd = {prefix + "embeddings.word_embeddings.weight": word,
+          prefix + "embeddings.position_embeddings.weight": bert["embeddings.position"],
+          prefix + "embeddings.token_type_embeddings.weight": bert["embeddings.token_type"],
+          prefix + "embeddings.LayerNorm.weight": bert["embeddings.ln.scale"],
+          prefix + "embeddings.LayerNorm.bias": bert["embeddings.ln.bias"]}
+    D = word.shape[1]
+    lora = "lora.a_q" in bert
+    for i in range(bert["blocks.qkv_w"].shape[0]):
+        b = {k[len("blocks."):]: v[i] for k, v in bert.items() if k.startswith("blocks.")}
+        pre = f"{prefix}encoder.layer.{i}."
+        for j, n in enumerate(("query", "key", "value")):
+            wrapped = lora and n != "key"
+            name = pre + f"attention.self.{n}" + (".w" if wrapped else "")
+            sd[name + ".weight"] = b["qkv_w"][:, j * D:(j + 1) * D].T
+            sd[name + ".bias"] = b["qkv_b"][j * D:(j + 1) * D]
+            if wrapped:
+                sd[pre + f"attention.self.{n}.w_a.weight"] = bert[f"lora.a_{n[0]}"][i].T
+                sd[pre + f"attention.self.{n}.w_b.weight"] = bert[f"lora.b_{n[0]}"][i].T
+        for ref, ours in (("attention.output.dense", "out"), ("intermediate.dense", "fc1"),
+                          ("output.dense", "fc2")):
+            sd[pre + ref + ".weight"], sd[pre + ref + ".bias"] = b[ours + "_w"].T, b[ours + "_b"]
+        for ref, ours in (("attention.output.LayerNorm", "ln1"), ("output.LayerNorm", "ln2")):
+            sd[pre + ref + ".weight"], sd[pre + ref + ".bias"] = b[ours + "_scale"], b[ours + "_bias"]
+    if "mlm_head.decoder.w" in bert:
+        h = "cls.predictions."
+        sd[h + "transform.dense.weight"] = bert["mlm_head.transform.w"].T
+        sd[h + "transform.dense.bias"] = bert["mlm_head.transform.b"]
+        sd[h + "transform.LayerNorm.weight"] = bert["mlm_head.ln.scale"]
+        sd[h + "transform.LayerNorm.bias"] = bert["mlm_head.ln.bias"]
+        sd[h + "decoder.weight"] = bert["mlm_head.decoder.w"].T
+        sd[h + decoder_bias_at] = bert["mlm_head.decoder.b"]
+    return sd
+
+
+def reference_state_dict(params: dict, legacy: bool = False, vocab_extra: int = 0,
+                         decoder_bias_at: str = "decoder.bias", generator=None) -> dict:
+    """Port-layout parameters (`draw_port_params`) → the reference's
+    SimpleCLIP `best.pth` state dict under DataParallel's "module." prefix;
+    `legacy` names the towers as the LoRA releases did (`lora_vit`,
+    `lora_barcode_bert`, `lora_bert`).  Every tensor is its own copy."""
+    import torch
+
+    towers = {"image": "lora_vit" if legacy else "base_image_encoder",
+              "dna": "lora_barcode_bert" if legacy else "base_dna_encoder",
+              "language": "lora_bert" if legacy else "base_language_encoder"}
+    sd = {"logit_scale": params["logit_scale"]}
+    if any(k.startswith("image_encoder.") for k in params):
+        for k, v in vit_state_dict(_sub(params, "image_encoder.")).items():
+            sd[f"image_encoder.{towers['image']}.{k}"] = v
+    if any(k.startswith("dna_encoder.") for k in params):
+        for k, v in bert_state_dict(_sub(params, "dna_encoder."), "bert.", vocab_extra,
+                                    decoder_bias_at, generator).items():
+            sd[f"dna_encoder.{towers['dna']}.{k}"] = v
+    if any(k.startswith("language_encoder.") for k in params):
+        for k, v in bert_state_dict(_sub(params, "language_encoder."), "", vocab_extra,
+                                    generator=generator).items():
+            sd[f"language_encoder.{towers['language']}.{k}"] = v
+        sd["language_encoder.proj.weight"] = params["language_proj.w"].T
+        sd["language_encoder.proj.bias"] = params["language_proj.b"]
+    return {"module." + k: v.clone(memory_format=torch.contiguous_format) for k, v in sd.items()}
+
+
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def import_recipes():
+    """(flagship, LoRA recipe) global configs for phase 13, each checked to be
+    the tri-modal ViT-B/16 + BarcodeBERT + BERT-small model with 768-d
+    embeddings in bf16 at batch 500 (no LoRA, and LoRA rank 4)."""
+    from clibd_tpu_torch.config import load_config
+
+    out = []
+    for experiment, lora in ((EXPERIMENT, False), (IMPORT_LORA, True)):
+        gcfg = load_config(experiment=experiment, overrides=["model_config.load_ckpt=true"])
+        mc = gcfg.model_config
+        v, d, t = mc.image.vit, mc.dna.bert, mc.language.bert
+        if not (mc.amp and mc.batch_size == 500 and mc.output_dim == 768
+                and mc.backbone != "open_clip" and mc.image.enable and mc.dna.enable
+                and mc.language.enable and mc.disable_lora != lora
+                and (not lora or mc.lora_rank == 4)):
+            fail(f"{experiment} is not the bf16 tri-modal recipe at batch 500 with 768-d "
+                 f"embeddings and {'LoRA rank 4' if lora else 'no LoRA'}")
+        out.append(gcfg)
+    return out
+
+
+def modality_launches(model, mc, batch, device) -> dict:
+    """Forward-kernel launches of one bf16 batch through each tower alone."""
+    from clibd_tpu_torch.engine.extract import make_encode_step, to_device
+
+    step = make_encode_step(mc, model)
+    out = {}
+    for m in ("image", "dna", "language"):
+        x = to_device({m: batch[m]}, device)
+        n0 = read_counts()["flash_attention_qkv"]
+        step(x)
+        sync(device)
+        out[m] = read_counts()["flash_attention_qkv"] - n0
+    return out
+
+
+def check_embeddings(what: str, split_dict: dict, rows: int, dim: int) -> None:
+    for m in ("image", "dna", "language"):
+        emb = split_dict[f"encoded_{m}_feature"]
+        if emb.shape != (rows, dim) or not np.isfinite(emb).all():
+            fail(f"{what} {m} embeddings: shape {emb.shape} or not finite")
+        norm_err = float(np.abs(np.linalg.norm(emb, axis=1) - 1).max())
+        if norm_err > 1e-3:
+            fail(f"{what} {m} embeddings not unit-norm: max |norm-1| {norm_err}")
+
+
+def extract_trio(model, mc, splits) -> tuple:
+    from clibd_tpu_torch.engine.extract import extract_split
+
+    keys = extract_split(model, mc, splits["all_keys"], for_key_set=True)
+    return (extract_split(model, mc, splits["test_seen"]),
+            extract_split(model, mc, splits["test_unseen"]), keys)
+
+
+def import_phase(card: str, entries: dict, device, split_rows: dict) -> None:
+    """Phase 13: the reference's torch checkpoints at the flagship's width,
+    written by this script (`draw_port_params` → `reference_state_dict`) and
+    imported through `cli.common._resolve_params`; their extraction, the
+    LoRA import against its merged plain form, verify-parity's legs, and
+    the feature-input flagship."""
+    import torch
+
+    from clibd_tpu_torch.cli.common import _resolve_params
+    from clibd_tpu_torch.config import load_config
+    from clibd_tpu_torch.data import SyntheticSplit
+    from clibd_tpu_torch.engine import verify_parity
+    from clibd_tpu_torch.engine.extract import to_device
+    from clibd_tpu_torch.models import clibd_apply, init_clibd_model, model_from_jax
+    from clibd_tpu_torch.models.convert import clibd_params_from_reference_checkpoint
+    from clibd_tpu_torch.models.layers import BLOCK_KEYS
+    from clibd_tpu_torch.models.lora import merge_lora_into_qkv
+    from clibd_tpu_torch.tools.profile_extract import plain_kernels
+
+    flagship, lora_recipe = import_recipes()
+    mc, lmc = flagship.model_config, lora_recipe.model_config
+    per_call = {"image": mc.image.vit.num_layers, "dna": mc.dna.bert.num_layers,
+                "language": mc.language.bert.num_layers}
+    gen = torch.Generator().manual_seed(IMPORT_SEED)
+    t0 = time.perf_counter()
+    plain = draw_port_params(mc, gen)
+    adapted = draw_port_params(lmc, gen)  # B non-zero: N(0, 0.02) like every tensor
+    print(f"import: drew {sum(v.numel() for v in plain.values()) / 1e6:.1f} M + "
+          f"{sum(v.numel() for v in adapted.values()) / 1e6:.1f} M parameters in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def load(gcfg, path, params, label):
+        """`_resolve_params` with ckpt_path = path; every parameter must be
+        the writer's tensor bit for bit."""
+        gcfg.model_config.ckpt_path = path
+        gb = os.path.getsize(path) / 1e9
+        t0 = time.perf_counter()
+        model = _resolve_params(gcfg, device)
+        sync(device)
+        dt = time.perf_counter() - t0
+        got = dict(model.named_parameters())
+        if set(got) != set(params):
+            fail(f"{label} import: parameters {sorted(set(got) ^ set(params))[:8]} differ")
+        for name, p in got.items():
+            if p.device.type != device.type or not torch.equal(p.detach().cpu(), params[name]):
+                fail(f"{label} import: {name} is not the written tensor under the inverse layout")
+        print(f"import {label}: {path.rsplit('/', 1)[-1]} {gb:.3f} GB, {len(got)} tensors "
+              f"bit-exact, imported in {dt:.2f} s ({gb / dt:.2f} GB/s)  [{card}]")
+        return model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {"plain": os.path.join(tmp, "best.pth"),
+                 "lora": os.path.join(tmp, "lora_best.pth")}
+        t0 = time.perf_counter()
+        torch.save(reference_state_dict(plain), paths["plain"])
+        torch.save(reference_state_dict(adapted, legacy=True, vocab_extra=3,
+                                        decoder_bias_at="bias", generator=gen), paths["lora"])
+        print(f"import: wrote the flagship's best.pth and the LoRA recipe's (legacy names, "
+              f"a padded vocabulary, the decoder bias at cls.predictions.bias) in "
+              f"{time.perf_counter() - t0:.2f} s")
+        for label, path, gcfg in (("flagship", paths["plain"], flagship),
+                                  ("lora", paths["lora"], lora_recipe)):
+            _, rep = verify_parity.conversion_report(path, gcfg.model_config)
+            print(f"import {label}: verify-parity convert leg ok={rep['ok']}, "
+                  f"{rep['n_leaves']} leaves, {rep['n_params']} params, towers {rep['towers']}")
+            if not rep["ok"]:
+                fail(f"verify-parity's convert leg failed on the {label} file: {rep}")
+        model = load(flagship, paths["plain"], plain, "flagship")
+        lora_model = load(lora_recipe, paths["lora"], adapted, "lora")
+    for name in ("image_encoder", "dna_encoder", "language_encoder"):
+        if getattr(lora_model, name).lora is None or getattr(model, name).lora is not None:
+            fail(f"{name}: LoRA where the checkpoint has none, or none where it has adapters")
+
+    # the flagship import's extraction, bf16, through the forward kernel,
+    # over specimens of IMPORT_SPECIES species (kNN top-1 then has the
+    # margins of real data; over label-free noise it is decided by near-ties)
+    splits = {name: SyntheticSplit(name, n, mc, seed=i, species=IMPORT_SPECIES)
+              for i, (name, n) in enumerate(split_rows.items())}
+    b = next(splits["test_seen"].batches())
+    small = to_device({m: head(b[m], 8) for m in ("image", "dna", "language")}, device)
+    clibd_apply(model, mc, small["image"], small["dna"], small["language"])  # warm-up
+    sync(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    trio = extract_trio(model, mc, splits)
+    sync(device)
+    t_extract = time.perf_counter() - t0
+    counts = read_counts()
+    per_modality = modality_launches(model, mc, b, device)
+    counts_all = read_counts()
+    n_batches = sum(len(s) for s in splits.values())
+    n_rows = sum(split_rows.values())
+    want = sum(per_call.values()) * n_batches
+    others = {k: v for k, v in counts_all.items() if k != "flash_attention_qkv" and v}
+    print(f"import_eval: {counts['flash_attention_qkv']} forward launches over {n_batches} "
+          f"batches (expected {want}); one batch per tower alone: {per_modality} (expected "
+          f"{per_call})")
+    if counts["flash_attention_qkv"] != want or per_modality != per_call or others:
+        fail(f"import_eval launched the forward kernel {counts['flash_attention_qkv']} times "
+             f"(expected {want}), per tower {per_modality}, and the others {others}")
+    add_launches(entries, "import_eval",
+                 {"flash_attention_qkv": counts_all["flash_attention_qkv"]})
+    for d, name in zip(trio, ("test_seen", "test_unseen", "all_keys")):
+        check_embeddings(f"import_eval {name}", d, split_rows[name], mc.output_dim)
+    print(f"import_eval extraction: {n_rows} samples in {t_extract:.3f} s = "
+          f"{n_rows / t_extract:.2f} samples/s after the import (bf16, batch {mc.batch_size})"
+          f"  [{card}]")
+    with torch.inference_mode():
+        lo = clibd_apply(model, mc, small["image"], small["dna"], small["language"])
+        hi = clibd_apply(model, mc, small["image"], small["dna"], small["language"],
+                         compute_dtype=torch.float32)
+    for m in ("image", "dna", "language"):
+        cos = float(cosine_rows(lo[m], hi[m]).min())
+        print(f"import_eval bf16 vs fp32, {m}: min cosine {cos:.6f} (need >= {COSINE_MIN})")
+        if cos < COSINE_MIN:
+            fail(f"import_eval: the bf16 path disagrees with the fp32 path for {m}")
+
+    # verify-parity: the kernel trio against the plain versions' trio.  The
+    # top-1 leg is held per modality (query and keys of one tower): a
+    # seeded init aligns no modality with another, so its cross-modal cells
+    # are chance and their top-1 is decided by near-ties; the whole grid's
+    # leg is printed beside
+    with plain_kernels():
+        plain_trio = extract_trio(model, mc, splits)
+    cmp_emb = verify_parity.compare_embeddings(trio, plain_trio)
+    worst = min(s["min"] for r in cmp_emb["splits"].values() for s in r["modalities"].values())
+    print(f"import verify-parity, kernels against plain versions: embedding_cosine "
+          f"ok={cmp_emb['ok']} (min row cosine {worst:.6f}, need mean >= 0.99 per split and "
+          f"modality)")
+    if not cmp_emb["ok"]:
+        fail(f"verify-parity's embedding_cosine leg failed: {cmp_emb}")
+    for m in ("image", "dna", "language"):
+        keep = {f"encoded_{m}_feature", "label_list", "processed_id_list", "file_name_list"}
+        mine, theirs = (tuple({k: v for k, v in d.items() if k in keep} for d in t)
+                        for t in (trio, plain_trio))
+        rep = verify_parity.compare_top1(mine, theirs, device=device)
+        print(f"import verify-parity species_top1, {m} queries against {m} keys: ok={rep['ok']}, "
+              f"top-1 {[round(r['ours'], 4) for r in rep['rows']]} (kernels) against "
+              f"{[round(r['released'], 4) for r in rep['rows']]} (plain), max |delta| "
+              f"{rep['max_abs_delta']:.4f} (threshold {rep['threshold']})")
+        if not rep["ok"]:
+            fail(f"verify-parity's species_top1 leg failed for {m}: {rep}")
+    grid = verify_parity.compare_top1(trio, plain_trio, device=device)
+    cross = max((r["delta"] for r in grid["rows"]
+                 if r["grid"].split("|")[0] != r["grid"].split("|")[1]), default=0.0)
+    print(f"import verify-parity species_top1 over the whole grid ({len(grid['rows'])} cells, "
+          f"not held): max |delta| {grid['max_abs_delta']:.4f}, {cross:.4f} in a cross-type "
+          f"cell; top-1 {min(r['ours'] for r in grid['rows']):.3f}-"
+          f"{max(r['ours'] for r in grid['rows']):.3f}")
+    del model, trio, plain_trio
+
+    # the LoRA import against the plain layout carrying W_qkv with the
+    # adapters merged in, under the same recipe with disable_lora
+    merged = {k: v for k, v in adapted.items() if ".lora." not in k}
+    for tower in ("image_encoder", "dna_encoder", "language_encoder"):
+        stacked = {k: adapted[f"{tower}.blocks.{k}"] for k in BLOCK_KEYS}
+        lora = {k: adapted[f"{tower}.lora.{k}"] for k in ("a_q", "b_q", "a_v", "b_v")}
+        merged[f"{tower}.blocks.qkv_w"] = merge_lora_into_qkv(stacked, lora)["qkv_w"]
+    merged_cfg = load_config(experiment=IMPORT_LORA,
+                             overrides=["model_config.disable_lora=true"]).model_config
+    sd = {k: v.numpy() for k, v in reference_state_dict(merged).items()}
+    merged_model = model_from_jax(clibd_params_from_reference_checkpoint(sd, merged_cfg),
+                                  merged_cfg, device)
+    del sd, merged
+    with torch.inference_mode():
+        a = clibd_apply(lora_model, lmc, small["image"], small["dna"], small["language"],
+                        compute_dtype=torch.float32)
+        m_out = clibd_apply(merged_model, merged_cfg, small["image"], small["dna"],
+                            small["language"], compute_dtype=torch.float32)
+    for m in ("image", "dna", "language"):
+        cos = float(cosine_rows(a[m], m_out[m]).min())
+        print(f"import LoRA against merged, {m}: min cosine {cos:.7f} (fp32, need >= "
+              f"{IMPORT_COSINE_MIN})")
+        if cos < IMPORT_COSINE_MIN:
+            fail(f"the LoRA import disagrees with its merged plain form for {m}")
+    del lora_model, merged_model, plain, adapted
+
+    # the feature-input flagship: an MLP over 512-wide image features
+    fcfg = load_config_feature()
+    fsplits = {name: SyntheticSplit(name, n, fcfg, seed=i)
+               for i, (name, n) in enumerate(split_rows.items())}
+    fmodel = init_clibd_model(fcfg, torch.Generator().manual_seed(fcfg.default_seed), device)
+    fb = next(fsplits["test_seen"].batches())
+    if fb["image"].shape[1:] != (FEATURE_DIM,) or fb["image"].dtype != np.float32:
+        fail(f"feature batches are {fb['image'].dtype} {fb['image'].shape}, not "
+             f"[B, {FEATURE_DIM}] fp32")
+    reset_counts()
+    t0 = time.perf_counter()
+    ftrio = extract_trio(fmodel, fcfg, fsplits)
+    sync(device)
+    t_feat = time.perf_counter() - t0
+    fcounts = read_counts()
+    f_per = modality_launches(fmodel, fcfg, fb, device)
+    f_all = read_counts()
+    f_want = {"image": 0, "dna": per_call["dna"], "language": per_call["language"]}
+    print(f"feature_eval: {fcounts['flash_attention_qkv']} forward launches over {n_batches} "
+          f"batches (expected {sum(f_want.values()) * n_batches}); per tower {f_per} "
+          f"(expected {f_want})")
+    if (fcounts["flash_attention_qkv"] != sum(f_want.values()) * n_batches or f_per != f_want
+            or any(v for k, v in f_all.items() if k != "flash_attention_qkv")):
+        fail(f"feature_eval launches {fcounts} per tower {f_per}, expected {f_want}")
+    add_launches(entries, "feature_eval", {"flash_attention_qkv": f_all["flash_attention_qkv"]})
+    for d, name in zip(ftrio, ("test_seen", "test_unseen", "all_keys")):
+        check_embeddings(f"feature_eval {name}", d, split_rows[name], fcfg.output_dim)
+    print(f"feature_eval extraction: {n_rows} samples in {t_feat:.3f} s = "
+          f"{n_rows / t_feat:.2f} samples/s (image features {FEATURE_DIM} wide, bf16)  [{card}]")
+    del fmodel
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def load_config_feature():
+    """The flagship with `image.input_type: feature` over FEATURE_DIM-wide
+    image features (the MLP encoder of `models/mlp.py`)."""
+    from clibd_tpu_torch.config import load_config
+
+    mc = load_config(experiment=EXPERIMENT, overrides=[
+        "model_config.image.input_type=feature", "model_config.image.model=mlp",
+        f"model_config.image.input_dim={FEATURE_DIM}"]).model_config
+    if mc.output_dim != 768 or mc.dna.input_type != "sequence":
+        fail("the feature-input flagship is not the 768-d recipe with a DNA sequence tower")
+    return mc
+
+
 def main() -> int:
     import torch
 
@@ -2002,6 +2457,7 @@ def main() -> int:
     serve_row1_phase(card, entries["flash_attention_qkv"])
     with kernel_knobs(False, "xla"):
         serve_phase(card, entries, cuda)
+        import_phase(card, entries, cuda, SPLIT_ROWS)
     if "jax" in sys.modules or any(m == "clibd_tpu" or m.startswith("clibd_tpu.")
                                    for m in sys.modules):
         fail("jax or the JAX package was imported: the port must run without them")

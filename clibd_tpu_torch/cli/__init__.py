@@ -10,9 +10,14 @@
   serve          --experiment <cfg.yaml> [--keys gallery.hdf5] [--port 8000]
                  [--window-ms 4] [--max-batch 32] [--keys-dtype int8] ...
                  [--device cuda] [k=v ...]
+  verify-parity  --experiment <cfg.yaml> [--ckpt best.pth] [--hdf5 data.hdf5]
+                 [--released-embeddings emb.hdf5] [--n 2000] [--tokenizer FILE]
+                 ... [--device cuda] [k=v ...]
 
-the counterparts of `clibd train`, `eval`, `extract`, `extract-single` and
-`serve`, the subcommands ported so far.  Each runs on the card; `--device
+the counterparts of `clibd train`, `eval`, `extract`, `extract-single`,
+`serve` and `verify-parity`, the subcommands ported so far.  `eval`,
+`extract`, `extract-single` and `serve` take a released `best.pth` as
+`model_config.ckpt_path=<file>`.  Each runs on the card; `--device
 cpu` runs it on the CPU (the kernels' plain versions), and only when asked.
 """
 
@@ -21,7 +26,7 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional
 
-from .eval_cmds import cmd_eval
+from .eval_cmds import cmd_eval, cmd_verify_parity
 from .extract_cmds import cmd_extract, cmd_extract_single
 from .ops_cmds import cmd_serve
 from .train_cmds import cmd_train
@@ -101,7 +106,28 @@ def main(argv: Optional[List[str]] = None) -> int:
                          help="WordPiece vocab.txt enabling taxonomy-text queries")
     p_serve.add_argument("--max-queue", type=int, default=1024,
                          help="shed load (503) beyond this request backlog")
+
+    p_vp = sub.add_parser(
+        "verify-parity",
+        help="released-artifact parity harness (convert → re-extract → compare; RELEASE_PARITY.md)")
+    common(p_vp)
+    p_vp.add_argument("--ckpt", default=None, help="released best.pth (or our .npz)")
+    p_vp.add_argument("--released-embeddings", default=None,
+                      help="released extracted_feature_from_*_split.hdf5")
+    p_vp.add_argument("--released-labels", default=None,
+                      help="labels_*.json sidecar (default: sibling of the embeddings file)")
+    p_vp.add_argument("--released-ids", default=None,
+                      help="processed_id_*.json sidecar (default: sibling)")
+    p_vp.add_argument("--n", type=int, default=2000,
+                      help="records per split to re-extract (None/0 = all)")
+    p_vp.add_argument("--tokenizer", default=None,
+                      help="vendored BarcodeBERT tokenizer.json or snapshot dir")
+    p_vp.add_argument("--expected", default=None,
+                      help="JSON of expected species top-1 per grid cell (paper table)")
+    p_vp.add_argument("--cos-threshold", type=float, default=0.99)
+    p_vp.add_argument("--top1-threshold", type=float, default=0.005)
+    p_vp.add_argument("--out", default=None, help="write the JSON report here")
     args = parser.parse_args(argv)
     return {"train": cmd_train, "eval": cmd_eval, "extract": cmd_extract,
-            "extract-single": cmd_extract_single,
-            "serve": cmd_serve}[args.command](args, args.overrides)
+            "extract-single": cmd_extract_single, "serve": cmd_serve,
+            "verify-parity": cmd_verify_parity}[args.command](args, args.overrides)

@@ -4,12 +4,13 @@
 from __future__ import annotations
 
 import os
+import time
 from typing import List
 
 import torch
 
 from ..config import GlobalConfig, load_config
-from ..engine.checkpoint import resolve_checkpoint_path
+from ..engine.checkpoint import load_model_any, resolve_checkpoint_path
 
 
 def _dataset_hdf5_path(cfg: GlobalConfig) -> str:
@@ -39,11 +40,11 @@ def _checkpoint_candidates(cfg: GlobalConfig) -> List[str]:
 
 def _resolve_params(cfg: GlobalConfig, device: torch.device):
     """Checkpoint chain (reference simple_clip.py:248-285) → CLIBD module on
-    `device`: npz params as the JAX package writes them, else a fresh init
-    from a generator seeded with `default_seed`.  The Hugging Face download
-    of the JAX package's chain needs the network and is left out."""
+    `device`: npz params as the JAX package writes them or a reference torch
+    checkpoint (a released `best.pth`), else a fresh init from a generator
+    seeded with `default_seed`.  The Hugging Face download of the JAX
+    package's chain needs the network and is left out."""
     from ..models.clibd import init_clibd_model
-    from ..models.convert import load_model_npz
 
     mc = cfg.model_config
     if mc.load_ckpt:
@@ -51,12 +52,13 @@ def _resolve_params(cfg: GlobalConfig, device: torch.device):
             resolved = resolve_checkpoint_path(cand)
             if resolved is None:
                 continue
-            if os.path.isdir(resolved) or resolved.endswith(".npz"):
-                print(f"Loading checkpoint: {resolved}")
-                return load_model_npz(resolved, mc, device)
-            raise NotImplementedError(
-                f"{resolved}: importing torch checkpoints (released best.pth) is not ported "
-                "to clibd_tpu_torch yet; convert it to npz with the JAX package")
+            print(f"Loading checkpoint: {resolved}")
+            t0 = time.perf_counter()
+            model = load_model_any(resolved, mc, device)
+            n = sum(p.numel() for p in model.parameters())
+            print(f"Imported {n / 1e6:.1f} M parameters ({n * 4 / 1e9:.3f} GB fp32) "
+                  f"onto {device} in {time.perf_counter() - t0:.2f} s")
+            return model
     print("No checkpoint found/requested — using fresh init")
     return init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed), device)
 

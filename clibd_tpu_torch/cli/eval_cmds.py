@@ -1,6 +1,7 @@
 """`eval`: the port of `clibd_tpu/cli/eval_cmds.py::cmd_eval` -- extract
 all_keys / {eval_on}_seen / {eval_on}_unseen, write the embedding cache, run
-the kNN grid, print the reference's table and write its reports."""
+the kNN grid, print the reference's table and write its reports; and
+`verify-parity` (`cmd_verify_parity`, `eval_cmds.py:496-526`)."""
 
 from __future__ import annotations
 
@@ -123,3 +124,38 @@ def cmd_eval(args, overrides) -> int:
     if os.environ.get("CLIBD_EVAL_TIMING"):
         print(timing.report("clibd eval wall-time breakdown"))
     return 0
+
+
+def cmd_verify_parity(args, overrides) -> int:
+    """Released-artifact parity harness (RELEASE_PARITY.md runbook;
+    reference README.md:29-44 artifacts, BASELINE.md 0.5% criterion) on
+    `--device`."""
+    from ..engine.verify_parity import format_report, save_report, verify_parity
+
+    cfg = _load_cfg(args, overrides)
+    expected = None
+    if args.expected:
+        with open(args.expected) as f:
+            expected = json.load(f)
+    report = verify_parity(
+        cfg.model_config,
+        ckpt=args.ckpt,
+        released_embeddings=args.released_embeddings,
+        released_labels=args.released_labels,
+        released_ids=args.released_ids,
+        hdf5=args.hdf5 or (_dataset_hdf5_path(cfg) if args.ckpt else None),
+        n=args.n if args.n and args.n > 0 else None,
+        eval_on=cfg.inference_and_eval_setting.eval_on,
+        tokenizer_file=args.tokenizer,
+        expected=expected,
+        cos_threshold=args.cos_threshold,
+        top1_threshold=args.top1_threshold,
+        num_workers=cfg.pipeline.num_workers,
+        use_native=cfg.pipeline.use_native_decoder,
+        device=torch.device(args.device),
+    )
+    print(format_report(report))
+    if args.out:
+        save_report(report, args.out)
+        print(f"report written to {args.out}")
+    return 0 if report["ok"] else 1

@@ -13,33 +13,93 @@ tokenizer's `{input_ids, attention_mask}`, the mask cut to the ids' width as
 the data pipeline cuts it), text as BERT ids with ragged attention masks
 (or, for `backbone: open_clip`, CLIP-style ids `[B, context_length]`: SOT,
 ids below SOT, EOT = the row's largest id, zero padding, as the BPE
-tokenizer lays them out, so no BPE file is needed), and the training label,
+tokenizer lays them out, so no BPE file is needed); a modality whose
+`input_type` reads pre-extracted features gets standard-normal fp32 rows of
+its `input_dim` instead, as `BioscanLoader` reads `image_features` /
+`dna_features`; and the training label,
 the row index (as `BioscanLoader` labels by default, instance
 discrimination).  Every epoch yields the same batches in the same
 order.  The last batch is ragged when `n` is not a multiple of the batch
 size.
+
+By default a row's content and its taxonomy label are drawn independently,
+so kNN retrieval over such splits is chance and its top-1 decided by
+near-ties.  `species=k` draws specimens of k species instead: each species
+has a prototype image, barcode, taxonomy text (and feature rows), drawn
+from `PROTOTYPE_SEED` so that every split with the same k shares them, and
+a specimen is its species' prototype with pixel noise of up to
+±`IMAGE_NOISE`, a share `BARCODE_MUTATION` of its bases redrawn (features:
+`FEATURE_NOISE` standard deviations), and the species' own text, as
+specimens of one species resemble each other in BIOSCAN.
 """
 
 from __future__ import annotations
 
 from types import SimpleNamespace
+from typing import Optional
 
 import numpy as np
 
 from .tokenizers import tokenize_dna_batch, tokenize_dna_batch_overlapping
 
 
+PROTOTYPE_SEED = 0
+IMAGE_NOISE = 32          # of 255
+BARCODE_MUTATION = 0.02
+FEATURE_NOISE = 0.1
+_BASES = np.frombuffer(b"ACGT", np.uint8)
+
+
+class _Specimens:
+    """Per-species prototypes (`species` of them) and specimens drawn
+    around them."""
+
+    def __init__(self, species: int, mc, size: int, text_len: int, vocab: int):
+        rng = np.random.default_rng(PROTOTYPE_SEED)
+        self.images = rng.integers(0, 256, (species, size, size, 3), dtype=np.uint8)
+        self.barcodes = [_BASES[rng.integers(0, 4, int(rng.integers(400, 660)))]
+                         for _ in range(species)]
+        lengths = rng.integers(3, text_len + 1, species)
+        self.text_att = (np.arange(text_len)[None, :] < lengths[:, None]).astype(np.int32)
+        self.text_ids = rng.integers(1, vocab, (species, text_len)).astype(np.int32) * self.text_att
+        self.image_features = rng.standard_normal((species, mc.image.input_dim), np.float32)
+        self.dna_features = rng.standard_normal((species, mc.dna.input_dim), np.float32)
+
+    def barcode(self, rng, s: int) -> bytes:
+        b = self.barcodes[s].copy()
+        redraw = rng.random(len(b)) < BARCODE_MUTATION
+        b[redraw] = _BASES[rng.integers(0, 4, int(redraw.sum()))]
+        return b.tobytes()
+
+    def image(self, rng, s: np.ndarray) -> np.ndarray:
+        noise = rng.integers(-IMAGE_NOISE, IMAGE_NOISE + 1, (len(s),) + self.images.shape[1:])
+        return np.clip(self.images[s].astype(np.int16) + noise, 0, 255).astype(np.uint8)
+
+    def features(self, rng, protos: np.ndarray, s: np.ndarray) -> np.ndarray:
+        return protos[s] + FEATURE_NOISE * rng.standard_normal((len(s), protos.shape[1]),
+                                                               np.float32)
+
+
 class SyntheticSplit:
-    def __init__(self, name: str, n: int, mc, seed: int):
+    def __init__(self, name: str, n: int, mc, seed: int, species: Optional[int] = None):
         rng = np.random.default_rng(seed)
         batch_size = mc.batch_size
         self.spec = SimpleNamespace(batch_size=batch_size)
         self.name = name
         clip = mc.backbone == "open_clip"
         size = mc.clip.image_size if clip else mc.image.vit.image_size
-        bases = np.frombuffer(b"ACGT", np.uint8)
-        barcodes = [bases[rng.integers(0, 4, int(rng.integers(400, 660)))].tobytes()
-                    for _ in range(n)]
+        text_len = mc.clip.context_length if clip else mc.language.max_len
+        vocab = mc.clip.vocab_size if clip else mc.language.bert.vocab_size
+        specimens = None
+        if species:
+            if clip:
+                raise ValueError("species= is not drawn for backbone: open_clip")
+            specimens = _Specimens(species, mc, size, text_len, vocab)
+            row_species = rng.integers(0, species, n)
+            barcodes = [specimens.barcode(rng, s) for s in row_species]
+        else:
+            barcodes = [_BASES[rng.integers(0, 4, int(rng.integers(400, 660)))].tobytes()
+                        for _ in range(n)]
         if mc.dna.tokenizer == "overlap":
             ids, att = tokenize_dna_batch_overlapping(barcodes, k=mc.dna.kmer,
                                                       stride=mc.dna.stride, max_bp=mc.dna.max_bp)
@@ -47,12 +107,29 @@ class SyntheticSplit:
         else:
             dna = np.asarray(tokenize_dna_batch(barcodes, k=mc.dna.kmer, max_bp=mc.dna.max_bp),
                              np.int32)
-        text_len = mc.clip.context_length if clip else mc.language.max_len
-        lengths = rng.integers(3, text_len + 1, n)
-        vocab = mc.clip.vocab_size if clip else mc.language.bert.vocab_size
+        image_features = not clip and mc.image.input_type != "image"
+        dna_features = not clip and mc.dna.input_type != "sequence"
+        lengths = None if specimens else rng.integers(3, text_len + 1, n)
         self._batches = []
         for lo in range(0, n, batch_size):
             hi = min(lo + batch_size, n)
+            if specimens:
+                s = row_species[lo:hi]
+                att, ids = specimens.text_att[s], specimens.text_ids[s]
+                language = {"input_ids": ids, "token_type_ids": np.zeros_like(ids),
+                            "attention_mask": att}
+                self._batches.append({
+                    "index": np.arange(lo, hi),
+                    "label": np.arange(lo, hi, dtype=np.int64),
+                    "image": (specimens.features(rng, specimens.image_features, s)
+                              if image_features else specimens.image(rng, s)),
+                    "dna": (specimens.features(rng, specimens.dna_features, s)
+                            if dna_features else
+                            {k: v[lo:hi] for k, v in dna.items()} if isinstance(dna, dict)
+                            else dna[lo:hi]),
+                    "language": language,
+                })
+                continue
             att = (np.arange(text_len)[None, :] < lengths[lo:hi, None]).astype(np.int32)
             if clip:  # SOT = vocab - 2, EOT = vocab - 1, as in CLIP's BPE vocabulary
                 ids = rng.integers(1, vocab - 2, (hi - lo, text_len)).astype(np.int32) * att
@@ -66,14 +143,18 @@ class SyntheticSplit:
             self._batches.append({
                 "index": np.arange(lo, hi),
                 "label": np.arange(lo, hi, dtype=np.int64),
-                "image": rng.integers(0, 256, (hi - lo, size, size, 3), dtype=np.uint8),
-                "dna": ({k: v[lo:hi] for k, v in dna.items()} if isinstance(dna, dict)
+                "image": (rng.standard_normal((hi - lo, mc.image.input_dim), np.float32)
+                          if image_features else
+                          rng.integers(0, 256, (hi - lo, size, size, 3), dtype=np.uint8)),
+                "dna": (rng.standard_normal((hi - lo, mc.dna.input_dim), np.float32)
+                        if dna_features else
+                        {k: v[lo:hi] for k, v in dna.items()} if isinstance(dna, dict)
                         else dna[lo:hi]),
                 "language": language,
             })
-        species = rng.integers(0, 40, n)
+        labels = row_species if specimens else rng.integers(0, 40, n)
         self._labels = [{"order": f"order_{s % 3}", "family": f"family_{s % 7}",
-                         "genus": f"genus_{s % 13}", "species": f"species_{s}"} for s in species]
+                         "genus": f"genus_{s % 13}", "species": f"species_{s}"} for s in labels]
         self._ids = [f"{name}_{i}" for i in range(n)]
 
     def batches(self, epoch: int = 0, shuffle: bool = False, start_batch: int = 0):

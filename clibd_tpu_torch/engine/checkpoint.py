@@ -7,7 +7,7 @@ A checkpoint directory holds:
 - `params.npz`: every parameter, fp32, under the JAX package's flat pytree
   keys ("image_encoder/blocks/qkv_w"; the port's parameter names with "/"
   for "."), so a checkpoint the port trains loads in either package
-  (`clibd_tpu.models.convert.load_params_npz`, `models.convert.load_model_npz`);
+  (`clibd_tpu.models.convert.load_params_npz`, `load_model_any`);
 - `meta.json`: {"step", "epoch", ...} as the JAX package writes it (the best
   checkpoint adds "overall_acc");
 - `opt_state.npz`: the port's own AdamW state, three arrays per trainable
@@ -31,7 +31,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.convert import load_params_npz, params_from_jax
+from ..models.convert import (clibd_params_from_reference_checkpoint, load_params_npz,
+                              load_torch_state_dict, model_from_jax, params_from_jax)
 
 
 def _key(name: str) -> str:
@@ -121,6 +122,31 @@ def resolve_checkpoint_path(base: str) -> Optional[str]:
         if os.path.isfile(cand):
             return cand
     return None
+
+
+def load_params_any(path: str, cfg=None) -> dict:
+    """Params from an npz checkpoint directory, an `.npz`, or a reference
+    torch checkpoint (`.pth`/`.pt`/`.tar`, a released `best.pth`, which
+    needs the ExperimentConfig) → the JAX package's numpy pytree
+    (`clibd_tpu/engine/checkpoint.py:202-215`).  A torch file is unpickled:
+    trusted files only."""
+    if os.path.isdir(path):
+        return load_params_npz(os.path.join(path, "params.npz"))
+    if path.endswith(".npz"):
+        return load_params_npz(path)
+    if path.endswith((".pth", ".pt", ".tar")):
+        if cfg is None:
+            raise ValueError("Loading a torch checkpoint requires the ExperimentConfig")
+        sd = load_torch_state_dict(path)
+        sd.pop("__meta__", None)
+        return clibd_params_from_reference_checkpoint(sd, cfg)
+    raise ValueError(f"Unrecognized checkpoint {path!r}")
+
+
+def load_model_any(path: str, cfg, device: torch.device | str = "cuda"):
+    """`load_params_any` → the `CLIBD` module for `cfg` on `device`
+    (`models.convert.model_from_jax`)."""
+    return model_from_jax(load_params_any(path, cfg), cfg, device)
 
 
 class AsyncCheckpointWriter:

@@ -8,10 +8,11 @@ BarcodeBERT -- under the same names as the JAX param pytree, so
 L2-normalised per-modality embeddings and exp(logit_scale), with the BERT
 and ViT blocks rematerialised as `remat` asks (the CLIP towers take no remat,
 as in the reference).  `set_trainable` is the JAX package's `trainable_mask`
-(`clibd.py:231-275`) as `requires_grad` flags.
-
-Not ported yet: the MLP encoders for feature inputs (`mlp.py`) and SimCLR
-backbone loading.
+(`clibd.py:231-275`) as `requires_grad` flags.  A modality whose
+`input_type` is not its raw input (`image` / `sequence`) reads
+pre-extracted features through the MLP encoder (`mlp.py`); with
+`image.simclr_ckpt_path` set, the fresh init loads a SimCLR-pretrained ViT
+backbone (`load_simclr_vit_backbone`).
 """
 
 from __future__ import annotations
@@ -25,9 +26,8 @@ from ..config import ExperimentConfig
 from .bert import Bert
 from .clip import CLIPText, CLIPTextConfig, CLIPVision, CLIPVisionConfig, clip_normalize
 from .layers import Linear
+from .mlp import MLPEncoder
 from .vit import ViT
-
-_LATER = "not ported to clibd_tpu_torch yet (ROADMAP.md Queue 1: the MLP encoders)"
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -58,22 +58,10 @@ def clip_configs(cfg: ExperimentConfig):
     return vcfg, tcfg
 
 
-def _check_supported(cfg: ExperimentConfig) -> None:
-    if cfg.dna.enable and cfg.dna.input_type != "sequence":
-        raise NotImplementedError(f"dna input_type {cfg.dna.input_type!r} (MLP encoder) is {_LATER}")
-    if cfg.backbone == "open_clip":
-        return  # the CLIP towers take the image and the text
-    if cfg.image.enable and cfg.image.input_type != "image":
-        raise NotImplementedError(f"image input_type {cfg.image.input_type!r} (MLP encoder) is {_LATER}")
-    if cfg.image.enable and cfg.image.simclr_ckpt_path:
-        raise NotImplementedError("image.simclr_ckpt_path: SimCLR backbone loading is not "
-                                  "ported to clibd_tpu_torch yet")
-
-
 class CLIBD(nn.Module):
     def __init__(self, cfg: ExperimentConfig):
         super().__init__()
-        _check_supported(cfg)
+        self.simclr_ckpt_path = None
         lora_rank = 0 if cfg.disable_lora else cfg.lora_rank
         self.logit_scale = nn.Parameter(torch.tensor(cfg.init_logit_scale, dtype=torch.float32))
         self.image_encoder = self.clip_vision = self.dna_encoder = None
@@ -82,10 +70,16 @@ class CLIBD(nn.Module):
         vcfg, tcfg = clip_configs(cfg)
         if cfg.image.enable and clip:
             self.clip_vision = CLIPVision(vcfg, lora_rank=lora_rank)
-        elif cfg.image.enable:
+        elif cfg.image.enable and cfg.image.input_type == "image":
             self.image_encoder = ViT(cfg.image.vit, output_dim=cfg.output_dim, lora_rank=lora_rank)
-        if cfg.dna.enable:
+            self.simclr_ckpt_path = cfg.image.simclr_ckpt_path
+        elif cfg.image.enable:
+            self.image_encoder = MLPEncoder(cfg.image.input_dim, cfg.image.hidden_dim,
+                                            cfg.output_dim)
+        if cfg.dna.enable and (clip or cfg.dna.input_type == "sequence"):
             self.dna_encoder = Bert(cfg.dna.bert, lora_rank=lora_rank, head_dim=cfg.output_dim)
+        elif cfg.dna.enable:
+            self.dna_encoder = MLPEncoder(cfg.dna.input_dim, cfg.dna.hidden_dim, cfg.output_dim)
         if cfg.language.enable and clip:
             self.clip_text = CLIPText(tcfg, lora_rank=lora_rank)
         elif cfg.language.enable:
@@ -93,11 +87,48 @@ class CLIBD(nn.Module):
             self.language_proj = Linear(cfg.language.bert.hidden_size, cfg.output_dim)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Re-draw every encoder; logit_scale keeps its log(1/0.07) init."""
+        """Re-draw every encoder; logit_scale keeps its log(1/0.07) init.
+        With `image.simclr_ckpt_path`, the ViT then takes the SimCLR backbone
+        (`init_clibd_params`, `clibd.py:82-86`)."""
         for m in (self.image_encoder, self.clip_vision, self.dna_encoder, self.language_encoder,
                   self.language_proj, self.clip_text):
             if m is not None:
                 m.reset_parameters(generator)
+        if self.simclr_ckpt_path:
+            load_simclr_vit_backbone(self.simclr_ckpt_path, self.image_encoder)
+
+
+_SIMCLR_KEYS = ("patch_embed", "cls_token", "pos_embed", "blocks", "norm")
+
+
+def load_simclr_vit_backbone(path: str, encoder: ViT) -> ViT:
+    """Load SimCLR-pretrained ViT weights into `encoder` in place, keeping
+    its head and LoRA (reference: a timm state dict with "module." stripped,
+    then reset_classifier, simple_clip.py:157-166; `clibd.py:110-131`).
+    `path`: an npz checkpoint directory, an `.npz` of the ViT's pytree, or a
+    timm torch checkpoint (unpickled: trusted files only)."""
+    import os
+
+    from .convert import (load_params_npz, load_torch_state_dict, params_from_jax,
+                          strip_module_prefix, vit_params_from_timm_state_dict)
+
+    if os.path.isdir(path):
+        loaded = load_params_npz(os.path.join(path, "params.npz"))
+    elif path.endswith(".npz"):
+        loaded = load_params_npz(path)
+    else:
+        sd = load_torch_state_dict(path)
+        sd.pop("__meta__", None)
+        loaded = vit_params_from_timm_state_dict(strip_module_prefix(sd), encoder.cfg,
+                                                 output_dim=encoder.head.w.shape[1])
+    state = params_from_jax({k: loaded[k] for k in _SIMCLR_KEYS if k in loaded})
+    own = encoder.state_dict()
+    bad = [k for k, v in state.items() if k not in own or own[k].shape != v.shape]
+    if bad:
+        raise ValueError(f"{path}: SimCLR backbone parameters that the ViT does not have "
+                         f"or of other shapes: {bad[:12]}")
+    encoder.load_state_dict(state, strict=False)
+    return encoder
 
 
 def set_trainable(model: CLIBD, cfg: ExperimentConfig) -> CLIBD:
@@ -107,7 +138,8 @@ def set_trainable(model: CLIBD, cfg: ExperimentConfig) -> CLIBD:
     text projection) and logit_scale train; with `disable_lora`, everything
     trains.  logit_scale is frozen under `fix_temperature`, and a
     modality's `freeze` flag freezes that whole encoder (the text one with
-    its projection; the CLIP towers follow the image and language flags)."""
+    its projection; the CLIP towers follow the image and language flags).
+    The MLP encoders of feature inputs train whole under LoRA too."""
     lora_heads = ("image_encoder.head.", "dna_encoder.mlm_head.decoder.", "language_proj.")
     frozen = [enc for enc, flag in (("image_encoder.", cfg.image.freeze),
                                     ("clip_vision.", cfg.image.freeze),
@@ -115,11 +147,15 @@ def set_trainable(model: CLIBD, cfg: ExperimentConfig) -> CLIBD:
                                     ("language_encoder.", cfg.language.freeze),
                                     ("language_proj.", cfg.language.freeze),
                                     ("clip_text.", cfg.language.freeze)) if flag]
+    # the MLP encoders of feature inputs train whole
+    mlps = tuple(f"{enc}." for enc in ("image_encoder", "dna_encoder")
+                 if isinstance(getattr(model, enc), MLPEncoder))
     for name, p in model.named_parameters():
         if name == "logit_scale":
             train = not cfg.loss.fix_temperature
         else:
-            train = (cfg.disable_lora or ".lora." in name or name.startswith(lora_heads))
+            train = (cfg.disable_lora or ".lora." in name or name.startswith(lora_heads)
+                     or name.startswith(mlps))
             train = train and not name.startswith(tuple(frozen))
         p.requires_grad_(train)
     return model
@@ -137,8 +173,10 @@ def init_clibd_model(cfg: ExperimentConfig, generator: torch.Generator,
 
 def encode_image(model: CLIBD, cfg: ExperimentConfig, image_input, compute_dtype=torch.bfloat16,
                  remat=False):
-    """Image features before normalisation: the CLIP vision tower on
-    CLIP-normalised images (no remat), or the ViT."""
+    """Image features before normalisation: the MLP encoder on features, the
+    CLIP vision tower on CLIP-normalised images (no remat), or the ViT."""
+    if isinstance(model.image_encoder, MLPEncoder):
+        return model.image_encoder(image_input, compute_dtype)
     images = dequantize_image(image_input)
     if model.clip_vision is not None:
         return model.clip_vision(clip_normalize(images), compute_dtype)
@@ -148,6 +186,8 @@ def encode_image(model: CLIBD, cfg: ExperimentConfig, image_input, compute_dtype
 
 def encode_dna(model: CLIBD, cfg: ExperimentConfig, dna_tokens, compute_dtype=torch.bfloat16,
                remat=False):
+    if isinstance(model.dna_encoder, MLPEncoder):
+        return model.dna_encoder(dna_tokens, compute_dtype)
     attention_mask = None
     if isinstance(dna_tokens, dict):  # overlap tokenizer: {input_ids, attention_mask}
         attention_mask = dna_tokens.get("attention_mask")

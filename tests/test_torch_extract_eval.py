@@ -273,12 +273,6 @@ def test_cli_eval_end_to_end(tiny_hdf5, tmp_path):
 
 
 def test_options_not_ported_raise(tmp_path):
-    from clibd_tpu_torch.models.clibd import CLIBD
-
-    cfg = tiny_cfg()
-    cfg.image.input_type = "image_features"
-    with pytest.raises(NotImplementedError, match="MLP encoder"):
-        CLIBD(cfg)
     with pytest.raises(NotImplementedError, match="item 6"):
         port_knn.prepare_keys(np.ones((3, 4), np.float32), device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="item 6"):

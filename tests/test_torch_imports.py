@@ -58,34 +58,38 @@ def test_the_walk_catches_a_forbidden_import(tmp_path, monkeypatch):
 
 
 def _entry_points():
+    from clibd_tpu_torch.engine.checkpoint import load_model_any
     from clibd_tpu_torch.engine.evaluate import inference_and_eval
+    from clibd_tpu_torch.engine.verify_parity import verify_parity
     from clibd_tpu_torch.engine.serve import InferenceService, KeySet
     from clibd_tpu_torch.engine.train import Trainer
-    from clibd_tpu_torch.models import init_clibd_model, load_model_npz, model_from_jax
+    from clibd_tpu_torch.models import init_clibd_model, model_from_jax
     from clibd_tpu_torch.ops.knn import (find_k_closest_records, knn_search, make_prediction,
                                          prepare_keys)
     from clibd_tpu_torch.utils.profiling import PhaseTimer, StepTimer
 
     return {"init_clibd_model": init_clibd_model, "model_from_jax": model_from_jax,
-            "load_model_npz": load_model_npz, "inference_and_eval": inference_and_eval,
+            "inference_and_eval": inference_and_eval,
             "prepare_keys": prepare_keys, "Trainer": Trainer.__init__, "knn_search": knn_search,
             "find_k_closest_records": find_k_closest_records, "make_prediction": make_prediction,
             "StepTimer": StepTimer.__init__, "PhaseTimer": PhaseTimer.__init__,
             "InferenceService": InferenceService.__init__, "KeySet": KeySet.__init__,
-            "KeySet.from_arrays": KeySet.from_arrays}
+            "KeySet.from_arrays": KeySet.from_arrays, "load_model_any": load_model_any,
+            "verify_parity": verify_parity}
 
 
-@pytest.mark.parametrize("name", ["init_clibd_model", "model_from_jax", "load_model_npz",
+@pytest.mark.parametrize("name", ["init_clibd_model", "model_from_jax",
                                   "inference_and_eval", "prepare_keys", "Trainer", "knn_search",
                                   "find_k_closest_records", "make_prediction", "StepTimer",
                                   "PhaseTimer", "InferenceService", "KeySet",
-                                  "KeySet.from_arrays"])
+                                  "KeySet.from_arrays", "load_model_any", "verify_parity"])
 def test_entry_point_defaults_to_cuda(name):
     fn = _entry_points()[name]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
-@pytest.mark.parametrize("command", ["train", "eval", "extract", "extract-single", "serve"])
+@pytest.mark.parametrize("command", ["train", "eval", "extract", "extract-single", "serve",
+                                     "verify-parity"])
 def test_cli_defaults_to_cuda_with_no_fallback(command):
     proc = subprocess.run([sys.executable, "-m", "clibd_tpu_torch.cli", command, "--help"],
                           cwd=REPO, capture_output=True, text=True, timeout=120)
