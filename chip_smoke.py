@@ -210,8 +210,46 @@ Phases, each of which raises on failure:
    `image.input_type: feature` over 512-wide image features (the MLP
    encoder): no launch from the image tower, 12 from the DNA tower and 4
    from the text tower per batch (the path "feature_eval").
+14. accum_train: the flagship recipe (full width, bf16, remat "attn", batch
+   500) with accum_steps=4 through the port's `Trainer`: one epoch over a
+   synthetic train split of 3000 rows (6 steps), then one eval (all_keys
+   1100, val_seen and val_unseen 500).  Checks: every loss finite; per step
+   224 forward and 112 backward kernel launches (pass 1: 28 forwards per
+   microbatch of 125; pass 3: 28 forwards and 28 backwards per microbatch),
+   under the path "accum_train", and no other kernel; the eval's grid; last/
+   and best/ written.  Then, on one batch with the augmentation replaced by
+   the identity for this check only, the k=4 gradient cache against the
+   monolithic step from the same weights: |loss difference| <= 1e-2 x
+   |loss| and every trainable tensor's gradient at cosine >= 0.99; samples/s
+   and peak device memory of both steps over 3 steps after a warm-up, the
+   k=4 peak below the monolithic one; rows 1 and 2 at B=125 for the three
+   towers against their plain versions, timed beside SDPA and the bound.
+15. simclr and unimodel_eval: the unimodel recipe
+   (unimodel_training_with_1m/unimodel_image_1m.yaml: ViT-B/16 at full
+   width with its 768-d head, bf16, no LoRA) through the port's
+   `SimCLRTrainer` over synthetic two-view batches (`SyntheticSplit(
+   two_view=True)`), 2 epochs of 3 steps, at the recipe's batch of 500
+   images (1000 views) if a step's peak memory, predicted from one step at
+   batches 25 and 50, fits 85% of the card, else at the largest multiple
+   of 10 that does (printed).  Checks: finite losses; 12 forward and 12
+   backward launches per step (the path "simclr"); 5 steps on one fixed
+   batch at a constant LR of 5e-5 lower its loss; checkpoint_0000/,
+   checkpoint_0001/ and model_best/ written, model_best/ read back through
+   `load_simclr_vit_backbone` bit for bit; samples/s over 3 steps and the
+   peak memory printed.  Then `eval --unimodel`'s path on model_best/: the
+   config's edits (`cli.eval_cmds.unimodel_config`), `_resolve_params`,
+   extraction of all_keys / test_seen / test_unseen (1100 / 500 / 500
+   synthetic rows) with exactly 12 forward launches per batch (the path
+   "unimodel_eval") and no other kernel, finite unit-norm 768-d image
+   embeddings, a non-empty grid.  Last, rows 1 and 2 at the SimCLR batch
+   (2B views) against their plain versions, timed beside SDPA and the bound.
 
-Phases 3-5, 12 and 13 run with both opt-in kernels off, as the flagship
+The INSECT fine-tune (`train` with `dataset: INSECT`) is not driven here:
+its images come only from HDF5 and the card machine has no h5py; its
+kernels and its trainer are phase 5's, and the CPU tests hold its loader
+(tests/test_torch_insect.py).
+
+Phases 3-5 and 12-15 run with both opt-in kernels off, as the flagship
 recipe does.
 The last three lines are the kernel summary JSON, the card line, and
 `{"ok": true, "device": {...}}`.
@@ -302,6 +340,15 @@ IMPORT_SEED = 13
 IMPORT_COSINE_MIN = 0.9999
 IMPORT_SPECIES = 40
 FEATURE_DIM = 512
+ACCUM_STEPS = 4             # phase 14: the gradient cache's microbatches a step
+ACCUM_TRAIN_ROWS = {"train": 3000, "all_keys": 1100, "val_seen": 500, "val_unseen": 500}
+ACCUM_LOSS_REL_TOL = 1e-2   # k=4 loss against the monolithic step's, bf16, relative
+ACCUM_RATE_STEPS = 3        # timed steps of each step kind, after one warm-up step
+SIMCLR = "unimodel_training_with_1m/unimodel_image_1m.yaml"
+SIMCLR_EPOCHS, SIMCLR_STEPS_PER_EPOCH = 2, 3
+SIMCLR_PROBE_B = (25, 50)   # batches of the memory probe that sizes the SimCLR batch
+SIMCLR_MEMORY_SHARE = 0.85  # of the card's memory a SimCLR step's predicted peak may take
+SIMCLR_RATE_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores, published
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores, published
@@ -2159,8 +2206,9 @@ def modality_launches(model, mc, batch, device) -> dict:
     return out
 
 
-def check_embeddings(what: str, split_dict: dict, rows: int, dim: int) -> None:
-    for m in ("image", "dna", "language"):
+def check_embeddings(what: str, split_dict: dict, rows: int, dim: int,
+                     modalities=("image", "dna", "language")) -> None:
+    for m in modalities:
         emb = split_dict[f"encoded_{m}_feature"]
         if emb.shape != (rows, dim) or not np.isfinite(emb).all():
             fail(f"{what} {m} embeddings: shape {emb.shape} or not finite")
@@ -2388,6 +2436,427 @@ def import_phase(card: str, entries: dict, device, split_rows: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def attention_rows_at(card: str, label: str, B: int, towers) -> tuple:
+    """Rows 1 and 2 at a path's batch B for each tower (name, N, H, masked):
+    each against its plain version (forward max |kernel - plain| <=
+    KERNEL_TOL, backward <= BWD_REL_TOL * max |plain| per part), then kernel,
+    SDPA (forward, backward) and bound ms → (forward rows, backward rows)."""
+    import torch
+
+    from clibd_tpu_torch.ops.attention import (flash_attention_qkv_bwd_cuda,
+                                               flash_attention_qkv_bwd_reference,
+                                               flash_attention_qkv_cuda)
+    from clibd_tpu_torch.utils.profiling import cuda_ms
+
+    fwd_rows, bwd_rows = [], []
+    for name, N, H, masked in towers:
+        D = H * 64
+        what = f"{label} {name} B={B} N={N} H={H} mask={masked}"
+        qkv, mask = make_qkv(B, N, H, masked, seed=11 * N + B)
+        g = torch.Generator(device="cuda").manual_seed(B + N)
+        dout = torch.randn(B, N, D, generator=g, device="cuda").to(torch.bfloat16)
+        fwd_err = check_forward(qkv, mask, H, what)
+        got = flash_attention_qkv_bwd_cuda(qkv, dout, H, mask).float()
+        want = flash_attention_qkv_bwd_reference(qkv, dout, H, mask).float()
+        rel = [rel_err(got[..., i * D:(i + 1) * D], want[..., i * D:(i + 1) * D])
+               for i in range(3)]
+        bwd_err = float((got - want).abs().max())
+        del got, want
+        print(f"kernel flash_attention_qkv_bwd {what}: max|kernel-plain|/max|plain| dq "
+              f"{rel[0]:.3e} dk {rel[1]:.3e} dv {rel[2]:.3e} (tol {BWD_REL_TOL})")
+        if max(rel) > BWD_REL_TOL:
+            fail(f"backward kernel disagrees with its plain version at {what}: {rel}")
+        ms = cuda_ms(lambda: flash_attention_qkv_cuda(qkv, H, mask))
+        library_ms = cuda_ms(lambda: library_attention(qkv, H, mask))
+        bwd_ms = cuda_ms(lambda: flash_attention_qkv_bwd_cuda(qkv, dout, H, mask))
+        leaf = qkv.detach().requires_grad_()
+        lib_out = library_attention(leaf, H, mask)
+        bwd_library_ms = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, leaf, dout.view(B, N, H, 64).transpose(1, 2), retain_graph=True))
+        extra = B * N * 4 if masked else 0
+        bound_ms, bound_by = bound(B * N * 4 * D * 2 + extra, 4 * B * H * N * N * 64)
+        bwd_bound_ms, bwd_bound_by = bound(B * N * 7 * D * 2 + extra, 10 * B * H * N * N * 64)
+        print(f"time {label} {name} B={B} N={N}: forward kernel {ms:.4f} ms, library (sdpa) "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); backward kernel "
+              f"{bwd_ms:.4f} ms, library (sdpa backward) {bwd_library_ms:.4f} ms, bound "
+              f"{bwd_bound_ms:.4f} ms ({bwd_bound_by})  [{card}]")
+        common = {"shape": name, "B": B, "N": N, "H": H}
+        fwd_rows.append({**common, "ms": ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "max_abs_err": fwd_err})
+        bwd_rows.append({**common, "ms": bwd_ms, "library_ms": bwd_library_ms,
+                         "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by,
+                         "max_abs_err": bwd_err})
+        del qkv, mask, dout, leaf, lib_out
+    torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows
+
+
+def add_path_shapes(entries: dict, path: str, rows: tuple) -> None:
+    """Rows 1 and 2 at a path's own batch into their entries, under
+    "<path>_shapes"."""
+    for name, r in zip(("flash_attention_qkv", "flash_attention_qkv_bwd"), rows):
+        entries[name][f"{path}_shapes"] = r
+        entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"],
+                                           max(x["max_abs_err"] for x in r))
+
+
+def reset_peak(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib(device) -> float:
+    """Peak device memory since the last `reset_peak`, GiB (0 on the CPU)."""
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2 ** 30 if device.type == "cuda" else 0.0
+
+
+def counted(step_fn, per_step: list):
+    """`step_fn` that appends each call's (forward, backward) kernel
+    launches to `per_step`."""
+    from clibd_tpu_torch.ops.attention import flash_attention_qkv, flash_attention_qkv_bwd
+
+    def step(*args):
+        f0, b0 = flash_attention_qkv.launches, flash_attention_qkv_bwd.launches
+        loss = step_fn(*args)
+        per_step.append((flash_attention_qkv.launches - f0, flash_attention_qkv_bwd.launches - b0))
+        return loss
+
+    return step
+
+
+def accum_train_phase(card: str, entries: dict, device) -> None:
+    """Phase 14: the flagship recipe with accum_steps=4 through the port's
+    Trainer (one epoch, one eval), the gradient cache against the
+    monolithic step on one batch, samples/s and peak memory of both, and
+    rows 1-2 at the microbatch."""
+    import torch
+
+    from clibd_tpu_torch.data import SyntheticSplit
+    from clibd_tpu_torch.engine import train as train_mod
+    from clibd_tpu_torch.engine.extract import to_device
+    from clibd_tpu_torch.engine.train import (Trainer, batch_generator, make_accum_grad_fn,
+                                              make_loss_fn, make_train_step,
+                                              make_train_step_accum)
+    from clibd_tpu_torch.models import init_clibd_model
+
+    gcfg = recipe_config(EXPERIMENT, 1)
+    mc = gcfg.model_config
+    mc.accum_steps = k = ACCUM_STEPS
+    B = mc.batch_size
+    if B % k:
+        fail(f"batch {B} does not divide by accum_steps={k}")
+    splits = {name: SyntheticSplit(name, n, mc, seed=20 + i)
+              for i, (name, n) in enumerate(ACCUM_TRAIN_ROWS.items())}
+    model = init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed), device)
+    trainable = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    n_layers = mc.image.vit.num_layers + mc.dna.bert.num_layers + mc.language.bert.num_layers
+    # pass 1: a forward per microbatch; pass 3: a forward and a backward per
+    # microbatch (the "attn" policy keeps the attention output, so the
+    # backward does not run the forward kernel again)
+    want = (2 * k * n_layers, k * n_layers)
+    steps = len(splits["train"])
+    logs, per_step = [], []
+    with tempfile.TemporaryDirectory(prefix="clibd_accum_") as out_dir:
+        trainer = Trainer(gcfg, None, out_dir, train_loader=splits["train"],
+                          eval_loader_factory=lambda split, train: splits[split], model=model,
+                          log_fn=logs.append, device=device)
+        if "make_train_step_accum" not in trainer.step_fn.__qualname__:
+            fail(f"the Trainer did not take the gradient-cache step: {trainer.step_fn}")
+        trainer.step_fn = counted(trainer.step_fn, per_step)
+        reset_counts()
+        reset_peak(device)
+        t0 = time.perf_counter()
+        history = trainer.fit()
+        sync(device)
+        t_fit = time.perf_counter() - t0
+        fit_peak = peak_gib(device)
+        trainer.close()
+        counts = read_counts()
+        print(f"accum_train kernel launches per train step (forward, backward) at k={k}: "
+              f"{sorted(set(per_step))} over {len(per_step)} steps (expected {want} x {steps})")
+        others = {n: c for n, c in counts.items()
+                  if n not in ("flash_attention_qkv", "flash_attention_qkv_bwd")}
+        if len(per_step) != steps or set(per_step) != {want} or any(others.values()):
+            fail(f"accum_train steps launched {per_step}, expected {want} x {steps}, and the "
+                 f"other kernels {others}, expected none")
+        losses = [d["loss"] for d in logs if "loss" in d]
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+            fail(f"accum_train losses {losses}")
+        grids = [d for d in logs if any("||top-" in key for key in d)]
+        if len(history["overall_acc"]) != 1 or len(grids) != 1 or not grids[0]:
+            fail(f"accum_train: expected one eval with a grid: {history['overall_acc']}")
+        for sub in ("last", "best"):
+            if not os.path.exists(os.path.join(out_dir, sub, "opt_state.npz")):
+                fail(f"accum_train: {sub}/ was not written")
+    add_launches(entries, "accum_train", counts)
+    rates = [d["throughput/samples_per_sec_per_chip"] for d in logs
+             if "throughput/samples_per_sec_per_chip" in d]
+    print(f"accum_train losses: {[round(v, 4) for v in losses]}; eval overall_acc "
+          f"{history['overall_acc']}")
+    print(f"accum_train: {steps} steps of batch {B} at k={k} + 1 eval in {t_fit:.2f} s; "
+          f"samples/s over the steps after the first (CUDA-synchronised) {rates}; peak device "
+          f"memory {fit_peak:.2f} GiB  [{card}]")
+
+    # the gradient cache against the monolithic step: samples/s and peak memory
+    batch = to_device({key: v for key, v in next(splits["train"].batches()).items()
+                       if key != "index"}, device)
+    opt = trainer.optimizer
+    stats = {}
+    for name, step in (("monolithic", make_train_step(mc, model, opt)),
+                       (f"k={k}", make_train_step_accum(mc, model, opt, k))):
+        step(batch, batch_generator(device, 0, 0, 0))  # warm-up
+        sync(device)
+        reset_peak(device)
+        t0 = time.perf_counter()
+        for i in range(ACCUM_RATE_STEPS):
+            step(batch, batch_generator(device, 0, 0, i + 1))
+        sync(device)
+        stats[name] = (ACCUM_RATE_STEPS * B / (time.perf_counter() - t0), peak_gib(device))
+        print(f"accum_train {name} step at batch {B}: {stats[name][0]:.2f} samples/s, peak "
+              f"device memory {stats[name][1]:.2f} GiB (bf16, remat {mc.remat_policy!r})  "
+              f"[{card}]")
+    if device.type == "cuda" and not stats[f"k={k}"][1] < stats["monolithic"][1]:
+        fail(f"the k={k} step's peak memory is not below the monolithic step's: {stats}")
+
+    # one batch, augmentation replaced by the identity for this check only
+    real_augment = train_mod.train_augment
+    train_mod.train_augment = lambda generator, images: images
+    try:
+        opt.zero_grad(set_to_none=True)
+        loss_m = make_loss_fn(mc, model)(batch, None)
+        loss_m.backward()
+        grads_m = [p.grad.float().clone() for _, p in trainable]
+        opt.zero_grad(set_to_none=True)
+        loss_k = make_accum_grad_fn(mc, model, k)(batch, None)
+        grads_k = [p.grad.float() for _, p in trainable]
+    finally:
+        train_mod.train_augment = real_augment
+    loss_m, loss_k = float(loss_m.detach()), float(loss_k)
+    cos = [float((a * b).sum() / (a.norm() * b.norm())) for a, b in zip(grads_k, grads_m)]
+    worst = min(range(len(cos)), key=cos.__getitem__)
+    print(f"accum_train k={k} against the monolithic step, one batch, identity augmentation: "
+          f"loss {loss_k:.6f} vs {loss_m:.6f} (|d| {abs(loss_k - loss_m):.3e}, tol "
+          f"{ACCUM_LOSS_REL_TOL} x |loss|); gradient min cosine {cos[worst]:.6f} at "
+          f"{trainable[worst][0]} over {len(cos)} tensors (need >= {COSINE_MIN})")
+    if abs(loss_k - loss_m) > ACCUM_LOSS_REL_TOL * abs(loss_m) or cos[worst] < COSINE_MIN:
+        fail("the gradient cache disagrees with the monolithic step")
+    opt.zero_grad(set_to_none=True)
+    del model, trainer, opt, batch, grads_m, grads_k
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        add_path_shapes(entries, "accum_train",
+                        attention_rows_at(card, "accum_train microbatch", B // k, SHAPES[:3]))
+
+
+def simclr_config():
+    """The unimodel recipe at SIMCLR_EPOCHS epochs, checked to be the bf16
+    ViT-B/16 with its 768-d head, full fine-tune, batch 500."""
+    from clibd_tpu_torch.config import load_config
+
+    gcfg = load_config(experiment=SIMCLR, overrides=[f"model_config.epochs={SIMCLR_EPOCHS}"])
+    mc, v = gcfg.model_config, gcfg.model_config.image.vit
+    if not (mc.amp and mc.disable_lora and mc.batch_size == 500 and mc.output_dim == 768
+            and mc.image.enable and not mc.dna.enable and not mc.language.enable
+            and (v.image_size, v.patch_size, v.hidden_size, v.num_layers, v.num_heads)
+            == (224, 16, 768, 12, 12)):
+        fail(f"{SIMCLR} is not the bf16 ViT-B/16 SimCLR recipe at batch 500 with a 768-d head")
+    return gcfg
+
+
+def simclr_batch(card: str, mc, device) -> int:
+    """The recipe's batch if its step's peak memory, predicted from one step
+    at each of two small batches (the slope per image, both views), fits
+    SIMCLR_MEMORY_SHARE of the card; else the largest multiple of 10 that
+    does."""
+    import torch
+
+    from clibd_tpu_torch.engine.simclr import make_simclr_step
+    from clibd_tpu_torch.engine.train import ScheduledAdam, batch_generator
+    from clibd_tpu_torch.models.vit import ViT
+
+    model = ViT(mc.image.vit, output_dim=mc.output_dim)
+    model.reset_parameters(torch.Generator().manual_seed(1))
+    model = model.to(device)
+    step = make_simclr_step(mc, model, ScheduledAdam(model.parameters(), lambda i: 0.0))
+    S = mc.image.vit.image_size
+    peaks = {}
+    for b in SIMCLR_PROBE_B:
+        views = torch.randint(0, 256, (b, S, S, 3), dtype=torch.uint8, device=device)
+        step(views, views, batch_generator(device, 0, 0, 0))  # Adam's state appears here
+        sync(device)
+        reset_peak(device)
+        step(views, views, batch_generator(device, 0, 0, 1))
+        sync(device)
+        peaks[b] = torch.cuda.max_memory_allocated()
+    (b0, p0), (b1, p1) = sorted(peaks.items())
+    per = (p1 - p0) / (b1 - b0)
+    total = torch.cuda.get_device_properties(0).total_memory
+    predicted = p1 + per * (mc.batch_size - b1)
+    fits = int((SIMCLR_MEMORY_SHARE * total - p1) / per) + b1
+    batch = min(mc.batch_size, fits // 10 * 10)
+    print(f"simclr memory probe: step peak {p0 / 2 ** 30:.2f} GiB at batch {b0}, "
+          f"{p1 / 2 ** 30:.2f} GiB at {b1} ({per / 2 ** 20:.1f} MiB per image, two views); "
+          f"predicted {predicted / 2 ** 30:.2f} GiB at the recipe's {mc.batch_size} of "
+          f"{total / 2 ** 30:.2f} GiB; batch {batch}  [{card}]")
+    del model, step, views
+    torch.cuda.empty_cache()
+    return batch
+
+
+def simclr_phase(card: str, entries: dict, device, split_rows: dict, batch=None) -> None:
+    """Phase 15: the unimodel recipe through the port's SimCLRTrainer over
+    synthetic two-view batches, a fixed-batch descent, the checkpoints read
+    back, then `eval --unimodel`'s path on model_best/, and rows 1-2 at the
+    SimCLR batch."""
+    import torch
+
+    from clibd_tpu_torch.cli.common import _resolve_params
+    from clibd_tpu_torch.cli.eval_cmds import unimodel_config
+    from clibd_tpu_torch.config import load_config
+    from clibd_tpu_torch.data import SyntheticSplit
+    from clibd_tpu_torch.engine.evaluate import format_results, inference_and_eval
+    from clibd_tpu_torch.engine.extract import to_device
+    from clibd_tpu_torch.engine.simclr import (SimCLRTrainer, TwoViewLoader, make_simclr_loss_fn,
+                                               make_simclr_step)
+    from clibd_tpu_torch.engine.train import ScheduledAdam, batch_generator
+    from clibd_tpu_torch.models.clibd import load_simclr_vit_backbone
+    from clibd_tpu_torch.models.vit import ViT
+
+    gcfg = simclr_config()
+    mc = gcfg.model_config
+    B = simclr_batch(card, mc, device) if batch is None else batch
+    mc.batch_size = B
+    t0 = time.perf_counter()
+    split = SyntheticSplit("train", SIMCLR_STEPS_PER_EPOCH * B, mc, seed=30, two_view=True)
+    print(f"simclr set-up: {SIMCLR_STEPS_PER_EPOCH} two-view batches of {B} images in "
+          f"{time.perf_counter() - t0:.1f} s")
+    n_layers = mc.image.vit.num_layers
+    steps = SIMCLR_EPOCHS * SIMCLR_STEPS_PER_EPOCH
+    logs, per_step = [], []
+    with tempfile.TemporaryDirectory(prefix="clibd_simclr_") as out_dir:
+        trainer = SimCLRTrainer(gcfg, None, out_dir, loader=TwoViewLoader(None, "train", B,
+                                                                          loader=split),
+                                log_fn=logs.append, device=device)
+        model = trainer.model
+        step_fn = trainer.step_fn
+        trainer.step_fn = counted(step_fn, per_step)
+        reset_counts()
+        reset_peak(device)
+        t0 = time.perf_counter()
+        history = trainer.fit()
+        sync(device)
+        t_fit = time.perf_counter() - t0
+        fit_peak = peak_gib(device)
+        counts = read_counts()
+        print(f"simclr kernel launches per step (forward, backward): {sorted(set(per_step))} "
+              f"over {len(per_step)} steps (expected ({n_layers}, {n_layers}) x {steps})")
+        others = {n: c for n, c in counts.items()
+                  if n not in ("flash_attention_qkv", "flash_attention_qkv_bwd")}
+        if len(per_step) != steps or set(per_step) != {(n_layers, n_layers)} \
+                or any(others.values()):
+            fail(f"simclr steps launched {per_step}, expected ({n_layers}, {n_layers}) x "
+                 f"{steps}, and the other kernels {others}, expected none")
+        add_launches(entries, "simclr", counts)
+        losses = [d["loss"] for d in logs if "loss" in d]
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+            fail(f"simclr losses {losses}")
+        for sub in ("checkpoint_0000", "checkpoint_0001", "model_best"):
+            for f in ("params.npz", "opt_state.npz", "meta.json"):
+                if not os.path.exists(os.path.join(out_dir, sub, f)):
+                    fail(f"simclr: {sub}/{f} was not written")
+        best = os.path.join(out_dir, "model_best")
+        with open(os.path.join(best, "meta.json")) as f:
+            best_meta = json.load(f)
+        encoder = ViT(mc.image.vit, output_dim=mc.output_dim).to(device)
+        load_simclr_vit_backbone(best, encoder)
+        with np.load(os.path.join(best, "params.npz")) as f:
+            saved = {key: f[key] for key in f.files}
+        live = dict(model.named_parameters()) if best_meta["epoch"] == SIMCLR_EPOCHS - 1 else {}
+        n_checked = 0
+        for name, p in encoder.named_parameters():
+            if name.startswith("head."):
+                continue
+            got = p.detach().cpu().numpy()
+            if not np.array_equal(got, saved[name.replace(".", "/")]) or (
+                    live and not torch.equal(p, live[name])):
+                fail(f"simclr: model_best/ does not load back bit for bit at {name}")
+            n_checked += 1
+        print(f"simclr losses {[round(v, 4) for v in losses]}, epoch means "
+              f"{[round(v, 4) for v in history['loss']]}; model_best/ (epoch "
+              f"{best_meta['epoch']}) loads back through load_simclr_vit_backbone, "
+              f"{n_checked} tensors bit for bit{' and equal to the live model' if live else ''}")
+        del encoder, saved
+
+        # samples/s over steps on one batch, and a fixed-batch descent
+        v1, v2, _ = next(trainer.loader.batches(0))
+        views = to_device({"v1": v1, "v2": v2}, device)
+        step_fn(views["v1"], views["v2"], batch_generator(device, 0, 0, 0))
+        sync(device)
+        t0 = time.perf_counter()
+        for i in range(SIMCLR_RATE_STEPS):
+            step_fn(views["v1"], views["v2"], batch_generator(device, 0, 0, i + 1))
+        sync(device)
+        rate = SIMCLR_RATE_STEPS * B / (time.perf_counter() - t0)
+        print(f"simclr: {steps} steps of batch {B} ({2 * B} views) + checkpoints in "
+              f"{t_fit:.2f} s; {rate:.2f} samples/s ({2 * rate:.2f} views/s) over "
+              f"{SIMCLR_RATE_STEPS} steps (CUDA-synchronised); peak device memory "
+              f"{fit_peak:.2f} GiB  [{card}]")
+        opt = ScheduledAdam(model.parameters(), lambda i: 5e-5,
+                            weight_decay=mc.optim.weight_decay)
+        step = make_simclr_step(mc, model, opt)
+        loss_fn = make_simclr_loss_fn(mc, model)
+        fixed = [float(step(views["v1"], views["v2"], batch_generator(device, 0, 0, 0)))
+                 for _ in range(5)]
+        with torch.no_grad():
+            fixed.append(float(loss_fn(views["v1"], views["v2"], batch_generator(device, 0, 0, 0))))
+        print(f"simclr fixed batch, constant LR 5e-5: losses {[round(v, 5) for v in fixed]}")
+        if not fixed[-1] < fixed[0]:
+            fail("simclr: 5 steps on a fixed batch did not lower its loss")
+        trainer.close()
+        del trainer, model, opt, step, views
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # eval --unimodel's path on model_best/: the config's edits, the
+        # checkpoint chain, extraction of the three splits, the grid
+        ucfg = unimodel_config(load_config(experiment=SIMCLR), best)
+        umodel = _resolve_params(ucfg, device)
+        umc = ucfg.model_config
+        usplits = {name: SyntheticSplit(name, n, umc, seed=40 + i)
+                   for i, (name, n) in enumerate(split_rows.items())}
+        reset_counts()
+        t0 = time.perf_counter()
+        seen, unseen, keys = extract_trio(umodel, umc, usplits)
+        sync(device)
+        t_extract = time.perf_counter() - t0
+        ucounts = read_counts()
+    n_batches = sum(len(s) for s in usplits.values())
+    print(f"unimodel_eval forward launches: {ucounts['flash_attention_qkv']} (expected "
+          f"{n_layers} x {n_batches} batches); {sum(split_rows.values())} images in "
+          f"{t_extract:.3f} s  [{card}]")
+    others = {n: c for n, c in ucounts.items() if n != "flash_attention_qkv"}
+    if ucounts["flash_attention_qkv"] != n_layers * n_batches or any(others.values()):
+        fail(f"unimodel_eval launched {ucounts}, expected {n_layers * n_batches} forward only")
+    add_launches(entries, "unimodel_eval", ucounts)
+    for name, d in (("all_keys", keys), ("test_seen", seen), ("test_unseen", unseen)):
+        check_embeddings(f"unimodel {name}", d, split_rows[name], umc.output_dim, ("image",))
+    acc_dict, _, _ = inference_and_eval(keys, seen, unseen, k_list=[1, 3, 5], query_chunk=4096,
+                                        with_preds=False, device=device)
+    table, csv_rows, _, _ = format_results(acc_dict, [1, 3, 5], "I")
+    if len(csv_rows) < 2 or not acc_dict:
+        fail("the unimodel kNN grid is empty")
+    print(f"unimodel_eval kNN grid: {len(csv_rows) - 1} rows; the table's head:")
+    print("\n".join(table.splitlines()[:6]))
+    del umodel
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        add_path_shapes(entries, "simclr", attention_rows_at(card, "simclr", 2 * B, SHAPES[:1]))
+
+
 def load_config_feature():
     """The flagship with `image.input_type: feature` over FEATURE_DIM-wide
     image features (the MLP encoder of `models/mlp.py`)."""
@@ -2458,6 +2927,8 @@ def main() -> int:
     with kernel_knobs(False, "xla"):
         serve_phase(card, entries, cuda)
         import_phase(card, entries, cuda, SPLIT_ROWS)
+        accum_train_phase(card, entries, cuda)
+        simclr_phase(card, entries, cuda, SPLIT_ROWS)
     if "jax" in sys.modules or any(m == "clibd_tpu" or m.startswith("clibd_tpu.")
                                    for m in sys.modules):
         fail("jax or the JAX package was imported: the port must run without them")

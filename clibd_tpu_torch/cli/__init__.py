@@ -2,7 +2,10 @@
 
   train          --experiment <cfg.yaml> [--hdf5 data.hdf5] [--output-dir DIR]
                  [--train-split SPLIT] [--resume [DIR]] [--device cuda] [k=v ...]
-  eval           --experiment <cfg.yaml> [--hdf5 data.hdf5] [--device cuda] [k=v ...]
+  eval           --experiment <cfg.yaml> [--hdf5 data.hdf5] [--unimodel SIMCLR_CKPT]
+                 [--device cuda] [k=v ...]
+  simclr         --experiment <cfg.yaml> [--hdf5 data.hdf5] [--output-dir DIR]
+                 [--train-split SPLIT] [--temperature 0.07] [--device cuda] [k=v ...]
   extract        --experiment <cfg.yaml> [--split all_keys] [--out emb.hdf5]
                  [--stream [--resume]] [--device cuda] [k=v ...]
   extract-single --experiment <cfg.yaml> [--image img.jpg] [--barcode ACGT...]
@@ -14,8 +17,9 @@
                  [--released-embeddings emb.hdf5] [--n 2000] [--tokenizer FILE]
                  ... [--device cuda] [k=v ...]
 
-the counterparts of `clibd train`, `eval`, `extract`, `extract-single`,
-`serve` and `verify-parity`, the subcommands ported so far.  `eval`,
+the counterparts of `clibd train` (BIOSCAN or INSECT), `eval`, `simclr`,
+`extract`, `extract-single`, `serve` and `verify-parity`, the subcommands
+ported so far.  `eval`,
 `extract`, `extract-single` and `serve` take a released `best.pth` as
 `model_config.ckpt_path=<file>`.  Each runs on the card; `--device
 cpu` runs it on the CPU (the kernels' plain versions), and only when asked.
@@ -29,7 +33,7 @@ from typing import List, Optional
 from .eval_cmds import cmd_eval, cmd_verify_parity
 from .extract_cmds import cmd_extract, cmd_extract_single
 from .ops_cmds import cmd_serve
-from .train_cmds import cmd_train
+from .train_cmds import cmd_simclr, cmd_train
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -54,7 +58,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     p_eval = sub.add_parser("eval", help="extract + retrieval eval (inference_and_eval.py)")
     common(p_eval)
     p_eval.add_argument("--unimodel", default=None, metavar="SIMCLR_CKPT",
-                        help="SimCLR image-encoder eval (not ported yet)")
+                        help="evaluate a SimCLR-pretrained image encoder alone "
+                             "(unimodel/inference_and_eval_with_unimodel.py)")
+
+    p_simclr = sub.add_parser("simclr", help="SimCLR image pretraining (unimodel/)")
+    common(p_simclr)
+    p_simclr.add_argument("--output-dir", default=None)
+    p_simclr.add_argument("--train-split", default="no_split_and_seen_train")
+    p_simclr.add_argument("--temperature", type=float, default=0.07)
 
     p_extract = sub.add_parser("extract", help="embedding export (save_embedding/)")
     common(p_extract)
@@ -128,6 +139,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     p_vp.add_argument("--top1-threshold", type=float, default=0.005)
     p_vp.add_argument("--out", default=None, help="write the JSON report here")
     args = parser.parse_args(argv)
-    return {"train": cmd_train, "eval": cmd_eval, "extract": cmd_extract,
+    return {"train": cmd_train, "eval": cmd_eval, "simclr": cmd_simclr, "extract": cmd_extract,
             "extract-single": cmd_extract_single, "serve": cmd_serve,
             "verify-parity": cmd_verify_parity}[args.command](args, args.overrides)

@@ -1,6 +1,7 @@
 """`eval`: the port of `clibd_tpu/cli/eval_cmds.py::cmd_eval` -- extract
 all_keys / {eval_on}_seen / {eval_on}_unseen, write the embedding cache, run
-the kNN grid, print the reference's table and write its reports; and
+the kNN grid, print the reference's table and write its reports; with
+`--unimodel`, of a SimCLR-pretrained image encoder alone; and
 `verify-parity` (`cmd_verify_parity`, `eval_cmds.py:496-526`)."""
 
 from __future__ import annotations
@@ -18,6 +19,22 @@ def _not_ported(what: str) -> NotImplementedError:
                                "(ROADMAP.md Queue 1: the other CLI commands and options)")
 
 
+def unimodel_config(cfg, simclr_ckpt: str):
+    """Set `cfg` up for `eval --unimodel`, the SimCLR encoder's retrieval
+    eval (reference scripts/unimodel/inference_and_eval_with_unimodel.py:
+    1-190): an image-only model whose backbone comes from the SimCLR
+    checkpoint `simclr_ckpt`, no CLIBD checkpoint loaded, and a cache and
+    output folder of its own (`<model_output_name>_unimodel`), so the named
+    model's cached embeddings are neither read nor overwritten."""
+    mc = cfg.model_config
+    mc.dna.enable = False
+    mc.language.enable = False
+    mc.image.simclr_ckpt_path = simclr_ckpt
+    mc.load_ckpt = False
+    mc.model_output_name = f"{mc.model_output_name}_unimodel"
+    return cfg
+
+
 def cmd_eval(args, overrides) -> int:
     from ..config import to_dict
     from ..data.pipeline import BatchSpec
@@ -25,9 +42,9 @@ def cmd_eval(args, overrides) -> int:
     from ..engine.extract import load_extracted_features, save_extracted_features, save_labels_and_ids
     from ..utils.profiling import PhaseTimer
 
-    if getattr(args, "unimodel", None):
-        raise _not_ported("eval --unimodel")
     cfg = _load_cfg(args, overrides)
+    if getattr(args, "unimodel", None):
+        unimodel_config(cfg, args.unimodel)
     settings = cfg.inference_and_eval_setting
     if settings.retrieve_images:
         raise _not_ported("inference_and_eval_setting.retrieve_images")

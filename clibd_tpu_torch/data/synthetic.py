@@ -31,6 +31,11 @@ a specimen is its species' prototype with pixel noise of up to
 ±`IMAGE_NOISE`, a share `BARCODE_MUTATION` of its bases redrawn (features:
 `FEATURE_NOISE` standard deviations), and the species' own text, as
 specimens of one species resemble each other in BIOSCAN.
+
+`two_view=True` gives each batch the second view that
+`BatchSpec(two_view=True)` adds for SimCLR, "image2": the same rows' images
+with fresh pixel noise of up to ±`IMAGE_NOISE` (the loader's two crops of
+one decode), for `engine.simclr.TwoViewLoader(loader=...)`.
 """
 
 from __future__ import annotations
@@ -81,7 +86,8 @@ class _Specimens:
 
 
 class SyntheticSplit:
-    def __init__(self, name: str, n: int, mc, seed: int, species: Optional[int] = None):
+    def __init__(self, name: str, n: int, mc, seed: int, species: Optional[int] = None,
+                 two_view: bool = False):
         rng = np.random.default_rng(seed)
         batch_size = mc.batch_size
         self.spec = SimpleNamespace(batch_size=batch_size)
@@ -152,6 +158,13 @@ class SyntheticSplit:
                         else dna[lo:hi]),
                 "language": language,
             })
+        if two_view:
+            if image_features:
+                raise ValueError("two_view= needs image input, not image features")
+            for batch in self._batches:
+                image = batch["image"]
+                noise = rng.integers(-IMAGE_NOISE, IMAGE_NOISE + 1, image.shape, dtype=np.int16)
+                batch["image2"] = np.clip(image + noise, 0, 255).astype(np.uint8)
         labels = row_species if specimens else rng.integers(0, 40, n)
         self._labels = [{"order": f"order_{s % 3}", "family": f"family_{s % 7}",
                          "genus": f"genus_{s % 13}", "species": f"species_{s}"} for s in labels]

@@ -10,11 +10,17 @@ A checkpoint directory holds:
   (`clibd_tpu.models.convert.load_params_npz`, `load_model_any`);
 - `meta.json`: {"step", "epoch", ...} as the JAX package writes it (the best
   checkpoint adds "overall_acc");
-- `opt_state.npz`: the port's own AdamW state, three arrays per trainable
-  parameter -- "<key>/exp_avg", "<key>/exp_avg_sq" and "<key>/step" (a
-  scalar) with <key> the parameter's params.npz key.  The JAX package's
-  optax state has another layout; loading one into the other is not ported
-  (ROADMAP.md Queue 1).
+- `opt_state.npz`: the optimizer state in optax's layout, the flat keys
+  and dtypes that the JAX package writes (`_flatten_with_paths` of its
+  optax state): per trainable parameter its first and second moments,
+  "<adam>mu/<key>" and "<adam>nu/<key>" with <key> the parameter's
+  params.npz key, and the update count as int32 under each counting
+  transform; frozen parameters have no entry, as optax's MaskedNode leaves
+  them.  `optax_keys` says where the Adam state sits in each of the two
+  optimizers: `build_optimizer`'s multi_transform of AdamW (behind a
+  global-norm clip when one is set) and SimCLR's chain.  So a checkpoint
+  resumes in either package.  `load_train_state` also reads the port's
+  earlier layout ("<key>/exp_avg", "<key>/exp_avg_sq", "<key>/step").
 
 Writes are atomic per file (write, then rename).  `AsyncCheckpointWriter`
 copies the state to host memory on the caller's thread and writes it on a
@@ -45,19 +51,78 @@ def _atomic_npz(path: str, arrays: dict) -> None:
     os.replace(tmp, path)
 
 
+def _trainable(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> list:
+    """(name, parameter) of every parameter the optimizer updates."""
+    ids = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    return [(n, p) for n, p in model.named_parameters() if id(p) in ids]
+
+
+def optax_keys(optimizer: torch.optim.Optimizer) -> Tuple[str, Tuple[str, ...]]:
+    """Where optax keeps this optimizer's state: (the prefix of the Adam
+    moments' keys, the keys of the update counts).
+
+    - `engine.train.ScheduledAdamW` is `build_optimizer`'s
+      multi_transform({"train": adamw, "frozen": set_to_zero}): adamw is
+      chain(scale_by_adam, add_decayed_weights, scale_by_learning_rate),
+      so (count, mu, nu) sit at inner_state/0 and the schedule's count at
+      inner_state/2; a global-norm clip chains in front and moves both
+      under inner_state/1 (the clip's own state has no leaves);
+    - `engine.train.ScheduledAdam` is SimCLR's chain(add_decayed_weights,
+      scale_by_adam, scale_by_learning_rate): (count, mu, nu) at 1, the
+      schedule's count at 2.
+    """
+    if getattr(optimizer, "optax_chain", None) == "simclr":
+        return "1/", ("1/count", "2/count")
+    base = "inner_states/train/inner_state/" + ("1/" if optimizer.grad_clip_norm > 0 else "")
+    return base + "0/", (base + "0/count", base + "2/count")
+
+
+def opt_state_to_optax(model: torch.nn.Module,
+                       optimizer: torch.optim.Optimizer) -> Dict[str, np.ndarray]:
+    """The optimizer's state as the JAX package's flat `opt_state.npz`:
+    the keys and dtypes of `_flatten_with_paths(optimizer.init(params))`
+    for the same config, on the host.  A parameter not updated yet has
+    zero moments, as optax's init gives them."""
+    adam, counts = optax_keys(optimizer)
+    flat = {k: np.asarray(optimizer.update_count(), np.int32) for k in counts}
+    for n, p in _trainable(model, optimizer):
+        state = optimizer.state.get(p) or {}
+        for field, slot in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
+            v = state.get(field)
+            flat[f"{adam}{slot}/{_key(n)}"] = (np.zeros(tuple(p.shape), np.float32) if v is None
+                                               else v.detach().float().cpu().numpy())
+    return flat
+
+
+def _set_adam_state(optimizer, p, step: float, exp_avg, exp_avg_sq) -> None:
+    optimizer.state[p] = {
+        "step": torch.tensor(float(step), dtype=torch.float32),
+        "exp_avg": torch.from_numpy(np.asarray(exp_avg)).to(p.device, p.dtype),
+        "exp_avg_sq": torch.from_numpy(np.asarray(exp_avg_sq)).to(p.device, p.dtype),
+    }
+
+
+def opt_state_from_optax(flat: Dict[str, np.ndarray], model: torch.nn.Module,
+                         optimizer: torch.optim.Optimizer) -> None:
+    """Set the optimizer's state from a flat optax state (`opt_state_to_optax`'s
+    layout, or the JAX package's `opt_state.npz`); any other key set
+    raises, as the JAX package's loader does."""
+    adam, counts = optax_keys(optimizer)
+    named = _trainable(model, optimizer)
+    want = set(counts) | {f"{adam}{slot}/{_key(n)}" for n, _ in named for slot in ("mu", "nu")}
+    if set(flat) != want:
+        raise ValueError("Optimizer state keys do not match the checkpoint")
+    step = int(flat[counts[0]])
+    for n, p in named:
+        _set_adam_state(optimizer, p, step, flat[f"{adam}mu/{_key(n)}"],
+                        flat[f"{adam}nu/{_key(n)}"])
+
+
 def _host_snapshot(model: torch.nn.Module, optimizer: Optional[torch.optim.Optimizer]
                    ) -> Tuple[Dict[str, np.ndarray], Optional[Dict[str, np.ndarray]]]:
     """Device → host copies of the params and the optimizer state."""
     params = {_key(n): p.detach().float().cpu().numpy() for n, p in model.named_parameters()}
-    if optimizer is None:
-        return params, None
-    opt: Dict[str, np.ndarray] = {}
-    for n, p in model.named_parameters():
-        state = optimizer.state.get(p)
-        if state:
-            for field in ("exp_avg", "exp_avg_sq", "step"):
-                opt[f"{_key(n)}/{field}"] = state[field].detach().float().cpu().numpy()
-    return params, opt
+    return params, None if optimizer is None else opt_state_to_optax(model, optimizer)
 
 
 def _write_host(directory: str, params: dict, opt: Optional[dict], step: int, epoch: int,
@@ -84,8 +149,9 @@ def save_train_state(directory: str, model: torch.nn.Module,
 def load_train_state(directory: str, model: torch.nn.Module,
                      optimizer: Optional[torch.optim.Optimizer] = None) -> dict:
     """Load params.npz into `model` (strict) and, when `optimizer` is given
-    and opt_state.npz exists, the AdamW state of every trainable parameter;
-    → meta.json's dict (empty when absent)."""
+    and opt_state.npz exists, the Adam state of every trainable parameter,
+    from optax's layout or the port's earlier one (told apart by their
+    keys); → meta.json's dict (empty when absent)."""
     state = params_from_jax(load_params_npz(os.path.join(directory, "params.npz")))
     model.load_state_dict(state, strict=True)
     meta: dict = {}
@@ -97,18 +163,15 @@ def load_train_state(directory: str, model: torch.nn.Module,
     if optimizer is not None and os.path.exists(opt_path):
         with np.load(opt_path) as data:
             flat = {k: data[k] for k in data.files}
-        trainable = {id(p) for g in optimizer.param_groups for p in g["params"]}
-        named = [(n, p) for n, p in model.named_parameters() if id(p) in trainable]
-        want = {f"{_key(n)}/{f}" for n, _ in named for f in ("exp_avg", "exp_avg_sq", "step")}
-        if set(flat) != want:
-            raise ValueError("Optimizer state keys do not match the checkpoint")
-        for n, p in named:
-            k = _key(n)
-            optimizer.state[p] = {
-                "step": torch.tensor(float(flat[f"{k}/step"]), dtype=torch.float32),
-                "exp_avg": torch.from_numpy(flat[f"{k}/exp_avg"]).to(p.device, p.dtype),
-                "exp_avg_sq": torch.from_numpy(flat[f"{k}/exp_avg_sq"]).to(p.device, p.dtype),
-            }
+        named = _trainable(model, optimizer)
+        earlier = {f"{_key(n)}/{f}" for n, _ in named for f in ("exp_avg", "exp_avg_sq", "step")}
+        if set(flat) == earlier:  # the port's layout before it wrote optax's
+            for n, p in named:
+                k = _key(n)
+                _set_adam_state(optimizer, p, flat[f"{k}/step"], flat[f"{k}/exp_avg"],
+                                flat[f"{k}/exp_avg_sq"])
+        else:
+            opt_state_from_optax(flat, model, optimizer)
     return meta
 
 

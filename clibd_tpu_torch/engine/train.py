@@ -11,10 +11,16 @@ loop evaluates every `evaluation_period` epochs through the retrieval grid,
 keeps best/last checkpoints by overall_acc, stops early on no improvement,
 and resumes from a checkpoint, mid-epoch included.
 
-Left out, each raising NotImplementedError (ROADMAP.md Queue 1):
-gradient-cache accumulation (`make_train_step_accum`, `accum_steps > 1`),
-the shard_map / multi-device step (`make_train_step_shard_map`), the
-multi-host resume (`resume_multihost`) and the INSECT loader path.
+With `accum_steps` k > 1 a step is the gradient cache
+(`make_train_step_accum`): the exact full-batch loss and gradients with the
+activations of one microbatch of B/k at a time.  The optimizer state is
+checkpointed in optax's layout (`engine/checkpoint.py`), so a run resumes
+in either package.  The trainer takes any loader with the `BioscanLoader`
+interface, the INSECT one (`data/insect.py`) included.
+
+Left out, each raising NotImplementedError (ROADMAP.md Queue 1 item 6,
+multi-GPU): the shard_map / multi-device step (`make_train_step_shard_map`)
+and the multi-host resume (`resume_multihost`).
 """
 
 from __future__ import annotations
@@ -30,13 +36,13 @@ import torch
 from ..config.schema import ExperimentConfig, GlobalConfig
 from ..models.clibd import clibd_apply, dequantize_image, init_clibd_model
 from ..ops.augment import train_augment
-from ..ops.loss import clip_loss
+from ..ops.loss import MODALITY_ORDER, clip_loss
 from .checkpoint import BestLastCheckpointer, load_train_state
 from .evaluate import compute_overall_acc, convert_acc_dict_to_wandb_dict, inference_and_eval
 from .extract import extract_split, to_device
 from .schedules import build_schedule
 
-_LATER = "is not ported to clibd_tpu_torch yet (ROADMAP.md Queue 1)"
+_LATER = "is not ported to clibd_tpu_torch yet (ROADMAP.md Queue 1 item 6, multi-GPU)"
 
 
 def clip_by_global_norm_(grads, max_norm: float) -> None:
@@ -49,15 +55,15 @@ def clip_by_global_norm_(grads, max_norm: float) -> None:
     torch._foreach_mul_(grads, scale)
 
 
-class ScheduledAdamW(torch.optim.AdamW):
-    """AdamW whose i-th update (0-based, the count optax keeps) runs at
+class _Scheduled:
+    """An Adam whose i-th update (0-based, the count optax keeps) runs at
     `schedule(i)`, after an optional global-norm clip of the gradients.  The
-    count is read from AdamW's own per-parameter step, so it comes back with
+    count is read from Adam's own per-parameter step, so it comes back with
     the optimizer state on resume."""
 
     def __init__(self, params, schedule: Callable[[int], float], grad_clip_norm: float = 0.0,
-                 **adamw_kwargs):
-        super().__init__(params, lr=float(schedule(0)), **adamw_kwargs)
+                 **adam_kwargs):
+        super().__init__(params, lr=float(schedule(0)), **adam_kwargs)
         self.schedule = schedule
         self.grad_clip_norm = grad_clip_norm
 
@@ -73,6 +79,20 @@ class ScheduledAdamW(torch.optim.AdamW):
         for group in self.param_groups:
             group["lr"] = lr
         return super().step(closure)
+
+
+class ScheduledAdamW(_Scheduled, torch.optim.AdamW):
+    """`build_optimizer`'s optax.adamw (decoupled weight decay)."""
+
+    optax_chain = "adamw"
+
+
+class ScheduledAdam(_Scheduled, torch.optim.Adam):
+    """SimCLR's chain(add_decayed_weights, scale_by_adam,
+    scale_by_learning_rate): torch Adam's `weight_decay` adds the decay to
+    the gradient before the moments, as add_decayed_weights does."""
+
+    optax_chain = "simclr"
 
 
 def build_optimizer(cfg: ExperimentConfig, model: torch.nn.Module,
@@ -94,24 +114,36 @@ def remat_arg(cfg: ExperimentConfig):
     return cfg.remat_policy if cfg.remat_policy not in ("", "none") else True
 
 
-def make_loss_fn(cfg: ExperimentConfig, model: torch.nn.Module) -> Callable:
-    """→ loss_fn(batch, generator): the scalar loss of one batch of device
-    tensors, differentiable in the model's parameters."""
+def make_encode_fn(cfg: ExperimentConfig, model: torch.nn.Module) -> Callable:
+    """→ encode(batch, generator): `clibd_apply`'s output for one batch of
+    device tensors, the images augmented with the generator's draws,
+    differentiable in the model's parameters."""
     compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
     remat = remat_arg(cfg)
 
-    def loss_fn(batch: dict, generator: Optional[torch.Generator]) -> torch.Tensor:
+    def encode(batch: dict, generator: Optional[torch.Generator]) -> dict:
         image_in = batch.get("image")
         if image_in is not None and cfg.image.input_type == "image":
             # flips and rotation only move values, so augmenting in the
             # compute dtype equals casting the augmented fp32 images
             image_in = train_augment(generator, dequantize_image(image_in).to(compute_dtype))
-        out = clibd_apply(model, cfg, image_input=image_in, dna_input=batch.get("dna"),
-                          language_input=batch.get("language"), compute_dtype=compute_dtype,
-                          remat=remat)
+        return clibd_apply(model, cfg, image_input=image_in, dna_input=batch.get("dna"),
+                           language_input=batch.get("language"), compute_dtype=compute_dtype,
+                           remat=remat)
+
+    return encode
+
+
+def make_loss_fn(cfg: ExperimentConfig, model: torch.nn.Module) -> Callable:
+    """→ loss_fn(batch, generator): the scalar loss of one batch of device
+    tensors, differentiable in the model's parameters."""
+    encode = make_encode_fn(cfg, model)
+
+    def loss_fn(batch: dict, generator: Optional[torch.Generator]) -> torch.Tensor:
+        out = encode(batch, generator)
         # fix_temperature → literal 1/0.07 (reference train_epoch.py:55-56)
         logit_scale = (1.0 / 0.07) if cfg.loss.fix_temperature else out["logit_scale"]
-        features = {m: out[m] for m in ("image", "dna", "language")}
+        features = {m: out[m] for m in MODALITY_ORDER}
         return clip_loss(features, batch["label"], logit_scale, cfg.loss)
 
     return loss_fn
@@ -133,8 +165,94 @@ def make_train_step(cfg: ExperimentConfig, model: torch.nn.Module,
     return step
 
 
-def make_train_step_accum(*args, **kwargs):
-    raise NotImplementedError(f"gradient-cache accumulation (accum_steps > 1) {_LATER}")
+def _rows(x, lo: int, hi: int):
+    """Rows lo:hi of a tensor, or of each tensor in a (nested) dict."""
+    return {k: _rows(v, lo, hi) for k, v in x.items()} if isinstance(x, dict) else x[lo:hi]
+
+
+def make_accum_grad_fn(cfg: ExperimentConfig, model: torch.nn.Module,
+                       accum_steps: int) -> Callable:
+    """→ grad_fn(batch, generator) → the loss of the whole batch, its
+    gradients added to the parameters' `.grad`: the gradient cache of
+    `clibd_tpu/engine/train.py:122-229` (Gao et al. 2021's GradCache).
+
+    A contrastive loss couples every sample of the batch, so k losses of
+    B/k samples are another objective.  Instead, with k microbatches:
+
+    1. no-grad forwards, one microbatch at a time: only the [B, D]
+       features are kept;
+    2. the full-batch loss on those features, as leaves that require grad:
+       d(loss)/d(features), and d(loss)/d(logit_scale) for the logit-scale
+       parameter;
+    3. per microbatch, the forward again with grad and its backward against
+       that microbatch's rows of the cached d(loss)/d(features); the
+       parameters' gradients accumulate in `.grad`, the logit scale's is
+       added once.
+
+    Passes 1 and 3 draw the same augmentation (`fold_in(generator, i)` for
+    microbatch i, made anew for each pass), so they compute the same
+    function and the gradients are the monolithic step's, up to the order
+    of the sums.  `cfg.remat` applies inside each microbatch.  B must
+    divide by k."""
+    encode = make_encode_fn(cfg, model)
+    ls_param = model.logit_scale
+
+    def grad_fn(batch: dict, generator: Optional[torch.Generator]) -> torch.Tensor:
+        B = batch["label"].shape[0]
+        if B % accum_steps:
+            raise ValueError(f"batch {B} not divisible by accum_steps={accum_steps}")
+        b = B // accum_steps
+        inputs = {k: v for k, v in batch.items() if k != "label"}
+        micro = [_rows(inputs, i * b, (i + 1) * b) for i in range(accum_steps)]
+
+        with torch.no_grad():  # pass 1
+            feats = [encode(mb, fold_in(generator, i)) for i, mb in enumerate(micro)]
+        present = [m for m in MODALITY_ORDER if feats[0][m] is not None]
+        leaves = {m: torch.cat([f[m] for f in feats]).requires_grad_() for m in present}
+        del feats
+
+        with torch.enable_grad():  # pass 2
+            if cfg.loss.fix_temperature:
+                logit_scale, scale_leaf = 1.0 / 0.07, None
+            else:
+                scale_leaf = ls_param.detach().requires_grad_()
+                logit_scale = torch.exp(scale_leaf)
+            loss = clip_loss(leaves, batch["label"], logit_scale, cfg.loss)
+            wrt = [leaves[m] for m in present] + ([scale_leaf] if scale_leaf is not None else [])
+            grads = torch.autograd.grad(loss, wrt)
+        cotangents = dict(zip(present, grads))
+
+        for i, mb in enumerate(micro):  # pass 3
+            out = encode(mb, fold_in(generator, i))
+            # a frozen tower's features carry no graph
+            pairs = [(out[m], cotangents[m][i * b:(i + 1) * b]) for m in present
+                     if out[m].requires_grad]
+            if pairs:
+                torch.autograd.backward([o for o, _ in pairs], grad_tensors=[c for _, c in pairs])
+        if scale_leaf is not None:
+            d_scale = grads[-1]
+            ls_param.grad = d_scale.clone() if ls_param.grad is None else ls_param.grad + d_scale
+        return loss.detach()
+
+    return grad_fn
+
+
+def make_train_step_accum(cfg: ExperimentConfig, model: torch.nn.Module,
+                          optimizer: torch.optim.Optimizer, accum_steps: int) -> Callable:
+    """→ step(batch, generator) with `make_accum_grad_fn`'s gradients and
+    one optimizer update (its global-norm clip sees the summed gradients);
+    `make_train_step` when accum_steps < 2."""
+    if accum_steps < 2:
+        return make_train_step(cfg, model, optimizer)
+    grad_fn = make_accum_grad_fn(cfg, model, accum_steps)
+
+    def step(batch: dict, generator: Optional[torch.Generator]) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        loss = grad_fn(batch, generator)
+        optimizer.step()
+        return loss
+
+    return step
 
 
 def make_train_step_shard_map(*args, **kwargs):
@@ -147,6 +265,17 @@ def batch_generator(device: torch.device, seed: int, epoch: int, batch_idx: int)
     a mid-epoch resume draws what an uninterrupted run would."""
     state = np.random.SeedSequence([seed, epoch, batch_idx]).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state))
+
+
+def fold_in(generator: Optional[torch.Generator], i: int) -> Optional[torch.Generator]:
+    """The generator of microbatch i of a batch, seeded from (the batch
+    generator's seed, i) alone -- the counterpart of fold_in(rng, i) -- so
+    each call for the same (seed, epoch, batch, microbatch) gives the same
+    draws.  None stays None."""
+    if generator is None:
+        return None
+    state = np.random.SeedSequence([generator.initial_seed(), i]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=generator.device).manual_seed(int(state))
 
 
 class Trainer:
@@ -185,8 +314,6 @@ class Trainer:
         self.eval_loader_factory = eval_loader_factory
         if cfg.step_impl == "shard_map":
             make_train_step_shard_map()
-        if cfg.accum_steps > 1:
-            make_train_step_accum()
         if train_loader is not None:
             self.train_loader = train_loader
         else:
@@ -217,7 +344,7 @@ class Trainer:
         # LR × batch/500 (reference util/util.py:753-756), one device
         self.schedule = build_schedule(cfg.optim, total_steps, cfg.batch_size, world_size=1)
         self.optimizer = build_optimizer(cfg, model, self.schedule)
-        self.step_fn = make_train_step(cfg, model, self.optimizer)
+        self.step_fn = make_train_step_accum(cfg, model, self.optimizer, cfg.accum_steps)
         self.global_step = 0
         self.stop_flag = False
         self._resume_start_batch = 0

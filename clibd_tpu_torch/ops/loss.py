@@ -1,6 +1,8 @@
-"""Tri-modal multi-positive InfoNCE: the port of `clibd_tpu/ops/loss.py`
-(`label_equality_matrix`, `soft_target_cross_entropy`, `_pair_list`,
-`clip_loss`, `:43-102`; reference bioscanclip/model/loss_func.py:25-201).
+"""Tri-modal multi-positive InfoNCE and SimCLR's NT-Xent: the port of
+`clibd_tpu/ops/loss.py` (`label_equality_matrix`, `soft_target_cross_entropy`,
+`_pair_list`, `clip_loss`, `:43-102`, and `simclr_info_nce_loss`,
+`simclr_loss`, `:154-190`; reference bioscanclip/model/loss_func.py:25-201,
+util/simclr.py:64-92).
 
 - The target is the label-equality matrix M[i, j] = (l_i == l_j):
   multi-positive soft targets, not row-normalised (torch CrossEntropyLoss
@@ -14,8 +16,7 @@
   in fp32 with TF32 off (set at import by the package), the counterpart of
   `Precision.HIGHEST`.
 
-Not ported yet: `sharded_clip_loss` (multi-GPU) and the SimCLR losses
-(ROADMAP.md Queue 1).
+Not ported yet: `sharded_clip_loss` (ROADMAP.md Queue 1 item 6, multi-GPU).
 """
 
 from __future__ import annotations
@@ -83,3 +84,36 @@ def clip_loss(features: Dict[str, Optional[torch.Tensor]], labels: torch.Tensor,
         terms.append(soft_target_cross_entropy(sim_ab, target))
         terms.append(soft_target_cross_entropy(sim_ab.T, target))
     return sum(terms) / len(terms)
+
+
+def simclr_info_nce_loss(features: torch.Tensor, temperature: float = 0.07) -> tuple:
+    """SimCLR InfoNCE (reference util/simclr.py:64-92): features [2B, D] are
+    two augmented views stacked [view1 (B); view2 (B)], the positives the
+    (i, i+B) pairs, self-similarities left out → (logits [2B, 2B-1], labels
+    [2B]), label 0 the positive's column: CE(logits, labels) is the loss."""
+    n = features.shape[0]
+    b = n // 2
+    f = l2_normalize(features.float())
+    sim = f @ f.T
+    group = torch.arange(n, device=features.device) % b
+    same = group[:, None] == group[None, :]
+    eye = torch.eye(n, dtype=torch.bool, device=features.device)
+    positives = sim[same & ~eye].reshape(n, 1)
+    negatives = sim[~same].reshape(n, -1)
+    logits = torch.cat([positives, negatives], dim=1) / temperature
+    return logits, torch.zeros(n, dtype=torch.int32, device=features.device)
+
+
+def simclr_loss(features: torch.Tensor, temperature: float = 0.07) -> torch.Tensor:
+    """NT-Xent equal to CE(info_nce_loss logits, 0): with the diagonal
+    masked at finfo.min, loss_i = logsumexp_{j != i}(s_ij / t) - s_{i,partner} / t,
+    in fp32."""
+    n = features.shape[0]
+    b = n // 2
+    f = l2_normalize(features.float())
+    sim = (f @ f.T) / temperature
+    eye = torch.eye(n, dtype=torch.bool, device=features.device)
+    sim = sim.masked_fill(eye, torch.finfo(torch.float32).min)
+    rows = torch.arange(n, device=features.device)
+    pos = sim[rows, (rows + b) % n]
+    return (torch.logsumexp(sim, dim=-1) - pos).mean()

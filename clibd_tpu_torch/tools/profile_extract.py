@@ -3,7 +3,7 @@
     python -m clibd_tpu_torch.tools.profile_extract [--out DIR] [--experiment YAML] [--fused]
         [--no-plain]
     python -m clibd_tpu_torch.tools.profile_extract --train [--out DIR] [--experiment YAML]
-        [--fused] [--no-plain]
+        [--fused] [--no-plain] [--accum K]
 
 Drives an experiment recipe -- by default the flagship tri-modal one
 (`EXPERIMENT`: ViT-B/16, BarcodeBERT, BERT-small at full width, bf16, batch
@@ -26,7 +26,8 @@ default) measures:
    memset ran on the card.
 
 --train measures one train step of the same recipe (remat "attn", AdamW,
-the one-cycle schedule) on one batch already on the card:
+the one-cycle schedule) on one batch already on the card, `--accum K` the
+gradient cache's step with K microbatches (`make_train_step_accum`):
 
 1. step: device ms per train step by CUDA events (median of 3 after 1
    warm-up step), with the kernels and with their plain versions
@@ -159,14 +160,15 @@ def write_trace(prof, out: str, span: str, runs: int) -> dict:
             "device_ms_by_group": device_ms_by_group(events, window)}
 
 
-def profile_train(out: str, card: str, summary: dict, experiment: str, plain: bool) -> dict:
+def profile_train(out: str, card: str, summary: dict, experiment: str, plain: bool,
+                  accum: int = 1) -> dict:
     import torch
 
     from ..config import load_config
     from ..data import SyntheticSplit
     from ..engine.extract import to_device
     from ..engine.schedules import build_schedule
-    from ..engine.train import batch_generator, build_optimizer, make_train_step
+    from ..engine.train import batch_generator, build_optimizer, make_train_step_accum
     from ..models import init_clibd_model
     from ..utils.profiling import cuda_ms
 
@@ -177,13 +179,13 @@ def profile_train(out: str, card: str, summary: dict, experiment: str, plain: bo
     batch = to_device({k: v for k, v in next(SyntheticSplit("train", B, mc, seed=0).batches())
                        .items() if k != "index"}, device)
     optimizer = build_optimizer(mc, model, build_schedule(mc.optim, 6 * mc.epochs, B))
-    step = make_train_step(mc, model, optimizer)
+    step = make_train_step_accum(mc, model, optimizer, accum)
 
     def run():
         step(batch, batch_generator(device, mc.default_seed, 0, 0))
 
     summary.update({"mode": "train", "batch": B, "remat": mc.remat,
-                    "remat_policy": mc.remat_policy})
+                    "remat_policy": mc.remat_policy, "accum_steps": accum})
     run()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -284,6 +286,8 @@ def main(argv=None) -> dict:
                     help="fused out-projection and fused MLP kernels on")
     ap.add_argument("--no-plain", dest="plain", action="store_false",
                     help="leave out the runs with the plain versions")
+    ap.add_argument("--accum", type=int, default=1, metavar="K",
+                    help="with --train: the gradient cache's step with K microbatches")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_extract needs a CUDA card")
@@ -293,7 +297,8 @@ def main(argv=None) -> dict:
                      "torch": torch.__version__, "cuda": torch.version.cuda}
     with kernel_knobs(args.fused, "pallas" if args.fused else "xla"):
         if args.train:
-            summary = profile_train(args.out, card, summary, args.experiment, args.plain)
+            summary = profile_train(args.out, card, summary, args.experiment, args.plain,
+                                    args.accum)
         else:
             summary = profile_extract(args.out, card, summary, args.experiment, args.plain)
     with open(os.path.join(args.out, "summary.json"), "w") as f:

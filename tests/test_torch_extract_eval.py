@@ -286,7 +286,9 @@ def test_options_not_ported_raise(tmp_path):
     assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
     proc = _run_cli(tmp_path, "inference_and_eval_setting.retrieve_images=true")
     assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
-    proc = _run_cli(tmp_path, "--unimodel", "simclr.npz")
+    # eval --unimodel is ported (tests/test_torch_simclr.py); the similarity
+    # distributions are not
+    proc = _run_cli(tmp_path, "inference_and_eval_setting.similarity_distributions=true")
     assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
 
 
