@@ -244,12 +244,61 @@ Phases, each of which raises on failure:
    embeddings, a non-empty grid.  Last, rows 1 and 2 at the SimCLR batch
    (2B views) against their plain versions, timed beside SDPA and the bound.
 
-The INSECT fine-tune (`train` with `dataset: INSECT`) is not driven here:
-its images come only from HDF5 and the card machine has no h5py; its
-kernels and its trainer are phase 5's, and the CPU tests hold its loader
-(tests/test_torch_insect.py).
+16. finetune: the INSECT fine-tune recipe
+   (for_bioscan_1m/fine_tune_on_INSECT_dataset/image_dna_text_seed_42_on_INSECT_dataset.yaml:
+   ViT-B/16, BarcodeBERT, 768-d, bf16, batch 150) through
+   `engine.finetune.fit_classifier` (`cli finetune`'s engine) over an
+   INSECT-shaped synthetic train split of 3,000 rows of its 1,213 species
+   (20 steps) and a 600-row test split: one epoch with the image encoder
+   trained, then one with the DNA encoder frozen.  Checks: (12, 12)
+   launches per step trained and (12, 0) frozen, 12 per batch of `predict`,
+   under the path "finetune", and no other kernel; every trained tensor
+   with a finite nonzero gradient; the model's encoder bit-identical after
+   the run (the frozen one takes no step, a trained one is a copy); finite
+   logits and top-k accuracy; 5 steps on one fixed batch lower its loss;
+   on 16 samples the bf16 gradients through the kernels against the plain
+   versions (cosine >= 0.99 per tensor); the params `save_train_state`
+   writes (the head at classifier/w [768, 1213]) read back bit for bit.
+   Prints samples/s over the steps after the first and the peak memory.
+17. bzsl_extract: the flagship's image and DNA towers through
+   `engine.downstream.bzsl_extract` (`cli bzsl-extract`'s engine) over
+   1,000 INSECT-shaped rows at batch 200 into the BZSL CSVs in a temporary
+   directory: 24 forward launches per batch and no other kernel, an image
+   CSV of one finite 768-d column per record, a DNA CSV whose columns are
+   the classes' mean embeddings in class order (against a DNA-only
+   extraction), records/s, and on 8 samples the embeddings against the
+   plain versions (cosine >= 0.99 per row).
+18. method_nn: the flagship (tri-modal, batch 500) through
+   `engine.downstream.method_nn_eval` (`cli method-nn`'s engine) over
+   synthetic splits of 200 species, the seen ones (val_seen, test_seen 500
+   rows, seen_keys 1,100) of species 0-99 and the unseen ones (val_unseen,
+   test_unseen, val_unseen_keys, test_unseen_keys 500 rows each) of
+   100-199, the threshold searched on val and applied to test, in three
+   legs: plain, `--linear` (the frozen probe, 500 steps) and `--linear
+   --probe full` (one epoch over seen_keys).  Checks: 28 forward launches
+   per batch of extraction, (12, 12) per full-probe step and 12 per batch
+   of its logits (the path "method_nn"), no other kernel; the threshold and
+   routing accuracies in [0, 1], a finite harmonic mean, the frozen probe's
+   loss falling; on 8 samples the embeddings against the plain versions.
+   Prints each leg's summary, the full probe's samples/s and peak memory.
+19. zeroshot: the BioCLIP recipe's CLIP towers (ViT-B/16, the 12-layer
+   causal text tower at D=512, embed 512) loaded by
+   `engine.downstream.clip_towers_from_checkpoint` from an open_clip state
+   dict the phase writes from seeded weights (`open_clip_state_dict`) and
+   a small BPE merges file (`write_bpe_merges`), then
+   `engine.downstream.zeroshot_eval` (`cli zeroshot`'s engine) in its
+   three modes over synthetic splits of 400 species (test_seen 1,000,
+   all_keys 1,100 images) at batch 64: 12 forward launches per image batch
+   and none from the text tower (the path "zeroshot"), every accuracy in
+   [0, 1], 400 classes; then the 32,000 prompts' prototypes timed alone
+   (unit-norm; prompts/s), the images timed alone (images/s), and on 8
+   images the features against the plain versions.
 
-Phases 3-5 and 12-15 run with both opt-in kernels off, as the flagship
+The INSECT HDF5 loader itself (`data/insect.py`) is held only on the CPU
+(tests/test_torch_insect.py): the card machine has no h5py, so phases 16-17
+feed the engines INSECT-shaped synthetic splits.
+
+Phases 3-5 and 12-19 run with both opt-in kernels off, as the flagship
 recipe does.
 The last three lines are the kernel summary JSON, the card line, and
 `{"ok": true, "device": {...}}`.
@@ -349,6 +398,20 @@ SIMCLR_EPOCHS, SIMCLR_STEPS_PER_EPOCH = 2, 3
 SIMCLR_PROBE_B = (25, 50)   # batches of the memory probe that sizes the SimCLR batch
 SIMCLR_MEMORY_SHARE = 0.85  # of the card's memory a SimCLR step's predicted peak may take
 SIMCLR_RATE_STEPS = 3
+INSECT_FT = ("for_bioscan_1m/fine_tune_on_INSECT_dataset/"
+             "image_dna_text_seed_42_on_INSECT_dataset.yaml")
+INSECT_SPECIES = 1213       # INSECT's species count
+FINETUNE_ROWS = {"trainval_loc": 3000, "test_seen_loc": 600}  # 20 train steps at batch 150
+FINETUNE_LR = 1e-4          # cli finetune's default
+BZSL_ROWS, BZSL_BATCH = 1000, 200
+METHOD_NN_ROWS = {"val_seen": 500, "val_unseen": 500, "test_seen": 500, "test_unseen": 500,
+                  "seen_keys": 1100, "val_unseen_keys": 500, "test_unseen_keys": 500}
+METHOD_NN_SPECIES = 200     # the seen splits draw species 0-99, the unseen ones 100-199
+PROBE_STEPS = 500           # the frozen probe's AdamW steps (cli default)
+ZEROSHOT_SPECIES = 400      # 32,000 prompts of the 80-template ensemble
+ZEROSHOT_ROWS = {"test_seen": 1000, "all_keys": 1100}
+ZEROSHOT_BATCH = 64         # cli zeroshot's default
+ZEROSHOT_SEED = 19
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores, published
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores, published
@@ -2053,6 +2116,62 @@ def draw_port_params(mc, generator) -> dict:
     return out
 
 
+def open_clip_state_dict(vcfg, tcfg, generator) -> dict:
+    """An open_clip state dict (visual.*, transformer.*, token_embedding,
+    positional_embedding, ln_final, text_projection, logit_scale) at the
+    towers' widths, in open_clip's names and layouts ([out, in] weights,
+    in_proj as one [3D, D], the OIHW patch conv), drawn from `generator`:
+    N(0, 0.02) weights and biases, unit LayerNorms."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=generator) * 0.02
+
+    sd = {}
+
+    def resblocks(prefix, n_layers, d, f):
+        for i in range(n_layers):
+            p = f"{prefix}.resblocks.{i}."
+            sd.update({p + "attn.in_proj_weight": randn(3 * d, d),
+                       p + "attn.in_proj_bias": randn(3 * d),
+                       p + "attn.out_proj.weight": randn(d, d), p + "attn.out_proj.bias": randn(d),
+                       p + "mlp.c_fc.weight": randn(f, d), p + "mlp.c_fc.bias": randn(f),
+                       p + "mlp.c_proj.weight": randn(d, f), p + "mlp.c_proj.bias": randn(d)})
+            for ln in ("ln_1", "ln_2"):
+                sd[p + f"{ln}.weight"], sd[p + f"{ln}.bias"] = torch.ones(d), torch.zeros(d)
+
+    d = vcfg.hidden_size
+    sd["visual.conv1.weight"] = randn(d, 3, vcfg.patch_size, vcfg.patch_size)
+    sd["visual.class_embedding"] = randn(d)
+    sd["visual.positional_embedding"] = randn(vcfg.seq_len, d)
+    resblocks("visual.transformer", vcfg.num_layers, d, vcfg.mlp_dim)
+    for ln in ("ln_pre", "ln_post"):
+        sd[f"visual.{ln}.weight"], sd[f"visual.{ln}.bias"] = torch.ones(d), torch.zeros(d)
+    sd["visual.proj"] = randn(d, vcfg.embed_dim)
+    t = tcfg.hidden_size
+    sd["token_embedding.weight"] = randn(tcfg.vocab_size, t)
+    sd["positional_embedding"] = randn(tcfg.context_length, t)
+    resblocks("transformer", tcfg.num_layers, t, tcfg.mlp_dim)
+    sd["ln_final.weight"], sd["ln_final.bias"] = torch.ones(t), torch.zeros(t)
+    sd["text_projection"] = randn(t, tcfg.embed_dim)
+    sd["logit_scale"] = torch.tensor(math.log(1 / 0.07))
+    return sd
+
+
+BPE_MERGES = ("#version: 0.2", "s p", "sp e", "spe c", "spec i", "speci e", "speci es",
+              "o r", "or d", "ord e", "orde r", "f a", "fa m", "g e", "ge n")
+
+
+def write_bpe_merges(path: str) -> str:
+    """A small gzipped BPE merges file in CLIP's format: the byte-level
+    vocabulary and a few merges of the taxonomy words."""
+    import gzip
+
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("\n".join(BPE_MERGES))
+    return path
+
+
 def _sub(params: dict, prefix: str) -> dict:
     return {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
 
@@ -2857,6 +2976,526 @@ def simclr_phase(card: str, entries: dict, device, split_rows: dict, batch=None)
         add_path_shapes(entries, "simclr", attention_rows_at(card, "simclr", 2 * B, SHAPES[:1]))
 
 
+class StepMarks:
+    """A loader whose batches mark the forward and backward kernel launches
+    at each batch boundary, so that step i's launches are marks[i + 1] -
+    marks[i]; the time after the first step (CUDA-synchronised) and at the
+    end, and the batches' sizes, are kept for samples/s."""
+
+    def __init__(self, loader, device):
+        self.loader, self.device = loader, device
+        self.spec = loader.spec
+        self.marks, self.sizes, self.t1, self.t_end = [], [], None, None
+
+    def __len__(self):
+        return len(self.loader)
+
+    def label_dicts(self):
+        return self.loader.label_dicts()
+
+    def ids(self):
+        return self.loader.ids()
+
+    def close(self):
+        self.loader.close()
+
+    def _mark(self):
+        from clibd_tpu_torch.ops.attention import flash_attention_qkv, flash_attention_qkv_bwd
+
+        self.marks.append((flash_attention_qkv.launches, flash_attention_qkv_bwd.launches))
+
+    def batches(self, epoch: int = 0, shuffle=None, start_batch: int = 0):
+        for batch in self.loader.batches(epoch=epoch, start_batch=start_batch):
+            self._mark()
+            if len(self.marks) == 2:
+                sync(self.device)
+                self.t1 = time.perf_counter()
+            self.sizes.append(len(batch["index"]))
+            yield batch
+        self._mark()
+        sync(self.device)
+        self.t_end = time.perf_counter()
+
+    def per_step(self) -> list:
+        return [(b[0] - a[0], b[1] - a[1]) for a, b in zip(self.marks, self.marks[1:])]
+
+    def rate(self) -> float:
+        """samples/s over the steps after the first."""
+        return sum(self.sizes[1:]) / (self.t_end - self.t1)
+
+
+def synthetic_factory(mc, rows: dict, seed: int, species: int, ranges=None, cover=()):
+    """→ make_loader(split, spec): a `SyntheticSplit` of `rows[split]`
+    specimens of `species` (drawn from `ranges[split]` of them; each one of
+    its range among the rows of a split in `cover`), at the spec's batch
+    size with the spec's modalities; one per (split, batch, modalities), so
+    that a split comes back as it was."""
+    from clibd_tpu_torch.data import SyntheticSplit
+
+    made = {}
+
+    def make_loader(split, spec):
+        mods = tuple(m for m, on in (("image", spec.with_image), ("dna", spec.with_dna),
+                                     ("language", spec.with_language)) if on)
+        key = (split, spec.batch_size, mods)
+        if key not in made:
+            made[key] = SyntheticSplit(split, rows[split], mc, seed=seed + sorted(rows).index(split),
+                                       species=species, species_range=(ranges or {}).get(split),
+                                       cover_species=split in cover, batch_size=spec.batch_size,
+                                       modalities=mods)
+        return made[key]
+
+    return make_loader
+
+
+def n_batches(rows: int, batch: int) -> int:
+    return -(-rows // batch)
+
+
+def kernel_vs_plain_cosine(label: str, fn, rows: bool = False) -> None:
+    """fn() → a list of bf16 outputs, embeddings [samples, D] (`rows`) or
+    gradient tensors: through the kernels and through their plain versions
+    on the card, cosine >= COSINE_MIN per row or per tensor."""
+    from clibd_tpu_torch.tools.profile_extract import plain_kernels
+
+    with_kernels = fn()
+    with plain_kernels():
+        with_plain = fn()
+    cos = []
+    for a, b in zip(with_kernels, with_plain):
+        a, b = a.float(), b.float()
+        if rows:
+            cos += [float(c) for c in cosine_rows(a, b)]
+        else:
+            cos.append(float((a * b).sum() / (a.norm() * b.norm())))
+    print(f"{label}, kernels vs plain versions on the card: min cosine {min(cos):.6f} over "
+          f"{len(cos)} rows or tensors (need >= {COSINE_MIN})")
+    if min(cos) < COSINE_MIN:
+        fail(f"{label}: the kernels disagree with the plain versions")
+
+
+def finetune_config():
+    """The INSECT fine-tune recipe, checked to be ViT-B/16 and BarcodeBERT
+    with 768-d outputs, bf16, batch 150."""
+    from clibd_tpu_torch.config import load_config
+
+    mc = load_config(experiment=INSECT_FT).model_config
+    v, d = mc.image.vit, mc.dna.bert
+    if not (mc.dataset == "INSECT" and mc.amp and mc.batch_size == 150 and mc.output_dim == 768
+            and (v.image_size, v.patch_size, v.hidden_size, v.num_layers, v.num_heads)
+            == (224, 16, 768, 12, 12) and (d.hidden_size, d.num_layers) == (768, 12)):
+        fail(f"{INSECT_FT} is not the bf16 ViT-B/16 + BarcodeBERT recipe at batch 150 with "
+             "768-d outputs")
+    return mc
+
+
+def finetune_phase(card: str, entries: dict, device) -> None:
+    """Phase 16: `fit_classifier` over an INSECT-shaped synthetic split,
+    the image encoder trained, then the DNA encoder frozen; predict and
+    top-k, a fixed-batch descent, the gradients against the plain
+    versions, and the saved params read back."""
+    import torch
+
+    from clibd_tpu_torch.data import SyntheticSplit
+    from clibd_tpu_torch.engine.checkpoint import save_train_state
+    from clibd_tpu_torch.engine.extract import to_device
+    from clibd_tpu_torch.engine.finetune import (WEIGHT_DECAY, fit_classifier,
+                                                 make_finetune_step, nll_loss, species_to_index,
+                                                 topk_accuracy)
+    from clibd_tpu_torch.engine.train import ScheduledAdamW
+    from clibd_tpu_torch.models import init_clibd_model
+
+    mc = finetune_config()
+    B = mc.batch_size
+    t0 = time.perf_counter()
+    train, test = (SyntheticSplit(name, n, mc, seed=50 + i, species=INSECT_SPECIES,
+                                  cover_species=name == "trainval_loc",
+                                  modalities=("image", "dna"))
+                   for i, (name, n) in enumerate(FINETUNE_ROWS.items()))
+    classes = sorted({lab["species"] for lab in train.label_dicts()})
+    if len(classes) != INSECT_SPECIES:
+        fail(f"finetune: {len(classes)} training species, expected {INSECT_SPECIES}")
+    train_t = species_to_index(train.label_dicts(), classes)
+    test_t = species_to_index(test.label_dicts(), classes)
+    model = init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed), device)
+    print(f"finetune set-up: {INSECT_FT}, {FINETUNE_ROWS} synthetic rows of {INSECT_SPECIES} "
+          f"species in {time.perf_counter() - t0:.1f} s")
+    total = {}
+    for modality, train_encoder in (("image", True), ("dna", False)):
+        label = f"finetune {modality}" + ("" if train_encoder else " --freeze-encoder")
+        encoder = getattr(model, f"{modality}_encoder")
+        n_layers = len(encoder.blocks.qkv_w)
+        want = (n_layers, n_layers if train_encoder else 0)
+        frozen = [p.detach().clone() for p in encoder.parameters()]
+        loader = StepMarks(train, device)
+        reset_counts()
+        reset_peak(device)
+        t0 = time.perf_counter()
+        ft, predict, epoch_losses = fit_classifier(
+            model, mc, loader, train_t, len(classes), lr=FINETUNE_LR, epochs=1,
+            modality=modality, train_encoder=train_encoder, seed=mc.default_seed)
+        sync(device)
+        t_fit = time.perf_counter() - t0
+        peak = peak_gib(device)
+        per_step, steps = loader.per_step(), len(train)
+        print(f"{label} launches per step (forward, backward): {sorted(set(per_step))} over "
+              f"{len(per_step)} steps (expected {want} x {steps})")
+        if per_step != [want] * steps:
+            fail(f"{label}: steps launched {per_step}, expected {want} x {steps}")
+        trained = {id(p) for p in ft.trainable_parameters()}
+        named = [(n, p) for n, p in ft.named_parameters() if id(p) in trained]
+        bad = [n for n, p in named if p.grad is None or not bool(torch.isfinite(p.grad).all())
+               or float(p.grad.abs().max()) == 0.0]
+        if bad or not all(n.startswith(("classifier.", f"{modality}_encoder."))
+                          for n, _ in named):
+            fail(f"{label}: trained tensors without a finite nonzero gradient: {bad[:8]}")
+        # the frozen encoder takes no step; a trained one is a copy, and the
+        # model the fit started from keeps its weights
+        if not all(torch.equal(a, b) for a, b in zip(frozen, encoder.parameters())):
+            fail(f"{label}: the {modality} encoder of the model changed")
+        del frozen
+        print(f"{label}: {steps} steps of batch {B} in {t_fit:.2f} s, {loader.rate():.2f} "
+              f"samples/s over the steps after the first; peak device memory {peak:.2f} GiB; "
+              f"epoch loss {epoch_losses}; {len(named)} trained tensors with a finite nonzero "
+              f"gradient{'; the encoder bit-identical' if not train_encoder else ''}  [{card}]")
+
+        t0 = time.perf_counter()
+        logits = [predict(b[modality]).cpu().numpy() for b in test.batches()]
+        t_pred = time.perf_counter() - t0
+        counts = read_counts()
+        want_fwd = steps * want[0] + len(test) * n_layers
+        others = {n: c for n, c in counts.items()
+                  if n not in ("flash_attention_qkv", "flash_attention_qkv_bwd")}
+        if (counts["flash_attention_qkv"], counts["flash_attention_qkv_bwd"]) \
+                != (want_fwd, steps * want[1]) or any(others.values()):
+            fail(f"{label}: fit and predict launched {counts}, expected {want_fwd} forward and "
+                 f"{steps * want[1]} backward")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        logits = np.concatenate(logits)
+        acc = topk_accuracy(logits, test_t)
+        if logits.shape != (len(test_t), len(classes)) or not np.isfinite(logits).all():
+            fail(f"{label}: logits {logits.shape} or not finite")
+        print(f"{label} predict: {len(test_t)} rows in {t_pred:.3f} s ({n_layers} forward "
+              f"launches a batch), top-k accuracy {acc}  [{card}]")
+
+        fixed = next(train.batches())
+        x = to_device(fixed[modality], device)
+        y = torch.from_numpy(train_t[fixed["index"]].astype(np.int64)).to(device)
+        opt = ScheduledAdamW(ft.trainable_parameters(), lambda i: FINETUNE_LR,
+                             weight_decay=WEIGHT_DECAY)
+        step = make_finetune_step(ft, opt)
+        fixed_losses = [float(step(x, y)) for _ in range(5)]
+        with torch.no_grad():
+            fixed_losses.append(float(nll_loss(ft(x), y)))
+        print(f"{label} fixed batch, constant LR {FINETUNE_LR}: losses "
+              f"{[round(v, 5) for v in fixed_losses]}")
+        if not fixed_losses[-1] < fixed_losses[0]:
+            fail(f"{label}: 5 steps on a fixed batch did not lower its loss")
+        opt.zero_grad(set_to_none=True)
+        xs, ys = head(x, 16), y[:16]
+        params = ft.trainable_parameters()
+        kernel_vs_plain_cosine(f"{label} bf16 gradients (16 samples)", lambda: list(
+            torch.autograd.grad(nll_loss(ft(xs), ys), params)))
+
+        with tempfile.TemporaryDirectory(prefix="clibd_finetune_") as out_dir:
+            t0 = time.perf_counter()
+            save_train_state(out_dir, ft)
+            with np.load(os.path.join(out_dir, "params.npz")) as f:
+                saved = {k: f[k] for k in f.files}
+        live = {n.replace(".", "/"): p for n, p in ft.named_parameters()}
+        if set(saved) != set(live) or saved["classifier/w"].shape != (mc.output_dim, len(classes)):
+            fail(f"{label}: the saved params have other keys or a head of "
+                 f"{saved.get('classifier/w', np.zeros(0)).shape}")
+        differ = [k for k, p in live.items()
+                  if not np.array_equal(saved[k], p.detach().float().cpu().numpy())]
+        if differ:
+            fail(f"{label}: saved params do not load back bit for bit: {differ[:8]}")
+        print(f"{label}: save_train_state wrote {len(saved)} tensors (classifier/w "
+              f"{saved['classifier/w'].shape}) that load back bit for bit, "
+              f"{time.perf_counter() - t0:.2f} s")
+        del ft, predict, opt, step, saved, live
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    add_launches(entries, "finetune", total)
+    del model
+
+
+def bzsl_phase(card: str, entries: dict, device) -> None:
+    """Phase 17: `engine.downstream.bzsl_extract` of INSECT-shaped rows
+    through the flagship's image and DNA towers into the BZSL CSVs."""
+    import torch
+
+    from clibd_tpu_torch.config import load_config
+    from clibd_tpu_torch.data.pipeline import BatchSpec
+    from clibd_tpu_torch.engine.downstream import bzsl_extract
+    from clibd_tpu_torch.engine.extract import extract_split, make_encode_step, to_device
+    from clibd_tpu_torch.models import init_clibd_model
+
+    mc = load_config(experiment=EXPERIMENT).model_config
+    model = init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed), device)
+    make_loader = synthetic_factory(mc, {"all": BZSL_ROWS}, 60, INSECT_SPECIES)
+    spec = BatchSpec(batch_size=BZSL_BATCH, train=False, with_language=False)
+    split = make_loader("all", spec)
+    class_labels = np.asarray([int(lab["species"].rsplit("_", 1)[1])
+                               for lab in split.label_dicts()])
+    n_layers = mc.image.vit.num_layers + mc.dna.bert.num_layers
+    reset_counts()
+    reset_peak(device)
+    with tempfile.TemporaryDirectory(prefix="clibd_bzsl_") as folder:
+        t0 = time.perf_counter()
+        dna_csv, img_csv = bzsl_extract(model, mc, make_loader, class_labels, folder,
+                                        batch_size=BZSL_BATCH)
+        sync(device)
+        t_run = time.perf_counter() - t0
+        counts = read_counts()
+        dna = np.loadtxt(dna_csv, delimiter=",", ndmin=2)
+        img = np.loadtxt(img_csv, delimiter=",", ndmin=2)
+    peak = peak_gib(device)
+    batches = n_batches(BZSL_ROWS, BZSL_BATCH)
+    others = {n: c for n, c in counts.items() if n != "flash_attention_qkv"}
+    print(f"bzsl_extract forward launches: {counts['flash_attention_qkv']} (expected "
+          f"{n_layers} x {batches} batches)")
+    if counts["flash_attention_qkv"] != n_layers * batches or any(others.values()):
+        fail(f"bzsl_extract launched {counts}, expected {n_layers * batches} forward only")
+    add_launches(entries, "bzsl_extract", counts)
+    classes = np.unique(class_labels)
+    if img.shape != (mc.output_dim, BZSL_ROWS) or dna.shape != (mc.output_dim, len(classes)) \
+            or not (np.isfinite(img).all() and np.isfinite(dna).all()):
+        fail(f"bzsl CSVs: image {img.shape}, DNA {dna.shape}, expected ({mc.output_dim}, "
+             f"{BZSL_ROWS}) and ({mc.output_dim}, {len(classes)}), finite")
+    # the DNA CSV's columns are the classes' mean embeddings in class order
+    dna_only = extract_split(model, mc, make_loader("all", BatchSpec(
+        batch_size=BZSL_BATCH, train=False, with_image=False, with_language=False)))
+    means = np.stack([dna_only["encoded_dna_feature"][class_labels == c].mean(axis=0)
+                      for c in classes])
+    err = float(np.abs(dna - means.T).max())
+    if err > 1e-6:
+        fail(f"bzsl DNA CSV columns are not the class means in class order: max |d| {err}")
+    print(f"bzsl_extract: {BZSL_ROWS} records at batch {BZSL_BATCH} in {t_run:.3f} s = "
+          f"{BZSL_ROWS / t_run:.2f} records/s (CSV writes included); image CSV {img.shape}, DNA "
+          f"CSV {dna.shape} = the means of {len(classes)} classes in order (max |d| {err:.1e}); "
+          f"peak device memory {peak:.2f} GiB  [{card}]")
+    b = next(split.batches())
+    small = to_device({m: head(b[m], 8) for m in ("image", "dna")}, device)
+    step = make_encode_step(mc, model)
+    kernel_vs_plain_cosine("bzsl_extract bf16 image and DNA embeddings (8 samples)",
+                           lambda: list(step(small).values()), rows=True)
+    del model
+
+
+def method_nn_phase(card: str, entries: dict, device) -> None:
+    """Phase 18: `engine.downstream.method_nn_eval` of the flagship over
+    synthetic splits of disjoint seen and unseen species: plain, the frozen
+    linear probe and the full probe."""
+    import torch
+
+    from clibd_tpu_torch.engine.downstream import method_nn_eval
+    from clibd_tpu_torch.engine.extract import make_encode_step, to_device
+    from clibd_tpu_torch.models import init_clibd_model
+    from clibd_tpu_torch.utils.metrics import harmonic_mean
+
+    mc = recipe_config(EXPERIMENT, 1).model_config
+    B = mc.batch_size
+    model = init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed), device)
+    half = METHOD_NN_SPECIES // 2
+    ranges = {s: (0, half) if s in ("val_seen", "test_seen", "seen_keys")
+              else (half, METHOD_NN_SPECIES) for s in METHOD_NN_ROWS}
+    factory = synthetic_factory(mc, METHOD_NN_ROWS, 70, METHOD_NN_SPECIES, ranges,
+                                cover=("seen_keys",))
+    probes = []
+
+    def make_loader(split, spec):
+        loader = factory(split, spec)
+        if spec.train:
+            probes.append(StepMarks(loader, device))
+            return probes[-1]
+        return loader
+
+    unseen_keys = "val_unseen_keys,test_unseen_keys"
+    queries = ("val_seen", "val_unseen", "test_seen", "test_unseen")
+    image_layers = mc.image.vit.num_layers
+    per_batch = image_layers + mc.dna.bert.num_layers + mc.language.bert.num_layers
+    total = {}
+    for leg, kw in (("plain", {}), ("linear", {"linear": True, "probe_steps": PROBE_STEPS}),
+                    ("probe_full", {"linear": True, "probe": "full", "probe_epochs": 1})):
+        record = {}
+        probes.clear()
+        reset_counts()
+        reset_peak(device)
+        t0 = time.perf_counter()
+        summary = method_nn_eval(model, mc, make_loader, eval_on="test",
+                                 unseen_keys_split=unseen_keys, record=record, **kw)
+        sync(device)
+        t_leg = time.perf_counter() - t0
+        peak = peak_gib(device)
+        counts = read_counts()
+        extracted = list(queries) + unseen_keys.split(",")
+        if leg != "probe_full":
+            extracted.append("seen_keys")
+        want_fwd = per_batch * sum(n_batches(METHOD_NN_ROWS[s], B) for s in extracted)
+        want_bwd = 0
+        if leg == "probe_full":
+            per_step = probes[0].per_step()
+            steps = len(probes[0])
+            print(f"method_nn probe_full launches per step (forward, backward): "
+                  f"{sorted(set(per_step))} over {len(per_step)} steps (expected "
+                  f"({image_layers}, {image_layers}) x {steps})")
+            if per_step != [(image_layers, image_layers)] * steps:
+                fail(f"method_nn probe_full steps launched {per_step}")
+            want_fwd += image_layers * (steps + sum(n_batches(METHOD_NN_ROWS[q], B)
+                                                    for q in queries))
+            want_bwd = image_layers * steps
+        others = {n: c for n, c in counts.items()
+                  if n not in ("flash_attention_qkv", "flash_attention_qkv_bwd")}
+        print(f"method_nn {leg} launches: {counts['flash_attention_qkv']} forward, "
+              f"{counts['flash_attention_qkv_bwd']} backward (expected {want_fwd}, {want_bwd}: "
+              f"{per_batch} a batch of extraction" + (f", {image_layers} a probe step and "
+                                                     f"batch of logits" if want_bwd else "")
+              + ")")
+        if (counts["flash_attention_qkv"], counts["flash_attention_qkv_bwd"]) \
+                != (want_fwd, want_bwd) or any(others.values()):
+            fail(f"method_nn {leg} launched {counts}, expected ({want_fwd}, {want_bwd})")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        hm = harmonic_mean(summary["seen_species_top1"], summary["unseen_species_top1"])
+        in_range = all(0.0 <= summary[k] <= 1.0 for k in
+                       ("best_threshold", "seen_routing_top1", "unseen_routing_top1",
+                        "seen_species_top1", "unseen_species_top1"))
+        if not (in_range and math.isfinite(hm)):
+            fail(f"method_nn {leg}: summary {summary}, harmonic mean {hm}")
+        line = (f"method_nn {leg}: {json.dumps(summary)}, harmonic mean {hm:.4f}; "
+                f"{t_leg:.2f} s")
+        if leg == "linear":
+            losses = record["frozen_probe_losses"]
+            if len(losses) != PROBE_STEPS or not losses[-1] < losses[0]:
+                fail(f"method_nn linear: the frozen probe's loss did not fall: "
+                     f"{losses[:2]} ... {losses[-2:]} ({len(losses)} steps)")
+            line += f"; frozen probe loss {losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} steps"
+        if leg == "probe_full":
+            losses = record["probe_step_losses"]
+            if not all(math.isfinite(v) for v in losses):
+                fail(f"method_nn probe_full losses {losses}")
+            line += (f"; full probe step losses {[round(v, 4) for v in losses]}, "
+                     f"{probes[0].rate():.2f} samples/s over the steps after the first at batch "
+                     f"{B} (no remat)")
+        print(f"{line}; peak device memory {peak:.2f} GiB  [{card}]")
+    add_launches(entries, "method_nn", total)
+    from clibd_tpu_torch.data.pipeline import BatchSpec
+
+    b = next(factory("test_seen", BatchSpec(batch_size=B, train=False, with_image=True,
+                                            with_dna=True, with_language=True)).batches())
+    small = to_device({m: head(b[m], 8) for m in ("image", "dna", "language")}, device)
+    step = make_encode_step(mc, model)
+    kernel_vs_plain_cosine("method_nn bf16 tri-modal embeddings (8 samples)",
+                           lambda: list(step(small).values()), rows=True)
+    del model
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def zeroshot_phase(card: str, entries: dict, device) -> None:
+    """Phase 19: `engine.downstream.zeroshot_eval` on the BioCLIP recipe's
+    CLIP towers, loaded from an open_clip state dict written here, in its
+    three modes; the class prototypes timed alone."""
+    import torch
+
+    from clibd_tpu_torch.data.pipeline import BatchSpec
+    from clibd_tpu_torch.engine.downstream import (clip_encoders, clip_towers_from_checkpoint,
+                                                   zeroshot_eval)
+    from clibd_tpu_torch.engine.zeroshot import OPENAI_IMAGENET_TEMPLATES, build_class_prototypes
+    from clibd_tpu_torch.models.clibd import clip_configs
+
+    mc = bioclip_config().model_config
+    vcfg, tcfg = clip_configs(mc)
+    if (tcfg.vocab_size, tcfg.context_length) != (49408, 77):
+        fail(f"{BIOCLIP}'s text tower is not CLIP's vocabulary of 49408 at 77 tokens")
+    with tempfile.TemporaryDirectory(prefix="clibd_zeroshot_") as tmp:
+        t0 = time.perf_counter()
+        sd = open_clip_state_dict(vcfg, tcfg, torch.Generator().manual_seed(ZEROSHOT_SEED))
+        mc.clip.checkpoint = os.path.join(tmp, "open_clip.pt")
+        torch.save(sd, mc.clip.checkpoint)
+        del sd
+        mc.clip.bpe_path = write_bpe_merges(os.path.join(tmp, "bpe_merges.txt.gz"))
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vision, text, tokenizer = clip_towers_from_checkpoint(mc, device)
+        gb = os.path.getsize(mc.clip.checkpoint) / 1e9
+    print(f"zeroshot: wrote a {gb:.3f} GB open_clip state dict in {t_write:.2f} s, loaded the "
+          f"towers onto the card in {time.perf_counter() - t0:.2f} s")
+    make_loader = synthetic_factory(mc, ZEROSHOT_ROWS, 80, ZEROSHOT_SPECIES,
+                                    cover=tuple(ZEROSHOT_ROWS))
+    n_layers = vcfg.num_layers
+    batch = ZEROSHOT_BATCH
+    total = {}
+    for mode, kw in (("level", {}), ("four_level", {"four_level": True}),
+                     ("image_to_image", {"image_to_image": True})):
+        reset_counts()
+        t0 = time.perf_counter()
+        report = zeroshot_eval(vision, text, tokenizer, make_loader, split="test_seen",
+                               keys_split="all_keys", level="species", batch_size=batch, **kw)
+        sync(device)
+        t_mode = time.perf_counter() - t0
+        counts = read_counts()
+        image_batches = n_batches(ZEROSHOT_ROWS["test_seen"], batch)
+        if mode == "image_to_image":
+            image_batches += n_batches(ZEROSHOT_ROWS["all_keys"], batch)
+        others = {n: c for n, c in counts.items() if n != "flash_attention_qkv"}
+        print(f"zeroshot {mode} forward launches: {counts['flash_attention_qkv']} (expected "
+              f"{n_layers} x {image_batches} image batches, none from the causal text tower)")
+        if counts["flash_attention_qkv"] != n_layers * image_batches or any(others.values()):
+            fail(f"zeroshot {mode} launched {counts}, expected {n_layers * image_batches} "
+                 "forward only")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        numbers = [v for acc in report.values() if isinstance(acc, dict)
+                   for per in acc.values() for v in (per.values() if isinstance(per, dict)
+                                                     else [per])]
+        if not numbers or not all(0.0 <= v <= 1.0 for v in numbers) or (
+                mode == "level" and report["num_classes"] != ZEROSHOT_SPECIES):
+            fail(f"zeroshot {mode}: report {report}")
+        print(f"zeroshot {mode}: {json.dumps(report)[:300]}; {t_mode:.2f} s  [{card}]")
+    add_launches(entries, "zeroshot", total)
+
+    encode_images, encode_text = clip_encoders(vision, text, tokenizer)
+    names = [f"species {i}" for i in range(ZEROSHOT_SPECIES)]
+    reset_counts()
+    t0 = time.perf_counter()
+    protos = build_class_prototypes(names, encode_text)
+    t_text = time.perf_counter() - t0
+    prompts = len(names) * len(OPENAI_IMAGENET_TEMPLATES)
+    norm_err = float(np.abs(np.linalg.norm(protos, axis=1) - 1).max())
+    if protos.shape != (ZEROSHOT_SPECIES, tcfg.embed_dim) or norm_err > 1e-5 \
+            or read_counts()["flash_attention_qkv"]:
+        fail(f"zeroshot prototypes {protos.shape}, max |norm - 1| {norm_err}, or the text "
+             "tower launched a kernel")
+    query = make_loader("test_seen", BatchSpec(batch_size=batch, train=False, with_dna=False,
+                                               with_language=False))
+    t0 = time.perf_counter()
+    feats = [encode_images(b["image"]) for b in query.batches()]
+    t_img = time.perf_counter() - t0
+    print(f"zeroshot prototypes: {prompts} prompts at batch 256 in {t_text:.2f} s = "
+          f"{prompts / t_text:.1f} prompts/s (host BPE included), unit-norm (max |norm - 1| "
+          f"{norm_err:.1e}); images: {ZEROSHOT_ROWS['test_seen']} at batch {batch} in "
+          f"{t_img:.3f} s = {ZEROSHOT_ROWS['test_seen'] / t_img:.1f} images/s  [{card}]")
+    if not np.isfinite(np.concatenate(feats)).all():
+        fail("zeroshot image features are not finite")
+    x = torch.from_numpy(next(query.batches())["image"][:8]).to(device)
+
+    def vision_rows():
+        from clibd_tpu_torch.models.clip import clip_normalize
+        from clibd_tpu_torch.models.clibd import dequantize_image
+
+        with torch.inference_mode():
+            return [vision(clip_normalize(dequantize_image(x)), torch.bfloat16)]
+
+    kernel_vs_plain_cosine("zeroshot bf16 CLIP image features (8 samples)", vision_rows,
+                           rows=True)
+    del vision, text
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def load_config_feature():
     """The flagship with `image.input_type: feature` over FEATURE_DIM-wide
     image features (the MLP encoder of `models/mlp.py`)."""
@@ -2929,6 +3568,10 @@ def main() -> int:
         import_phase(card, entries, cuda, SPLIT_ROWS)
         accum_train_phase(card, entries, cuda)
         simclr_phase(card, entries, cuda, SPLIT_ROWS)
+        finetune_phase(card, entries, cuda)
+        bzsl_phase(card, entries, cuda)
+        method_nn_phase(card, entries, cuda)
+        zeroshot_phase(card, entries, cuda)
     if "jax" in sys.modules or any(m == "clibd_tpu" or m.startswith("clibd_tpu.")
                                    for m in sys.modules):
         fail("jax or the JAX package was imported: the port must run without them")

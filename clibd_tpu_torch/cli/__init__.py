@@ -16,13 +16,26 @@
   verify-parity  --experiment <cfg.yaml> [--ckpt best.pth] [--hdf5 data.hdf5]
                  [--released-embeddings emb.hdf5] [--n 2000] [--tokenizer FILE]
                  ... [--device cuda] [k=v ...]
+  finetune       --experiment <INSECT cfg.yaml> [--modality image|dna] [--epochs 15]
+                 [--lr 1e-4] [--freeze-encoder] [--output-dir DIR] [--device cuda] [k=v ...]
+  bzsl-extract   --experiment <INSECT cfg.yaml> [--batch-size 200] [--device cuda] [k=v ...]
+  method-nn      --experiment <cfg.yaml> [--hdf5 data.hdf5] [--unseen-keys-split unseen_keys]
+                 [--side-b-query image|dna] [--linear [--probe frozen|full]
+                 [--probe-steps 500] [--probe-epochs 5] [--train-split seen_keys]]
+                 [--device cuda] [k=v ...]
+  zeroshot       --experiment <open_clip cfg.yaml> [--hdf5 data.hdf5] [--split test_seen]
+                 [--level species | --four-level | --image-to-image] [--keys-split all_keys]
+                 [--batch-size 64] [--device cuda] [k=v ...]
 
 the counterparts of `clibd train` (BIOSCAN or INSECT), `eval`, `simclr`,
-`extract`, `extract-single`, `serve` and `verify-parity`, the subcommands
-ported so far.  `eval`,
-`extract`, `extract-single` and `serve` take a released `best.pth` as
-`model_config.ckpt_path=<file>`.  Each runs on the card; `--device
-cpu` runs it on the CPU (the kernels' plain versions), and only when asked.
+`extract`, `extract-single`, `serve`, `verify-parity`, `finetune`,
+`bzsl-extract`, `method-nn` and `zeroshot`, the subcommands ported so far.
+`eval`, `extract`, `extract-single`, `serve`, `finetune`, `bzsl-extract`
+and `method-nn` take a released `best.pth` as `model_config.ckpt_path=<file>`;
+`zeroshot` reads an open_clip state dict (`model_config.clip.checkpoint`)
+and a BPE merges file (`model_config.clip.bpe_path`).  Each runs on the
+card; `--device cpu` runs it on the CPU (the kernels' plain versions), and
+only when asked.
 """
 
 from __future__ import annotations
@@ -30,10 +43,10 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional
 
-from .eval_cmds import cmd_eval, cmd_verify_parity
-from .extract_cmds import cmd_extract, cmd_extract_single
+from .eval_cmds import cmd_eval, cmd_method_nn, cmd_verify_parity, cmd_zeroshot
+from .extract_cmds import cmd_bzsl_extract, cmd_extract, cmd_extract_single
 from .ops_cmds import cmd_serve
-from .train_cmds import cmd_simclr, cmd_train
+from .train_cmds import cmd_finetune, cmd_simclr, cmd_train
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -138,7 +151,57 @@ def main(argv: Optional[List[str]] = None) -> int:
     p_vp.add_argument("--cos-threshold", type=float, default=0.99)
     p_vp.add_argument("--top1-threshold", type=float, default=0.005)
     p_vp.add_argument("--out", default=None, help="write the JSON report here")
+
+    p_bzsl = sub.add_parser("bzsl-extract", help="INSECT feature → BZSL CSVs (scripts/BZSL/)")
+    common(p_bzsl)
+    p_bzsl.add_argument("--batch-size", type=int, default=200)
+
+    p_ft = sub.add_parser("finetune", help="supervised fine-tune on INSECT "
+                                           "(scripts/BZSL/fine_tune_*.py)")
+    common(p_ft)
+    p_ft.add_argument("--modality", choices=["image", "dna"], default="image")
+    p_ft.add_argument("--epochs", type=int, default=15)
+    p_ft.add_argument("--lr", type=float, default=1e-4)
+    p_ft.add_argument("--freeze-encoder", action="store_true")
+    p_ft.add_argument("--output-dir", default=None)
+
+    p_mnn = sub.add_parser("method-nn", help="seen/unseen threshold fusion (scripts/method_nn.py)")
+    common(p_mnn)
+    p_mnn.add_argument("--unseen-keys-split", default="unseen_keys",
+                       help="comma-separated splits concatenated into the unseen key set (the "
+                            "reference pools val_unseen_keys,test_unseen_keys — the "
+                            "unseen_keys group is that union)")
+    p_mnn.add_argument("--side-b-query", default="image", choices=("image", "dna"),
+                       help="query modality for the unseen-DNA-key search; the reference uses "
+                            "the image query on both sides (cross-modal side B)")
+    p_mnn.add_argument("--linear", action="store_true",
+                       help="method_linear variant: side A = linear probe over image features "
+                            "(scripts/method_linear.py)")
+    p_mnn.add_argument("--probe-steps", type=int, default=500)
+    p_mnn.add_argument("--probe", default="frozen", choices=("frozen", "full"),
+                       help="frozen: linear probe on extracted features; full: fine-tune the "
+                            "whole image encoder + head (reference method_linear.py:458-490)")
+    p_mnn.add_argument("--probe-epochs", type=int, default=5,
+                       help="epochs for --probe full fine-tuning")
+    p_mnn.add_argument("--train-split", default="seen_keys",
+                       help="split whose image features train the probe (must cover every "
+                            "seen species)")
+
+    p_zs = sub.add_parser("zeroshot", help="CLIP/BioCLIP zero-shot eval (scripts/bioclip/)")
+    common(p_zs)
+    p_zs.add_argument("--split", default="test_seen")
+    p_zs.add_argument("--level", default="species")
+    p_zs.add_argument("--batch-size", type=int, default=64)
+    p_zs.add_argument("--image-to-image", action="store_true",
+                      help="retrieve against the CLIP-encoded image gallery instead of text "
+                           "prototypes (..._with_image_to_image.py)")
+    p_zs.add_argument("--four-level", action="store_true",
+                      help="class prompts are 'order family genus species' strings "
+                           "(..._with_four_level_text_input.py)")
+    p_zs.add_argument("--keys-split", default="all_keys")
     args = parser.parse_args(argv)
     return {"train": cmd_train, "eval": cmd_eval, "simclr": cmd_simclr, "extract": cmd_extract,
             "extract-single": cmd_extract_single, "serve": cmd_serve,
-            "verify-parity": cmd_verify_parity}[args.command](args, args.overrides)
+            "verify-parity": cmd_verify_parity, "finetune": cmd_finetune,
+            "bzsl-extract": cmd_bzsl_extract, "method-nn": cmd_method_nn,
+            "zeroshot": cmd_zeroshot}[args.command](args, args.overrides)

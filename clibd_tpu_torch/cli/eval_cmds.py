@@ -1,8 +1,10 @@
 """`eval`: the port of `clibd_tpu/cli/eval_cmds.py::cmd_eval` -- extract
 all_keys / {eval_on}_seen / {eval_on}_unseen, write the embedding cache, run
 the kNN grid, print the reference's table and write its reports; with
-`--unimodel`, of a SimCLR-pretrained image encoder alone; and
-`verify-parity` (`cmd_verify_parity`, `eval_cmds.py:496-526`)."""
+`--unimodel`, of a SimCLR-pretrained image encoder alone; `zeroshot`
+(`cmd_zeroshot`, `:180-298`) and `method-nn` (`cmd_method_nn`, `:299-495`),
+thin commands over `engine/downstream.py`; and `verify-parity`
+(`cmd_verify_parity`, `eval_cmds.py:496-526`)."""
 
 from __future__ import annotations
 
@@ -140,6 +142,64 @@ def cmd_eval(args, overrides) -> int:
                               f"{mc.model_output_name} — {mc.dataset} ({eval_on})", sections)
     if os.environ.get("CLIBD_EVAL_TIMING"):
         print(timing.report("clibd eval wall-time breakdown"))
+    return 0
+
+
+def _bioscan_loader_factory(cfg, hdf5: str):
+    """→ make_loader(split, spec): a `BioscanLoader` over one split of `hdf5`
+    with the config's pipeline settings."""
+    from ..data.pipeline import BioscanLoader
+
+    def make_loader(split, spec):
+        return BioscanLoader(hdf5, split, spec, num_workers=cfg.pipeline.num_workers,
+                             use_native=cfg.pipeline.use_native_decoder,
+                             seed=cfg.model_config.default_seed)
+
+    return make_loader
+
+
+def cmd_zeroshot(args, overrides) -> int:
+    """CLIP/BioCLIP zero-shot taxonomic classification with prompt ensembles
+    (reference scripts/bioclip/inference_and_eval_with_bioclip.py) on the
+    port's CLIP towers, loaded from the open_clip state dict
+    `model_config.clip.checkpoint`, in bf16 (`engine.downstream.
+    zeroshot_eval`)."""
+    from ..engine.downstream import clip_towers_from_checkpoint, zeroshot_eval
+
+    cfg = _load_cfg(args, overrides)
+    mc = cfg.model_config
+    if not mc.clip.checkpoint or not mc.clip.bpe_path:
+        raise SystemExit("zeroshot requires model_config.clip.checkpoint and .bpe_path")
+    vision, text, tokenizer = clip_towers_from_checkpoint(mc, torch.device(args.device))
+    hdf5 = args.hdf5 or _dataset_hdf5_path(cfg)
+    report = zeroshot_eval(vision, text, tokenizer, _bioscan_loader_factory(cfg, hdf5),
+                           split=args.split, keys_split=args.keys_split, level=args.level,
+                           batch_size=args.batch_size, four_level=args.four_level,
+                           image_to_image=args.image_to_image)
+    print(json.dumps(report, default=str))
+    return 0
+
+
+def cmd_method_nn(args, overrides) -> int:
+    """Seen/unseen threshold-fusion eval (reference scripts/method_nn.py;
+    with --linear, scripts/method_linear.py, and --probe full its fine-tuned
+    image classifier) through `engine.downstream.method_nn_eval`; prints the
+    summary JSON."""
+    from ..engine.downstream import method_nn_eval
+    from ..engine.evaluate import stringify
+
+    cfg = _load_cfg(args, overrides)
+    mc = cfg.model_config
+    model = _resolve_params(cfg, torch.device(args.device))
+    hdf5 = args.hdf5 or _dataset_hdf5_path(cfg)
+    settings = cfg.inference_and_eval_setting
+    summary = method_nn_eval(
+        model, mc, _bioscan_loader_factory(cfg, hdf5), eval_on=settings.eval_on,
+        k_list=list(settings.k_list), unseen_keys_split=args.unseen_keys_split,
+        side_b_query=args.side_b_query, linear=args.linear, probe=args.probe,
+        probe_steps=args.probe_steps, probe_epochs=args.probe_epochs,
+        train_split=args.train_split, progress=True)
+    print(json.dumps(stringify(summary)))
     return 0
 
 

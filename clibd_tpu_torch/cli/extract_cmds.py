@@ -1,10 +1,12 @@
-"""`extract` and `extract-single`: the port of `clibd_tpu/cli/extract_cmds.py`
-(`cmd_extract`, `cmd_extract_single`; reference scripts/save_embedding/), on
-one device, the card unless `--device cpu` is passed."""
+"""`extract`, `extract-single` and `bzsl-extract`: the port of
+`clibd_tpu/cli/extract_cmds.py` (`cmd_extract`, `cmd_extract_single`;
+reference scripts/save_embedding/; `cmd_bzsl_extract`, reference
+scripts/BZSL/), on one device, the card unless `--device cpu` is passed."""
 
 from __future__ import annotations
 
 import json
+import os
 
 import torch
 
@@ -72,4 +74,30 @@ def cmd_extract_single(args, overrides) -> int:
         print(f"Wrote {args.out}")
     else:
         print(json.dumps({k: v[:8] for k, v in result.items()}))
+    return 0
+
+
+def cmd_bzsl_extract(args, overrides) -> int:
+    """INSECT feature extraction → BZSL CSVs (scripts/BZSL/
+    extract_feature_for_insect_dataset.py): every record of INSECT through
+    the image and DNA encoders (`engine.downstream.bzsl_extract`); prints the
+    two CSV paths."""
+    import scipy.io as sio
+
+    from ..data.insect import INSECTLoader
+    from ..engine.downstream import bzsl_extract
+    from .train_cmds import insect_dataset
+
+    cfg = _load_cfg(args, overrides)
+    mc = cfg.model_config
+    model = _resolve_params(cfg, torch.device(args.device))
+    res = sio.loadmat(cfg.insect_data.path_to_res_101_mat)
+    class_labels = res["labels"].squeeze() - 1
+    folder = os.path.join(cfg.project_root_path, "extracted_embedding", "INSECT",
+                          mc.model_output_name, "trained_on_BIOSCAN_1M")
+    dna_csv, img_csv = bzsl_extract(
+        model, mc, lambda split, spec: INSECTLoader(insect_dataset(cfg, split), spec),
+        class_labels, folder, batch_size=args.batch_size, progress=True)
+    print(dna_csv)
+    print(img_csv)
     return 0

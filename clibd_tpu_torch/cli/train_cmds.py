@@ -1,33 +1,46 @@
-"""`train` and `simclr`: the ports of `clibd_tpu/cli/train_cmds.py::cmd_train`
-(`:14-112`), contrastive training (reference train_cl.py) on BIOSCAN or
-INSECT, and `cmd_simclr` (`:115-132`), SimCLR pretraining of the image
-encoder (reference scripts/unimodel/), on one device."""
+"""`train`, `simclr` and `finetune`: the ports of `clibd_tpu/cli/train_cmds.py::
+cmd_train` (`:14-112`), contrastive training (reference train_cl.py) on
+BIOSCAN or INSECT, `cmd_simclr` (`:115-132`), SimCLR pretraining of the
+image encoder (reference scripts/unimodel/), and `cmd_finetune`
+(`:135-189`), supervised species classification on INSECT (reference
+scripts/BZSL/fine_tune_*.py), on one device."""
 
 from __future__ import annotations
 
 import json
 import os
 
-from .common import _dataset_hdf5_path, _load_cfg
+import torch
+
+from .common import _dataset_hdf5_path, _load_cfg, _resolve_params
 
 
-def _insect_loader_factory(cfg):
+def insect_dataset(cfg, split: str):
+    """The `INSECTDataset` of one split of the INSECT files the config names."""
+    from ..data.insect import INSECTDataset
+
+    return INSECTDataset(cfg.insect_data.path_to_att_splits_mat,
+                         cfg.insect_data.path_to_res_101_mat,
+                         cfg.insect_data.path_to_image_hdf5,
+                         cfg.insect_data.species_to_other, split=split)
+
+
+def _insect_loader_factory(cfg, modality: str = None):
     """→ make_loader(split, train): an `INSECTLoader` over one split of the
     INSECT files the config names, at the config's batch size (one device's
-    share: the whole batch)."""
-    from ..data.insect import INSECTDataset, INSECTLoader
+    share: the whole batch), with the modalities the config enables, or only
+    `modality`."""
+    from ..data.insect import INSECTLoader
     from ..data.pipeline import BatchSpec
 
     mc = cfg.model_config
+    with_image = mc.image.enable if modality is None else modality == "image"
+    with_dna = mc.dna.enable if modality is None else modality == "dna"
 
     def make_loader(split, train):
-        ds = INSECTDataset(cfg.insect_data.path_to_att_splits_mat,
-                           cfg.insect_data.path_to_res_101_mat,
-                           cfg.insect_data.path_to_image_hdf5,
-                           cfg.insect_data.species_to_other, split=split)
-        spec = BatchSpec(batch_size=mc.batch_size, train=train, with_image=mc.image.enable,
-                         with_dna=mc.dna.enable, with_language=False)
-        return INSECTLoader(ds, spec, seed=mc.default_seed)
+        spec = BatchSpec(batch_size=mc.batch_size, train=train, with_image=with_image,
+                         with_dna=with_dna, with_language=False)
+        return INSECTLoader(insect_dataset(cfg, split), spec, seed=mc.default_seed)
 
     return make_loader
 
@@ -99,4 +112,45 @@ def cmd_simclr(args, overrides) -> int:
     hist = trainer.fit(progress=True)
     trainer.close()
     print(json.dumps({"final_loss": hist["loss"][-1] if hist["loss"] else None}))
+    return 0
+
+
+def cmd_finetune(args, overrides) -> int:
+    """Supervised species-classification fine-tune of one encoder on INSECT
+    (reference scripts/BZSL/fine_tune_*.py + epoch/fine_tuning_epoch.py):
+    train on trainval_loc, top-k accuracy on test_seen_loc; --output-dir
+    writes the params with the head under classifier/, in the layout the
+    JAX package's `load_train_state` reads."""
+    import numpy as np
+
+    from ..engine.checkpoint import save_train_state
+    from ..engine.finetune import fit_classifier, species_to_index, topk_accuracy
+
+    cfg = _load_cfg(args, overrides)
+    mc = cfg.model_config
+    model = _resolve_params(cfg, torch.device(args.device))
+    make_loader = _insect_loader_factory(cfg, args.modality)
+    train_loader = make_loader("trainval_loc", True)
+    eval_loader = make_loader("test_seen_loc", False)
+
+    unique_species = sorted({l["species"] for l in train_loader.label_dicts()})
+    train_targets = species_to_index(train_loader.label_dicts(), unique_species)
+    eval_targets = species_to_index(eval_loader.label_dicts(), unique_species)
+
+    ft_model, predict, _losses = fit_classifier(
+        model, mc, train_loader, train_targets, len(unique_species), lr=args.lr,
+        epochs=args.epochs, modality=args.modality, train_encoder=not args.freeze_encoder,
+        seed=mc.default_seed, verbose=True)
+
+    logits, targets = [], []
+    for batch in eval_loader.batches(shuffle=False):
+        logits.append(predict(batch[args.modality]).cpu().numpy())
+        targets.append(eval_targets[batch["index"]])
+    acc = topk_accuracy(np.concatenate(logits), np.concatenate(targets))
+    print(json.dumps({"top_k_acc": {str(k): v for k, v in acc.items()},
+                      "num_species": len(unique_species)}))
+    if args.output_dir:
+        save_train_state(args.output_dir, ft_model)
+    train_loader.close()
+    eval_loader.close()
     return 0

@@ -32,6 +32,17 @@ a specimen is its species' prototype with pixel noise of up to
 `FEATURE_NOISE` standard deviations), and the species' own text, as
 specimens of one species resemble each other in BIOSCAN.
 
+`species_range=(lo, hi)` draws a split's specimens from species lo..hi-1
+of the k only (splits of disjoint ranges have disjoint species, as the seen
+and unseen splits of BIOSCAN have), and `cover_species=True` gives each
+species of the range one of the first rows, so that every one of them has a
+label in the split.  For `backbone: open_clip` a species' text is CLIP-style
+ids, as above.
+
+`batch_size` overrides the config's batch size, and `modalities` names the
+inputs a batch carries (a loader's `with_image` / `with_dna` /
+`with_language`).
+
 `two_view=True` gives each batch the second view that
 `BatchSpec(two_view=True)` adds for SimCLR, "image2": the same rows' images
 with fresh pixel noise of up to ±`IMAGE_NOISE` (the loader's two crops of
@@ -41,7 +52,7 @@ one decode), for `engine.simclr.TwoViewLoader(loader=...)`.
 from __future__ import annotations
 
 from types import SimpleNamespace
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -59,7 +70,8 @@ class _Specimens:
     """Per-species prototypes (`species` of them) and specimens drawn
     around them."""
 
-    def __init__(self, species: int, mc, size: int, text_len: int, vocab: int):
+    def __init__(self, species: int, mc, size: int, text_len: int, vocab: int,
+                 clip: bool = False):
         rng = np.random.default_rng(PROTOTYPE_SEED)
         self.images = rng.integers(0, 256, (species, size, size, 3), dtype=np.uint8)
         self.barcodes = [_BASES[rng.integers(0, 4, int(rng.integers(400, 660)))]
@@ -67,6 +79,10 @@ class _Specimens:
         lengths = rng.integers(3, text_len + 1, species)
         self.text_att = (np.arange(text_len)[None, :] < lengths[:, None]).astype(np.int32)
         self.text_ids = rng.integers(1, vocab, (species, text_len)).astype(np.int32) * self.text_att
+        if clip:  # SOT, ids below SOT, EOT = the row's largest id
+            self.text_ids = np.minimum(self.text_ids, vocab - 3) * self.text_att
+            self.text_ids[:, 0] = vocab - 2
+            self.text_ids[np.arange(species), lengths - 1] = vocab - 1
         self.image_features = rng.standard_normal((species, mc.image.input_dim), np.float32)
         self.dna_features = rng.standard_normal((species, mc.dna.input_dim), np.float32)
 
@@ -77,7 +93,8 @@ class _Specimens:
         return b.tobytes()
 
     def image(self, rng, s: np.ndarray) -> np.ndarray:
-        noise = rng.integers(-IMAGE_NOISE, IMAGE_NOISE + 1, (len(s),) + self.images.shape[1:])
+        noise = rng.integers(-IMAGE_NOISE, IMAGE_NOISE + 1, (len(s),) + self.images.shape[1:],
+                             dtype=np.int16)
         return np.clip(self.images[s].astype(np.int16) + noise, 0, 255).astype(np.uint8)
 
     def features(self, rng, protos: np.ndarray, s: np.ndarray) -> np.ndarray:
@@ -87,9 +104,11 @@ class _Specimens:
 
 class SyntheticSplit:
     def __init__(self, name: str, n: int, mc, seed: int, species: Optional[int] = None,
-                 two_view: bool = False):
+                 two_view: bool = False, species_range: Optional[Tuple[int, int]] = None,
+                 cover_species: bool = False, batch_size: Optional[int] = None,
+                 modalities: Sequence[str] = ("image", "dna", "language")):
         rng = np.random.default_rng(seed)
-        batch_size = mc.batch_size
+        batch_size = batch_size or mc.batch_size
         self.spec = SimpleNamespace(batch_size=batch_size)
         self.name = name
         clip = mc.backbone == "open_clip"
@@ -98,10 +117,14 @@ class SyntheticSplit:
         vocab = mc.clip.vocab_size if clip else mc.language.bert.vocab_size
         specimens = None
         if species:
-            if clip:
-                raise ValueError("species= is not drawn for backbone: open_clip")
-            specimens = _Specimens(species, mc, size, text_len, vocab)
-            row_species = rng.integers(0, species, n)
+            specimens = _Specimens(species, mc, size, text_len, vocab, clip)
+            lo, hi = species_range or (0, species)
+            if not 0 <= lo < hi <= species or (cover_species and n < hi - lo):
+                raise ValueError(f"species_range {species_range} of {species} species, "
+                                 f"{n} rows, cover_species={cover_species}")
+            row_species = rng.integers(lo, hi, n)
+            if cover_species:
+                row_species[:hi - lo] = np.arange(lo, hi)
             barcodes = [specimens.barcode(rng, s) for s in row_species]
         else:
             barcodes = [_BASES[rng.integers(0, 4, int(rng.integers(400, 660)))].tobytes()
@@ -122,8 +145,9 @@ class SyntheticSplit:
             if specimens:
                 s = row_species[lo:hi]
                 att, ids = specimens.text_att[s], specimens.text_ids[s]
-                language = {"input_ids": ids, "token_type_ids": np.zeros_like(ids),
-                            "attention_mask": att}
+                language = ({"input_ids": ids} if clip else
+                            {"input_ids": ids, "token_type_ids": np.zeros_like(ids),
+                             "attention_mask": att})
                 self._batches.append({
                     "index": np.arange(lo, hi),
                     "label": np.arange(lo, hi, dtype=np.int64),
@@ -165,6 +189,9 @@ class SyntheticSplit:
                 image = batch["image"]
                 noise = rng.integers(-IMAGE_NOISE, IMAGE_NOISE + 1, image.shape, dtype=np.int16)
                 batch["image2"] = np.clip(image + noise, 0, 255).astype(np.uint8)
+        for batch in self._batches:
+            for m in {"image", "dna", "language"} - set(modalities):
+                del batch[m]
         labels = row_species if specimens else rng.integers(0, 40, n)
         self._labels = [{"order": f"order_{s % 3}", "family": f"family_{s % 7}",
                          "genus": f"genus_{s % 13}", "species": f"species_{s}"} for s in labels]

@@ -60,6 +60,8 @@ def test_the_walk_catches_a_forbidden_import(tmp_path, monkeypatch):
 def _entry_points():
     from clibd_tpu_torch.engine.checkpoint import load_model_any
     from clibd_tpu_torch.engine.evaluate import inference_and_eval
+    from clibd_tpu_torch.engine.fusion import (fit_frozen_probe, fit_linear_probe, method_linear,
+                                               method_nn, train_linear_probe)
     from clibd_tpu_torch.engine.verify_parity import verify_parity
     from clibd_tpu_torch.engine.serve import InferenceService, KeySet
     from clibd_tpu_torch.engine.train import Trainer
@@ -75,21 +77,26 @@ def _entry_points():
             "StepTimer": StepTimer.__init__, "PhaseTimer": PhaseTimer.__init__,
             "InferenceService": InferenceService.__init__, "KeySet": KeySet.__init__,
             "KeySet.from_arrays": KeySet.from_arrays, "load_model_any": load_model_any,
-            "verify_parity": verify_parity}
+            "verify_parity": verify_parity, "method_nn": method_nn,
+            "method_linear": method_linear, "fit_frozen_probe": fit_frozen_probe,
+            "train_linear_probe": train_linear_probe, "fit_linear_probe": fit_linear_probe}
 
 
 @pytest.mark.parametrize("name", ["init_clibd_model", "model_from_jax",
                                   "inference_and_eval", "prepare_keys", "Trainer", "knn_search",
                                   "find_k_closest_records", "make_prediction", "StepTimer",
                                   "PhaseTimer", "InferenceService", "KeySet",
-                                  "KeySet.from_arrays", "load_model_any", "verify_parity"])
+                                  "KeySet.from_arrays", "load_model_any", "verify_parity",
+                                  "method_nn", "method_linear", "fit_frozen_probe",
+                                  "train_linear_probe", "fit_linear_probe"])
 def test_entry_point_defaults_to_cuda(name):
     fn = _entry_points()[name]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 @pytest.mark.parametrize("command", ["train", "eval", "extract", "extract-single", "serve",
-                                     "verify-parity"])
+                                     "verify-parity", "finetune", "bzsl-extract", "method-nn",
+                                     "zeroshot"])
 def test_cli_defaults_to_cuda_with_no_fallback(command):
     proc = subprocess.run([sys.executable, "-m", "clibd_tpu_torch.cli", command, "--help"],
                           cwd=REPO, capture_output=True, text=True, timeout=120)
