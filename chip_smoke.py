@@ -294,11 +294,49 @@ Phases, each of which raises on failure:
    (unit-norm; prompts/s), the images timed alone (images/s), and on 8
    images the features against the plain versions.
 
+20. multi_gpu: the data-parallel paths (`parallel/mesh.py`), the flagship at
+   full width in bf16.  The card machine has one card and NCCL refuses two
+   ranks on one device, so the phase starts ranks of this script
+   (`--multi-gpu-rank`, torchrun's environment, every rank on card 0, each
+   group under a 600 s deadline; a rank that fails, hangs or exits
+   non-zero fails the phase) after the kernels are built:
+   - leg 1, one NCCL rank: 3 `Trainer` steps of batch 500 through the
+     multi-rank step (`step_impl: shard_map`) against the single-card
+     `Trainer` on the same batches and generators (folded with rank 0):
+     losses and params within 1e-6 relative (bit-identity printed); (28,
+     28) launches a step;
+   - two gloo ranks on the one card, 250 rows a rank (global 500): leg 2,
+     one multi-rank gradient step (augmentation the identity) against the
+     single-card batch-500 step on the same rows (loss within 1e-2 x
+     |loss|, every gradient at cosine >= 0.99), its time, the gradient
+     all-reduce's time, each rank's peak memory; then `Trainer.fit` for one
+     epoch (2 steps) and its eval over host-sharded `SyntheticSplit`s, (28,
+     28) launches a step on each rank, both ranks' losses and eval equal,
+     checkpoints written by rank 0 alone; leg 3, `extract_split_multihost`
+     of an all_keys split of 1,101 rows against `extract_split`, row
+     cosine >= 0.999 in the same order, labels and ids identical; leg 4,
+     `resume_multihost` with rank 1 holding a stale last/ of another seed:
+     both ranks hold rank 0's params.npz, opt_state.npz and step bit for
+     bit; leg 5, one data-parallel SimCLR step of the unimodel recipe at
+     210 images a rank against two single-card losses (one per rank's rows
+     and views): the loss their mean within 1e-2, the gradients their sum
+     at cosine >= 0.99, (12, 12) launches on each rank; and whether gloo's
+     all_gather takes CUDA tensors (the helpers stage gloo's tensors
+     through the host either way);
+   - leg 6, in this process: `KeySet` over [cuda:0, cuda:0] on a 21,118 x
+     768 gallery, fp32 top-16 indices identical to the unsharded KeySet's,
+     int8 + re-rank within 1e-5 of it; then the service `serve
+     --shard-keys` builds (`InferenceService(keys_mesh=...)` behind
+     `make_server`) answers one image + barcode /search with the planted
+     rows first.
+   The ranks' launches go into the kernels line under the path
+   "multi_gpu".
+
 The INSECT HDF5 loader itself (`data/insect.py`) is held only on the CPU
 (tests/test_torch_insect.py): the card machine has no h5py, so phases 16-17
 feed the engines INSECT-shaped synthetic splits.
 
-Phases 3-5 and 12-19 run with both opt-in kernels off, as the flagship
+Phases 3-5 and 12-20 run with both opt-in kernels off, as the flagship
 recipe does.
 The last three lines are the kernel summary JSON, the card line, and
 `{"ok": true, "device": {...}}`.
@@ -314,6 +352,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -412,6 +451,16 @@ ZEROSHOT_SPECIES = 400      # 32,000 prompts of the 80-template ensemble
 ZEROSHOT_ROWS = {"test_seen": 1000, "all_keys": 1100}
 ZEROSHOT_BATCH = 64         # cli zeroshot's default
 ZEROSHOT_SEED = 19
+MULTI_GPU_TRAIN_ROWS = 1000   # leg 2's Trainer at W=2: two steps of 250 a rank (global 500)
+MULTI_GPU_EVAL_ROWS = {"all_keys": 1101, "val_seen": 250, "val_unseen": 250}  # 1101: odd
+MULTI_GPU_NCCL_STEPS = 3
+MULTI_GPU_NCCL_REL_TOL = 1e-6  # NCCL W=1 against the single-card trainer, relative
+MULTI_GPU_EXTRACT_COSINE = 0.999
+MULTI_GPU_SIMCLR_BATCH = 210   # images a rank: phase 15's 420 over two ranks
+MULTI_GPU_TIMEOUT = 600        # seconds a group of ranks may take
+DP_LOSS_REL_TOL = ACCUM_LOSS_REL_TOL  # a data-parallel loss against one card's, as phase 14
+
+
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores, published
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores, published
@@ -3496,6 +3545,662 @@ def zeroshot_phase(card: str, entries: dict, device) -> None:
         torch.cuda.empty_cache()
 
 
+def _rank_env(rank: int, world: int, port: int) -> dict:
+    """torchrun's environment for one rank; every rank on card 0."""
+    repo = str(Path(__file__).resolve().parent)
+    return dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+
+def run_rank_group(world: int, payload: dict, work: str) -> list:
+    """Start `world` ranks of this script (`--multi-gpu-rank`) on the
+    payload, relay their output, and → each rank's results.  A rank that
+    exits non-zero or outlives MULTI_GPU_TIMEOUT fails the phase; every rank
+    is stopped on the way out."""
+    import subprocess
+
+    import torch
+
+    from clibd_tpu_torch.parallel import free_port
+
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "payload.pt")
+    torch.save(payload, path)
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--multi-gpu-rank",
+                               path, work], env=_rank_env(r, world, port),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    logs = [None] * world
+    deadline = time.monotonic() + MULTI_GPU_TIMEOUT
+    try:
+        for r, p in enumerate(procs):
+            logs[r], _ = p.communicate(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        fail(f"multi_gpu: a rank of {payload['legs']} ran past {MULTI_GPU_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        for line in (log or "").splitlines():
+            if "hostname of the client socket" not in line:
+                print(f"[rank {r}/{world}] {line}")
+        if p.returncode != 0:
+            fail(f"multi_gpu: rank {r} of {world} ({payload['legs']}) exited {p.returncode}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _grad_cosines(grads: dict, ref: dict) -> tuple:
+    """(the smallest cosine over tensors, its name, the number of tensors)."""
+    cos = {n: float((g.float() * ref[n].float()).sum() / (g.float().norm() * ref[n].float().norm()))
+           for n, g in grads.items()}
+    worst = min(cos, key=cos.get)
+    return cos[worst], worst, len(cos)
+
+
+def _params_host(model) -> dict:
+    return {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+
+
+def _nccl_leg(payload: dict, mesh, device) -> dict:
+    """Leg 1: the Trainer's multi-rank step in a group of one NCCL rank
+    against the single-card Trainer over the same batches and generators."""
+    import torch
+    import torch.distributed as dist
+
+    from clibd_tpu_torch.data import SyntheticSplit
+    from clibd_tpu_torch.engine.train import Trainer, fold_in
+    from clibd_tpu_torch.models import init_clibd_model
+    from clibd_tpu_torch.parallel import create_mesh
+
+    gcfg = payload["gcfg"]
+    mc = gcfg.model_config
+    steps = MULTI_GPU_NCCL_STEPS
+    split = SyntheticSplit("train", steps * mc.batch_size, mc, seed=50, drop_last=True)
+    runs = {}
+    for name in ("single card", "multi-rank"):
+        mc.step_impl = "shard_map" if name == "multi-rank" else "global"
+        logs, per_step = [], []
+        model = init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed), device)
+        with tempfile.TemporaryDirectory(prefix="clibd_nccl_") as out_dir:
+            trainer = Trainer(gcfg, None, out_dir, train_loader=split, model=model,
+                              log_fn=logs.append, device=device,
+                              mesh=mesh if name == "multi-rank" else create_mesh([device]))
+            if name == "single card":
+                plain = trainer.step_fn
+                # the generators the multi-rank step draws: folded with rank 0
+                trainer.step_fn = lambda batch, gen: plain(batch, fold_in(gen, 0))
+            elif "make_train_step_shard_map" not in trainer.step_fn.__qualname__:
+                fail(f"multi_gpu: the Trainer did not take the multi-rank step")
+            trainer.step_fn = counted(trainer.step_fn, per_step)
+            reset_counts()
+            sync(device)
+            t0 = time.perf_counter()
+            trainer.train_epoch(0)
+            sync(device)
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+            trainer.close()
+        runs[name] = {"losses": [d["loss"] for d in logs if "loss" in d],
+                      "params": _params_host(model), "per_step": per_step, "counts": counts,
+                      "seconds": seconds,
+                      "rates": [d["throughput/samples_per_sec_per_chip"] for d in logs
+                                if "throughput/samples_per_sec_per_chip" in d]}
+        del trainer, model
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    a, b = runs["single card"], runs["multi-rank"]
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(b["losses"], a["losses"]))
+    param_err = max(float((b["params"][n] - p).abs().max() / p.abs().max().clamp_min(1e-30))
+                    for n, p in a["params"].items())
+    identical = b["losses"] == a["losses"] and all(torch.equal(b["params"][n], p)
+                                                   for n, p in a["params"].items())
+    return {"backend": dist.get_backend(mesh.group), "losses": b["losses"],
+            "single_losses": a["losses"], "loss_rel_err": loss_err, "param_rel_err": param_err,
+            "bit_identical": identical, "per_step": b["per_step"], "counts": b["counts"],
+            "seconds": b["seconds"], "single_seconds": a["seconds"], "steps": steps,
+            "batch": mc.batch_size, "rates": b["rates"], "single_rates": a["rates"]}
+
+
+def _dp_step_leg(payload: dict, mesh, device) -> dict:
+    """Leg 2, the compared step: the multi-rank gradients of the global batch
+    (identity augmentation) against the single-card step on the same rows,
+    computed on rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from clibd_tpu_torch.data import SyntheticSplit
+    from clibd_tpu_torch.engine import train as train_mod
+    from clibd_tpu_torch.engine.extract import to_device
+    from clibd_tpu_torch.models import init_clibd_model
+    from clibd_tpu_torch.parallel import all_reduce_grads
+
+    mc = payload["gcfg"].model_config
+    b = mc.batch_size
+
+    def shard(g):
+        batch = next(SyntheticSplit("train", b * mesh.size, mc, seed=51, batch_size=b,
+                                    host_id=g, num_hosts=mesh.size, drop_last=True).batches())
+        return {k: v for k, v in batch.items() if k != "index"}
+
+    model = init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed), device)
+    trainable = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    real_augment = train_mod.train_augment
+    train_mod.train_augment = lambda generator, images: images
+    out = {}
+    try:
+        if mesh.rank == 0:
+            whole = [shard(g) for g in range(mesh.size)]
+            glob = {k: (np.concatenate([w[k] for w in whole]) if not isinstance(whole[0][k], dict)
+                        else {kk: np.concatenate([w[k][kk] for w in whole]) for kk in whole[0][k]})
+                    for k in whole[0]}
+            loss = train_mod.make_loss_fn(mc, model)(to_device(glob, device), None)
+            loss.backward()
+            ref = {n: p.grad.float().cpu() for n, p in trainable}
+            ref_loss = float(loss.detach())
+            model.zero_grad(set_to_none=True)
+            del loss, glob, whole
+        dist.barrier()
+        local = to_device(shard(mesh.rank), device)
+        grad_fn = train_mod.make_sharded_grad_fn(mc, model, mesh)
+        grad_fn(local, None)  # warm-up
+        model.zero_grad(set_to_none=True)
+        sync(device)
+        reset_peak(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = float(grad_fn(local, None))
+        sync(device)
+        out["step_ms"] = (time.perf_counter() - t0) * 1e3
+        out["peak_gib"] = peak_gib(device)
+        counts = read_counts()
+        out["per_step"] = (counts["flash_attention_qkv"], counts["flash_attention_qkv_bwd"])
+        out["loss"] = loss
+        grads = {n: p.grad.float().cpu() for n, p in trainable}
+        # the collective alone: the same all-reduce over gradients of these sizes
+        dummy = [SimpleNamespace(grad=torch.zeros_like(p)) for _, p in trainable]
+        sync(device)
+        dist.barrier()
+        t0 = time.perf_counter()
+        all_reduce_grads(dummy, "mean", mesh.group)
+        sync(device)
+        out["all_reduce_ms"] = (time.perf_counter() - t0) * 1e3
+        # the same reduce with the buffer copied to the host and back by hand
+        buf = torch.cat([d.grad.reshape(-1) for d in dummy])
+        dist.barrier()
+        t0 = time.perf_counter()
+        host = buf.cpu()
+        dist.all_reduce(host, group=mesh.group)
+        buf.copy_(host)
+        sync(device)
+        out["all_reduce_host_ms"] = (time.perf_counter() - t0) * 1e3
+        del dummy, buf, host
+        out["grad_bytes"] = sum(p.numel() * 4 for _, p in trainable)
+        if mesh.rank == 0:
+            cos, worst, n = _grad_cosines(grads, ref)
+            out.update(ref_loss=ref_loss, min_cosine=cos, worst=worst, tensors=n)
+            if abs(loss - ref_loss) > DP_LOSS_REL_TOL * abs(ref_loss) or cos < COSINE_MIN:
+                fail(f"multi_gpu W={mesh.size}: loss {loss} against {ref_loss}, min gradient "
+                     f"cosine {cos} at {worst}")
+    finally:
+        train_mod.train_augment = real_augment
+    del model
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dp_trainer_leg(payload: dict, mesh, device, work: str) -> dict:
+    """Leg 2, the main path: the Trainer at W ranks over host-sharded
+    synthetic splits (each rank its own output directory), one epoch and
+    its eval; then leg 3 (extraction row for row) and leg 4 (the resume)."""
+    import torch
+
+    from clibd_tpu_torch.data import SyntheticSplit
+    from clibd_tpu_torch.engine.checkpoint import opt_state_to_optax, save_train_state
+    from clibd_tpu_torch.engine.extract import extract_split, extract_split_multihost
+    from clibd_tpu_torch.engine.train import Trainer
+    from clibd_tpu_torch.models import init_clibd_model
+
+    gcfg = payload["gcfg"]
+    mc = gcfg.model_config
+    mc.checkpoint_every_steps = 1
+    rows = payload["eval_rows"]
+    n_layers = mc.image.vit.num_layers + mc.dna.bert.num_layers + mc.language.bert.num_layers
+
+    def factory(split, train, host_id=0, num_hosts=1):
+        return SyntheticSplit(split, rows[split], mc, seed=60 + sorted(rows).index(split),
+                              host_id=host_id, num_hosts=num_hosts)
+
+    train_split = SyntheticSplit("train", payload["train_rows"], mc, seed=59,
+                                 host_id=mesh.rank, num_hosts=mesh.size, drop_last=True)
+    own = os.path.join(work, f"out{mesh.rank}")
+    logs, per_step = [], []
+    model = init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed), device)
+    trainer = Trainer(gcfg, None, own, train_loader=train_split, eval_loader_factory=factory,
+                      model=model, log_fn=logs.append, device=device, mesh=mesh)
+    trainer.step_fn = counted(trainer.step_fn, per_step)
+    reset_counts()
+    reset_peak(device)
+    sync(device)
+    t0 = time.perf_counter()
+    history = trainer.fit()
+    sync(device)
+    out = {"fit_seconds": time.perf_counter() - t0, "fit_peak_gib": peak_gib(device),
+           "counts": read_counts(), "per_step": per_step, "losses": history["loss"],
+           "overall_acc": history["overall_acc"], "world_size": trainer.world_size,
+           "rates": [d["throughput/samples_per_sec_per_chip"] for d in logs
+                     if "throughput/samples_per_sec_per_chip" in d]}
+    trainer.close()
+    out["written"] = sorted(os.path.relpath(os.path.join(d, f), own)
+                            for d, _, fs in os.walk(own) for f in fs) if os.path.exists(own) else []
+    want = (n_layers, n_layers)
+    if not per_step or set(per_step) != {want}:
+        fail(f"multi_gpu rank {mesh.rank}: steps launched {per_step}, expected {want} each")
+    if not all(math.isfinite(v) for v in history["loss"]) or len(history["overall_acc"]) != 1:
+        fail(f"multi_gpu rank {mesh.rank}: losses {history['loss']}, evals "
+             f"{history['overall_acc']}")
+
+    # leg 3: the sharded extraction of an odd split, row for row
+    reset_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    got = extract_split_multihost(model, mc, None, "all_keys", None, for_key_set=True,
+                                  make_loader=lambda g, w: factory("all_keys", False, g, w),
+                                  mesh=mesh)
+    sync(device)
+    out["extract_seconds"] = time.perf_counter() - t0
+    out["extract_counts"] = read_counts()
+    if mesh.rank == 0:
+        want_d = extract_split(model, mc, factory("all_keys", False), for_key_set=True)
+        cos = min(float(cosine_rows(torch.from_numpy(got[k]), torch.from_numpy(want_d[k])).min())
+                  for k in ("encoded_image_feature", "encoded_dna_feature",
+                            "encoded_language_feature"))
+        same = (got["label_list"] == want_d["label_list"]
+                and got["file_name_list"] == want_d["file_name_list"])
+        out.update(extract_min_cosine=cos, extract_same_labels=same,
+                   extract_rows=int(got["encoded_image_feature"].shape[0]))
+        if cos < MULTI_GPU_EXTRACT_COSINE or not same:
+            fail(f"multi_gpu extract_split_multihost: min row cosine {cos}, labels and ids "
+                 f"identical {same}")
+
+    # leg 4: rank 1 holds a stale last/ of another seed at the same path
+    del trainer, model
+    if mesh.rank != 0:
+        stale = init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed + 1), device)
+        save_train_state(os.path.join(own, "last"), stale, None, step=99, epoch=5)
+        del stale
+    fresh_model = init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed + 2),
+                                   device)
+    fresh = Trainer(gcfg, None, os.path.join(work, f"fresh{mesh.rank}"), train_loader=train_split,
+                    model=fresh_model, device=device, mesh=mesh)
+    t0 = time.perf_counter()
+    epoch = fresh.resume_multihost(os.path.join(own, "last"))
+    out["resume_seconds"] = time.perf_counter() - t0
+    main_last = os.path.join(work, "out0", "last")
+    with np.load(os.path.join(main_last, "params.npz")) as f:
+        params_same = all(np.array_equal(p.detach().cpu().numpy(), f[n.replace(".", "/")])
+                          for n, p in fresh_model.named_parameters())
+    with np.load(os.path.join(main_last, "opt_state.npz")) as f:
+        flat = opt_state_to_optax(fresh_model, fresh.optimizer)
+        opt_same = set(flat) == set(f.files) and all(np.array_equal(v, f[k])
+                                                      for k, v in flat.items())
+    with open(os.path.join(main_last, "meta.json")) as f:
+        meta = json.load(f)
+    out.update(resume_epoch=epoch, resume_step=fresh.global_step, resume_params_same=params_same,
+               resume_opt_same=opt_same, saved_step=meta["step"])
+    if not (params_same and opt_same and fresh.global_step == meta["step"]):
+        fail(f"multi_gpu rank {mesh.rank}: resume_multihost does not hold rank 0's checkpoint "
+             f"(params {params_same}, optimizer state {opt_same}, step {fresh.global_step} "
+             f"against {meta['step']})")
+    fresh.close()
+    del fresh, fresh_model
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dp_simclr_leg(payload: dict, mesh, device) -> dict:
+    """Leg 5: one data-parallel SimCLR step against two single-card steps,
+    one on each rank's rows with its views, computed on rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from clibd_tpu_torch.data import SyntheticSplit
+    from clibd_tpu_torch.engine.extract import to_device
+    from clibd_tpu_torch.engine.simclr import make_simclr_grad_fn, make_simclr_loss_fn
+    from clibd_tpu_torch.engine.train import batch_generator, fold_in
+    from clibd_tpu_torch.models.vit import ViT
+
+    mc = payload["simclr_gcfg"].model_config
+    b = payload["simclr_batch"]
+
+    def views(g):
+        batch = next(SyntheticSplit("train", b * mesh.size, mc, seed=70, batch_size=b,
+                                    two_view=True, modalities=("image",), host_id=g,
+                                    num_hosts=mesh.size).batches())
+        return to_device({"v1": batch["image"], "v2": batch["image2"]}, device)
+
+    model = ViT(mc.image.vit, output_dim=mc.output_dim, lora_rank=0)
+    model.reset_parameters(torch.Generator().manual_seed(mc.default_seed))
+    model = model.to(device)
+    gen = batch_generator(device, mc.default_seed, 0, 0)
+    out = {}
+    if mesh.rank == 0:
+        loss_fn = make_simclr_loss_fn(mc, model)
+        singles = []
+        for g in range(mesh.size):
+            v = views(g)
+            loss = loss_fn(v["v1"], v["v2"], fold_in(gen, g))
+            loss.backward()  # the gradients add up over the ranks' rows
+            singles.append(float(loss.detach()))
+            del loss, v
+        ref = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        out["single_losses"] = singles
+    dist.barrier()
+    v = views(mesh.rank)
+    grad_fn = make_simclr_grad_fn(mc, model, mesh=mesh)
+    sync(device)
+    reset_peak(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    loss = float(grad_fn(v["v1"], v["v2"], gen))
+    sync(device)
+    out.update(step_ms=(time.perf_counter() - t0) * 1e3, peak_gib=peak_gib(device), loss=loss,
+               counts=read_counts(), batch=b)
+    if mesh.rank == 0:
+        grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+        cos, worst, n = _grad_cosines(grads, ref)
+        mean = sum(out["single_losses"]) / len(out["single_losses"])
+        out.update(min_cosine=cos, worst=worst, tensors=n)
+        if abs(loss - mean) > DP_LOSS_REL_TOL * abs(mean) or cos < COSINE_MIN:
+            fail(f"multi_gpu SimCLR W={mesh.size}: loss {loss} against the mean {mean} of "
+                 f"{out['single_losses']}, min gradient cosine {cos} at {worst}")
+    del model, v
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gloo_cuda_probe(mesh, device) -> str:
+    """Whether gloo's all_gather and all_reduce take CUDA tensors and give
+    the right values (the helpers hand gloo CUDA tensors as they are; legs
+    2-5 have run through them before this)."""
+    import torch
+    import torch.distributed as dist
+
+    if device.type != "cuda":
+        return "not asked (CPU run)"
+    x = torch.full((4,), float(mesh.rank), device=device)
+    parts = [torch.empty_like(x) for _ in range(mesh.size)]
+    dist.all_gather(parts, x, group=mesh.group)
+    dist.all_reduce(x, group=mesh.group)
+    ok = all(torch.equal(p, torch.full((4,), float(r), device=device))
+             for r, p in enumerate(parts))
+    ok &= torch.equal(x, torch.full((4,), float(sum(range(mesh.size))), device=device))
+    return "yes" if ok else "no: wrong values"
+
+
+def multi_gpu_rank_main(payload_path: str, work: str) -> int:
+    """One rank of phase 20 (`python3 chip_smoke.py --multi-gpu-rank
+    PAYLOAD WORK`, started by `run_rank_group` with torchrun's
+    environment): joins the group, runs the payload's legs, writes
+    WORK/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from clibd_tpu_torch.models.layers import kernel_knobs
+    from clibd_tpu_torch.parallel import create_mesh, maybe_initialize_distributed
+
+    payload = torch.load(payload_path, weights_only=False)
+    device = torch.device(payload["device"])
+    maybe_initialize_distributed(device, backend=payload["backend"])
+    try:
+        mesh = create_mesh(device=device)
+        device = mesh.device
+        out = {"rank": mesh.rank, "backend": dist.get_backend(mesh.group)}
+        with kernel_knobs(False, "xla"):
+            for leg in payload["legs"]:
+                t0 = time.perf_counter()
+                if leg == "nccl":
+                    out[leg] = _nccl_leg(payload, mesh, device)
+                elif leg == "dp_step":
+                    out[leg] = _dp_step_leg(payload, mesh, device)
+                elif leg == "dp_trainer":
+                    out[leg] = _dp_trainer_leg(payload, mesh, device, work)
+                elif leg == "dp_simclr":
+                    out[leg] = _dp_simclr_leg(payload, mesh, device)
+                out[leg]["leg_seconds"] = time.perf_counter() - t0
+        if mesh.size > 1:
+            out["gloo_takes_cuda"] = _gloo_cuda_probe(mesh, device)
+        with open(os.path.join(work, f"rank{mesh.rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def multi_gpu_phase(card: str, entries: dict, device) -> None:
+    """Phase 20: one NCCL rank through the torchrun environment, two gloo
+    ranks on the one card (train step, Trainer with its eval, extraction,
+    resume, SimCLR), then the key-sharded gallery over the card named twice
+    and `serve --shard-keys`'s service."""
+    import gc
+
+    import torch
+
+    gcfg = recipe_config(EXPERIMENT, 1)
+    sgcfg = simclr_config()
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        print(f"multi_gpu: the parent holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB of "
+              f"the card before starting ranks")
+    n_layers = (gcfg.model_config.image.vit.num_layers + gcfg.model_config.dna.bert.num_layers
+                + gcfg.model_config.language.bert.num_layers)
+    B = gcfg.model_config.batch_size
+    with tempfile.TemporaryDirectory(prefix="clibd_multi_gpu_") as work:
+        t0 = time.perf_counter()
+        nccl = run_rank_group(1, {"legs": ["nccl"], "device": device.type,
+                                  "backend": "nccl" if device.type == "cuda" else "gloo",
+                                  "gcfg": gcfg}, os.path.join(work, "nccl"))[0]
+        t_nccl = time.perf_counter() - t0
+        r = nccl["nccl"]
+        print(f"multi_gpu leg 1, {r['backend']} W=1 through the torchrun environment: "
+              f"{r['steps']} Trainer steps of batch {r['batch']} through the multi-rank step, "
+              f"losses {[round(v, 6) for v in r['losses']]} against the single-card Trainer's "
+              f"{[round(v, 6) for v in r['single_losses']]}: losses within "
+              f"{r['loss_rel_err']:.3e}, params within {r['param_rel_err']:.3e} relative (tol "
+              f"{MULTI_GPU_NCCL_REL_TOL}), bit-identical: {r['bit_identical']}; launches per "
+              f"step {sorted(set(map(tuple, r['per_step'])))} (expected ({n_layers}, "
+              f"{n_layers})); samples/s over the steps after the first {r['rates']} against "
+              f"{r['single_rates']} (the single card's run came first, in the same process); "
+              f"the leg's process {t_nccl:.1f} s  [{card}]")
+        if device.type == "cuda" and r["backend"] != "nccl":
+            fail(f"multi_gpu leg 1 ran on {r['backend']}, not nccl")
+        if (r["loss_rel_err"] > MULTI_GPU_NCCL_REL_TOL or r["param_rel_err"] > MULTI_GPU_NCCL_REL_TOL
+                or {tuple(s) for s in r["per_step"]} != {(n_layers, n_layers)}):
+            fail("multi_gpu leg 1: the NCCL multi-rank Trainer differs from the single-card one")
+        launches = dict(r["counts"])
+
+        t0 = time.perf_counter()
+        ranks = run_rank_group(2, {"legs": ["dp_step", "dp_trainer", "dp_simclr"],
+                                   "device": device.type, "backend": "gloo", "gcfg": _per_rank(
+                                       gcfg, 2), "simclr_gcfg": sgcfg,
+                                   "simclr_batch": MULTI_GPU_SIMCLR_BATCH
+                                   if device.type == "cuda" else sgcfg.model_config.batch_size,
+                                   "train_rows": MULTI_GPU_TRAIN_ROWS,
+                                   "eval_rows": MULTI_GPU_EVAL_ROWS},
+                               os.path.join(work, "gloo"))
+        t_gloo = time.perf_counter() - t0
+    _report_gloo(card, ranks, n_layers, B, t_gloo)
+    for o in ranks:
+        for leg, key in (("dp_trainer", "counts"), ("dp_trainer", "extract_counts"),
+                         ("dp_simclr", "counts")):
+            for name, n in o[leg][key].items():
+                launches[name] = launches.get(name, 0) + n
+    add_launches(entries, "multi_gpu", launches)
+    sharded_gallery_leg(card, device)
+
+
+def _per_rank(gcfg, world: int):
+    """The recipe with its batch split over `world` ranks (batch_size is
+    per rank)."""
+    import copy
+
+    gcfg = copy.deepcopy(gcfg)
+    mc = gcfg.model_config
+    if mc.batch_size % world:
+        fail(f"batch {mc.batch_size} does not divide over {world} ranks")
+    mc.batch_size //= world
+    return gcfg
+
+
+def _report_gloo(card: str, ranks: list, n_layers: int, B: int, seconds: float) -> None:
+    main, other = ranks[0], ranks[1]
+    s = main["dp_step"]
+    print(f"multi_gpu leg 2, gloo W=2 on one card, batch {B // 2} a rank (global {B}), "
+          f"identity augmentation: loss {s['loss']:.6f} against the single-card batch-{B} "
+          f"step's {s['ref_loss']:.6f} (|d| {abs(s['loss'] - s['ref_loss']):.3e}, tol "
+          f"{DP_LOSS_REL_TOL} x |loss|); gradient min cosine {s['min_cosine']:.6f} at "
+          f"{s['worst']} over {s['tensors']} tensors (need >= {COSINE_MIN})")
+    for r, o in enumerate(ranks):
+        d = o["dp_step"]
+        print(f"multi_gpu leg 2 rank {r}: one multi-rank gradient step {d['step_ms']:.1f} ms "
+              f"(both ranks on one card), of which the gradient all-reduce "
+              f"({d['grad_bytes'] / 1e9:.3f} GB fp32, CUDA tensors to gloo) "
+              f"{d['all_reduce_ms']:.1f} ms (copied to the host and back by hand: "
+              f"{d['all_reduce_host_ms']:.1f} ms); launches {tuple(d['per_step'])}; peak device "
+              f"memory {d['peak_gib']:.2f} GiB  [{card}]")
+        if tuple(d["per_step"]) != (n_layers, n_layers):
+            fail(f"multi_gpu leg 2 rank {r}: the step launched {d['per_step']}")
+    t0, t1 = main["dp_trainer"], other["dp_trainer"]
+    print(f"multi_gpu leg 2, Trainer at W={t0['world_size']}: losses {t0['losses']} (rank 1 "
+          f"{t1['losses']}), eval {t0['overall_acc']}; launches per step "
+          f"{sorted(set(map(tuple, t0['per_step'])))} / {sorted(set(map(tuple, t1['per_step'])))};"
+          f" samples/s (global) over the steps after the first {t0['rates']}; fit with its eval "
+          f"{t0['fit_seconds']:.2f} s, peak {t0['fit_peak_gib']:.2f} / {t1['fit_peak_gib']:.2f} "
+          f"GiB; rank 0 wrote {t0['written']}, rank 1 wrote {t1['written']}  [{card}]")
+    if t0["losses"] != t1["losses"] or t0["overall_acc"] != t1["overall_acc"]:
+        fail("multi_gpu leg 2: the ranks disagree on the losses or the eval")
+    if t1["written"] or not {"last/params.npz", "best/params.npz"} <= set(t0["written"]):
+        fail("multi_gpu leg 2: checkpoints were not written by rank 0 alone")
+    print(f"multi_gpu leg 3, extract_split_multihost of {t0['extract_rows']} rows over 2 ranks: "
+          f"min row cosine {t0['extract_min_cosine']:.6f} against extract_split (need >= "
+          f"{MULTI_GPU_EXTRACT_COSINE}), labels and ids identical: {t0['extract_same_labels']}; "
+          f"{t0['extract_seconds']:.2f} s  [{card}]")
+    print(f"multi_gpu leg 4, resume_multihost: rank 0 at step {t0['resume_step']} (epoch "
+          f"{t0['resume_epoch']}), rank 1 at step {t1['resume_step']} over its own stale last/ "
+          f"of step 99: both hold rank 0's params.npz and opt_state.npz bit for bit "
+          f"({t0['resume_params_same'] and t1['resume_params_same']}, "
+          f"{t0['resume_opt_same'] and t1['resume_opt_same']}); {t1['resume_seconds']:.2f} s")
+    m = main["dp_simclr"]
+    print(f"multi_gpu leg 5, SimCLR W=2 x {m['batch']} images: loss {m['loss']:.6f} against the "
+          f"mean of the single-card losses {[round(v, 6) for v in m['single_losses']]} (tol "
+          f"{DP_LOSS_REL_TOL} x |loss|); gradients against their sum, min cosine "
+          f"{m['min_cosine']:.6f} at {m['worst']} over {m['tensors']} tensors; step "
+          f"{m['step_ms']:.1f} / {other['dp_simclr']['step_ms']:.1f} ms, peak "
+          f"{m['peak_gib']:.2f} / {other['dp_simclr']['peak_gib']:.2f} GiB; launches "
+          f"{m['counts']['flash_attention_qkv']} / {m['counts']['flash_attention_qkv_bwd']}"
+          f"  [{card}]")
+    for o in ranks:
+        c = o["dp_simclr"]["counts"]
+        if (c["flash_attention_qkv"], c["flash_attention_qkv_bwd"]) != (12, 12):
+            fail(f"multi_gpu leg 5 rank {o['rank']}: launches {c}, expected (12, 12)")
+    print(f"multi_gpu: gloo's all_gather and all_reduce take CUDA tensors: "
+          f"{main['gloo_takes_cuda']}; the two ranks' process {seconds:.1f} s")
+    if main["gloo_takes_cuda"] not in ("yes", "not asked (CPU run)"):
+        fail("multi_gpu: gloo does not take the CUDA tensors the helpers hand it")
+
+
+def sharded_gallery_leg(card: str, device) -> None:
+    """Leg 6: KeySet over the card named twice on phase 12's gallery size,
+    fp32 and int8 + re-rank against the unsharded KeySet, then the service
+    `serve --shard-keys` builds answering an image + barcode /search."""
+    import base64
+    import threading
+    import urllib.request
+
+    import torch
+
+    from clibd_tpu_torch.engine.serve import InferenceService, KeySet, make_server
+    from clibd_tpu_torch.models import init_clibd_model
+    from clibd_tpu_torch.ops.knn import ShardedKeys
+
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    mesh = [device, device]
+    key = "encoded_image_feature"
+    labels = serve_labels(GALLERY_ROWS)
+    rng = np.random.default_rng(21119)
+    feats = unit_rows(rng, GALLERY_ROWS, 768)
+    queries = feats[rng.integers(0, GALLERY_ROWS, 32)] + 0.02 * rng.standard_normal(
+        (32, 768)).astype(np.float32)
+    t0 = time.perf_counter()
+    for dtype, tol in (("float32", 0.0), ("int8", RERANK_SCORE_TOL)):
+        whole = KeySet.from_arrays({key: feats}, labels, max_k=GALLERY_K, dtype=dtype,
+                                   device=device)
+        sharded = KeySet.from_arrays({key: feats}, labels, max_k=GALLERY_K, dtype=dtype,
+                                     device=device, mesh=mesh)
+        if not isinstance(sharded.features[key], ShardedKeys):
+            fail("multi_gpu leg 6: the KeySet over two devices is not sharded")
+        got_s, got_i = sharded.search(queries, key, GALLERY_K)
+        want_s, want_i = whole.search(queries, key, GALLERY_K)
+        err = float(np.abs(got_s - want_s).max())
+        print(f"multi_gpu leg 6, KeySet {dtype}{' + re-rank' if dtype == 'int8' else ''} over "
+              f"{[str(d) for d in mesh]}, {GALLERY_ROWS} x 768, 32 queries, top-{GALLERY_K}: "
+              f"indices identical {np.array_equal(got_i, want_i)}, scores {err:.2e} apart")
+        if (dtype == "float32" and not np.array_equal(got_i, want_i)) or err > max(tol, 1e-6):
+            fail(f"multi_gpu leg 6: the sharded {dtype} gallery differs from the unsharded one")
+        del whole, sharded
+    mc = recipe_config(EXPERIMENT, 1).model_config
+    model = init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed), device)
+    svc = InferenceService(model, mc, keys_mesh=mesh, device=device, buckets=(1,), max_batch=1,
+                           window_ms=1.0, image_size=mc.image.vit.image_size,
+                           resize_to=round(mc.image.vit.image_size * 256 / 224))
+    jpeg = serve_images(np.random.default_rng(5), 1)[0]
+    barcode = "".join(np.random.default_rng(6).choice(list("ACGT"), 600))
+    emb = svc.embed(image_bytes=jpeg, dna=barcode)
+    planted = {"encoded_image_feature": feats.copy(), "encoded_dna_feature": feats[::-1].copy()}
+    planted["encoded_image_feature"][7] = emb["image"]
+    planted["encoded_dna_feature"][311] = emb["dna"]
+    svc.keys = KeySet.from_arrays(planted, labels, max_k=GALLERY_K, device=device, mesh=mesh)
+    server = make_server(svc, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/search", method="POST",
+            data=json.dumps({"image_b64": base64.b64encode(jpeg).decode(), "dna": barcode,
+                             "k": 5}).encode())
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            answer = json.loads(resp.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+    top = (answer["image"]["predictions"][0]["species"], answer["dna"]["predictions"][0]["species"])
+    want_top = (labels["species"][7], labels["species"][311])
+    print(f"multi_gpu leg 6, the service with keys_mesh {[str(d) for d in mesh]} (serve "
+          f"--shard-keys): one image + barcode /search answered, top-1 {top} (planted "
+          f"{want_top}), scores {answer['image']['scores'][0]:.6f}, "
+          f"{answer['dna']['scores'][0]:.6f}; the leg {time.perf_counter() - t0:.1f} s  [{card}]")
+    if top != want_top:
+        fail("multi_gpu leg 6: the sharded service did not find the planted rows")
+    del model, svc
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def load_config_feature():
     """The flagship with `image.input_type: feature` over FEATURE_DIM-wide
     image features (the MLP encoder of `models/mlp.py`)."""
@@ -3572,6 +4277,7 @@ def main() -> int:
         bzsl_phase(card, entries, cuda)
         method_nn_phase(card, entries, cuda)
         zeroshot_phase(card, entries, cuda)
+        multi_gpu_phase(card, entries, cuda)
     if "jax" in sys.modules or any(m == "clibd_tpu" or m.startswith("clibd_tpu.")
                                    for m in sys.modules):
         fail("jax or the JAX package was imported: the port must run without them")
@@ -3585,4 +4291,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multi-gpu-rank"]:
+        sys.exit(multi_gpu_rank_main(*sys.argv[2:4]))
     sys.exit(main())

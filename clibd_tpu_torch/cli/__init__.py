@@ -36,6 +36,11 @@ and `method-nn` take a released `best.pth` as `model_config.ckpt_path=<file>`;
 and a BPE merges file (`model_config.clip.bpe_path`).  Each runs on the
 card; `--device cpu` runs it on the CPU (the kernels' plain versions), and
 only when asked.
+
+Under torchrun (`torchrun --nproc_per_node=N -m clibd_tpu_torch.cli
+train|simclr|eval|extract ...`) each process is one rank on one card (NCCL;
+gloo with `--device cpu`): the group starts before the device is first
+used, and is destroyed when the command returns.
 """
 
 from __future__ import annotations
@@ -111,7 +116,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p_serve.add_argument("--no-warm", action="store_true",
                          help="skip running every (modality, bucket) forward at startup")
     p_serve.add_argument("--shard-keys", action="store_true",
-                         help="shard the gallery over the local cards (not ported yet)")
+                         help="shard the gallery's rows over the local devices of --device's "
+                              "type")
     p_serve.add_argument("--keys-dtype", default="float32", choices=("float32", "int8"),
                          help="int8: 4x smaller gallery on the card (approximate scores)")
     p_serve.add_argument("--keys-rerank", type=int, default=4,
@@ -200,6 +206,21 @@ def main(argv: Optional[List[str]] = None) -> int:
                            "(..._with_four_level_text_input.py)")
     p_zs.add_argument("--keys-split", default="all_keys")
     args = parser.parse_args(argv)
+    # the rendezvous comes before any use of the device (the reference's
+    # ddp_setup, train_cl.py:44-48); a no-op outside torchrun
+    from ..parallel.mesh import maybe_initialize_distributed
+
+    distributed = maybe_initialize_distributed(args.device)
+    try:
+        return _dispatch(args)
+    finally:
+        if distributed:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _dispatch(args) -> int:
     return {"train": cmd_train, "eval": cmd_eval, "simclr": cmd_simclr, "extract": cmd_extract,
             "extract-single": cmd_extract_single, "serve": cmd_serve,
             "verify-parity": cmd_verify_parity, "finetune": cmd_finetune,

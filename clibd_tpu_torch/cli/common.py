@@ -1,5 +1,6 @@
-"""Shared CLI plumbing: the single-process port of `clibd_tpu/cli/common.py`
-(dataset path, checkpoint resolution chain, extraction of one split)."""
+"""Shared CLI plumbing: the port of `clibd_tpu/cli/common.py` (dataset path,
+checkpoint resolution chain, extraction of one split), one process or one
+rank of a group under torchrun."""
 
 from __future__ import annotations
 
@@ -43,7 +44,22 @@ def _resolve_params(cfg: GlobalConfig, device: torch.device):
     `device`: npz params as the JAX package writes them or a reference torch
     checkpoint (a released `best.pth`), else a fresh init from a generator
     seeded with `default_seed`.  The Hugging Face download of the JAX
-    package's chain needs the network and is left out."""
+    package's chain needs the network and is left out.
+
+    Under a process group every rank resolves the chain on its own disk,
+    then takes rank 0's weights (`clibd_tpu/cli/common.py:30-46`): a chain
+    that resolves differently on another rank's disk would otherwise have
+    the ranks' shards of a split encoded by different weights."""
+    from ..parallel.mesh import broadcast_from_main, num_hosts
+
+    model = _resolve_params_local(cfg, device)
+    if num_hosts() > 1:
+        state = broadcast_from_main(model.state_dict())
+        model.load_state_dict(state)
+    return model
+
+
+def _resolve_params_local(cfg: GlobalConfig, device: torch.device):
     from ..models.clibd import init_clibd_model
 
     mc = cfg.model_config
@@ -64,9 +80,18 @@ def _resolve_params(cfg: GlobalConfig, device: torch.device):
 
 
 def _extract_split_auto(model, mc, cfg, hdf5, split, spec, for_key=False, progress=False):
-    """One split through the plain loader (single process)."""
+    """One split through the plain loader; under a group of W > 1 ranks each
+    rank encodes its share and every rank gets the whole split's dict
+    (`extract_split_multihost`)."""
     from ..data.pipeline import BioscanLoader
-    from ..engine.extract import extract_split
+    from ..engine.extract import extract_split, extract_split_multihost
+    from ..parallel.mesh import create_mesh, num_hosts
+
+    if num_hosts() > 1:
+        return extract_split_multihost(
+            model, mc, hdf5, split, spec, for_key_set=for_key,
+            num_workers=cfg.pipeline.num_workers, use_native=cfg.pipeline.use_native_decoder,
+            progress=progress, mesh=create_mesh(device=next(model.parameters()).device))
 
     loader = BioscanLoader(hdf5, split, spec, num_workers=cfg.pipeline.num_workers,
                            use_native=cfg.pipeline.use_native_decoder)

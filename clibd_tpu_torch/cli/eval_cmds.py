@@ -44,6 +44,8 @@ def cmd_eval(args, overrides) -> int:
     from ..engine.extract import load_extracted_features, save_extracted_features, save_labels_and_ids
     from ..utils.profiling import PhaseTimer
 
+    from ..parallel.mesh import all_hosts_agree, is_main_process
+
     cfg = _load_cfg(args, overrides)
     if getattr(args, "unimodel", None):
         unimodel_config(cfg, args.unimodel)
@@ -61,11 +63,17 @@ def cmd_eval(args, overrides) -> int:
     folder = os.path.join(cfg.project_root_path, "extracted_embedding", mc.dataset,
                           mc.model_output_name)
     os.makedirs(folder, exist_ok=True)
+    # under torchrun every rank extracts its share and holds the whole
+    # split's dicts, but only rank 0 writes files
+    main = is_main_process()
     feat_path = os.path.join(folder, f"extracted_feature_from_{eval_on}_split.hdf5")
     labels_path = os.path.join(folder, f"labels_{eval_on}.json")
     ids_path = os.path.join(folder, f"processed_id_{eval_on}.json")
 
-    if cfg.load_inference and all(os.path.exists(p) for p in (feat_path, labels_path, ids_path)):
+    # the ranks agree on the branch (the extraction below has collectives):
+    # only rank 0 writes the cache, so each rank's own disk may not have it
+    if all_hosts_agree(cfg.load_inference and
+                       all(os.path.exists(p) for p in (feat_path, labels_path, ids_path))):
         print("Loading embeddings from file...")
         with timing.phase("load cached embeddings (I/O)"):
             seen_dict, unseen_dict, keys_dict = load_extracted_features(feat_path, labels_path,
@@ -82,7 +90,7 @@ def cmd_eval(args, overrides) -> int:
             keys_dict = run("all_keys", for_key=True)
             seen_dict = run(f"{eval_on}_seen")
             unseen_dict = run(f"{eval_on}_unseen")
-        if cfg.save_inference:
+        if cfg.save_inference and main:
             with timing.phase("write embedding cache (I/O)"):
                 save_extracted_features(feat_path, seen_dict, unseen_dict, keys_dict)
                 save_labels_and_ids(labels_path, ids_path, seen_dict, unseen_dict, keys_dict)
@@ -91,10 +99,10 @@ def cmd_eval(args, overrides) -> int:
     with timing.phase("kNN grid + micro/macro metrics"):
         acc_dict, per_class_acc, pred_dict = inference_and_eval(
             keys_dict, seen_dict, unseen_dict, k_list=k_list,
-            query_chunk=settings.knn_query_chunk, with_preds=bool(cfg.save_inference),
+            query_chunk=settings.knn_query_chunk, with_preds=bool(cfg.save_inference and main),
             device=device)
 
-    if settings.plot_embeddings:
+    if settings.plot_embeddings and main:
         from ..analysis.plots import generate_embedding_plot
 
         with timing.phase("embedding plots"):
@@ -125,7 +133,7 @@ def cmd_eval(args, overrides) -> int:
     print("For copy to google doc")
     for row in copy_rows:
         print(row)
-    if cfg.save_inference:
+    if cfg.save_inference and main:
         with timing.phase("CSV/JSON + HTML report (I/O)"):
             save_results("logs", acc_dict, csv_rows, raw_rows, config_snapshot=to_dict(cfg))
             for name, payload in (

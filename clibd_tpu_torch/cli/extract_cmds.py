@@ -1,7 +1,9 @@
 """`extract`, `extract-single` and `bzsl-extract`: the port of
 `clibd_tpu/cli/extract_cmds.py` (`cmd_extract`, `cmd_extract_single`;
 reference scripts/save_embedding/; `cmd_bzsl_extract`, reference
-scripts/BZSL/), on one device, the card unless `--device cpu` is passed."""
+scripts/BZSL/), on one device, the card unless `--device cpu` is passed.
+Under torchrun `extract` shards the split over the ranks and rank 0 writes
+the file."""
 
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ def cmd_extract(args, overrides) -> int:
     killed run bit-identically (`engine.extract.stream_extract_split`)."""
     from ..data.pipeline import BatchSpec, BioscanLoader
     from ..engine.extract import save_embedding_export, stream_extract_split
+    from ..parallel.mesh import is_main_process, num_hosts
 
     cfg = _load_cfg(args, overrides)
     mc = cfg.model_config
@@ -26,6 +29,9 @@ def cmd_extract(args, overrides) -> int:
     hdf5 = args.hdf5 or _dataset_hdf5_path(cfg)
     spec = BatchSpec.eval_spec(mc)
     if args.stream:
+        if num_hosts() > 1:
+            raise SystemExit("extract --stream appends one process's batches: run it as one "
+                             "process, not under torchrun")
         loader = BioscanLoader(hdf5, args.split, spec, num_workers=cfg.pipeline.num_workers,
                                use_native=cfg.pipeline.use_native_decoder)
         try:
@@ -36,8 +42,9 @@ def cmd_extract(args, overrides) -> int:
         print(f"Streamed {written} embeddings for split {args.split!r} to {args.out}")
         return 0
     out = _extract_split_auto(model, mc, cfg, hdf5, args.split, spec, progress=True)
-    save_embedding_export(args.out, out)
-    print(f"Saved embeddings for split {args.split!r} to {args.out}")
+    if is_main_process():
+        save_embedding_export(args.out, out)
+        print(f"Saved embeddings for split {args.split!r} to {args.out}")
     return 0
 
 

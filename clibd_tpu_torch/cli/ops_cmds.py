@@ -1,6 +1,7 @@
 """`serve`: the port of `clibd_tpu/cli/ops_cmds.py::cmd_serve` (`:14-71`), the
 resident HTTP inference server, on one device (the card unless `--device
-cpu` is passed).  `doctor`, `configs` and `bench` are not ported yet."""
+cpu` is passed); `--shard-keys` splits the gallery over every local device
+of that type.  `doctor`, `configs` and `bench` are not ported yet."""
 
 from __future__ import annotations
 
@@ -16,16 +17,17 @@ def cmd_serve(args, overrides) -> int:
     """Resident inference server (`engine/serve.py`): loads the checkpoint
     once, runs every bucketed forward once (`pre_warm`), then serves /embed
     and /search over HTTP with micro-batched forwards.  `--shard-keys`
-    raises (ROADMAP.md Queue 1 item 6); the JAX package's `--compile-cache`
-    (its XLA compilation cache) has no counterpart and is not a flag here."""
+    shards the gallery's rows over the local devices of `--device`'s type
+    (`parallel.local_mesh`: every card, or the CPU).  The JAX package's
+    `--compile-cache` (its XLA compilation cache) has no counterpart and is
+    not a flag here."""
     from ..engine import serve
+    from ..parallel.mesh import local_mesh
 
-    if args.shard_keys:
-        raise NotImplementedError("serve --shard-keys: a key-sharded gallery is not ported to "
-                                  "clibd_tpu_torch yet (ROADMAP.md Queue 1 item 6: multi-GPU)")
     cfg = _load_cfg(args, overrides)
     mc = cfg.model_config
     device = torch.device(args.device)
+    keys_mesh = local_mesh(device.type) if args.shard_keys else None
     model = _resolve_params(cfg, device)
     # the image geometry of the checkpoint's image tower
     image_size = mc.clip.image_size if mc.backbone == "open_clip" else mc.image.vit.image_size
@@ -34,7 +36,7 @@ def cmd_serve(args, overrides) -> int:
         buckets=tuple(b for b in (1, 2, 4, 8, 16, 32) if b <= args.max_batch),
         window_ms=args.window_ms, max_batch=args.max_batch,
         image_size=image_size, resize_to=round(image_size * 256 / 224),
-        keys_dtype=args.keys_dtype, keys_rerank=args.keys_rerank,
+        keys_mesh=keys_mesh, keys_dtype=args.keys_dtype, keys_rerank=args.keys_rerank,
         keys_selector=args.keys_selector, language_vocab=args.language_vocab,
         text_max_len=mc.language.max_len, max_queue=args.max_queue, device=device)
     if not args.no_warm:

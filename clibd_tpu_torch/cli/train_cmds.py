@@ -3,7 +3,10 @@ cmd_train` (`:14-112`), contrastive training (reference train_cl.py) on
 BIOSCAN or INSECT, `cmd_simclr` (`:115-132`), SimCLR pretraining of the
 image encoder (reference scripts/unimodel/), and `cmd_finetune`
 (`:135-189`), supervised species classification on INSECT (reference
-scripts/BZSL/fine_tune_*.py), on one device."""
+scripts/BZSL/fine_tune_*.py).  `train` on BIOSCAN and `simclr` also run one
+rank a card under torchrun (`torchrun --nproc_per_node=N -m
+clibd_tpu_torch.cli train ...`): `batch_size` is per rank, only rank 0
+writes, and `--resume` takes rank 0's checkpoint to every rank."""
 
 from __future__ import annotations
 
@@ -48,6 +51,7 @@ def _insect_loader_factory(cfg, modality: str = None):
 def cmd_train(args, overrides) -> int:
     from ..config import save_config
     from ..engine.train import Trainer
+    from ..parallel.mesh import is_main_process, num_hosts
     from ..utils.seed import set_seed
 
     cfg = _load_cfg(args, overrides)
@@ -73,6 +77,9 @@ def cmd_train(args, overrides) -> int:
     train_loader = eval_loader_factory = None
     if mc.dataset == "INSECT":
         # contrastive fine-tune on INSECT (reference train_cl.py:166-169)
+        if num_hosts() > 1:
+            raise SystemExit("the INSECT contrastive fine-tune runs as one process: its "
+                             "loaders do not shard over ranks")
         eval_loader_factory = _insect_loader_factory(cfg)
         train_loader = eval_loader_factory("trainval_loc", True)
         eval_splits = {"keys": "trainval_loc", "seen": "test_seen_loc",
@@ -81,12 +88,15 @@ def cmd_train(args, overrides) -> int:
     trainer = Trainer(cfg, hdf5, output_dir=out_dir, train_split=train_split,
                       eval_splits=eval_splits, log_fn=log_fn, train_loader=train_loader,
                       eval_loader_factory=eval_loader_factory, device=args.device)
-    save_config(cfg, os.path.join(out_dir, "config.yaml"))
+    if is_main_process():
+        save_config(cfg, os.path.join(out_dir, "config.yaml"))
     start_epoch = 0
     if args.resume:
         resume_dir = args.resume if args.resume is not True else os.path.join(out_dir, "last")
-        if os.path.exists(os.path.join(resume_dir, "params.npz")):
-            start_epoch = trainer.resume(str(resume_dir))
+        # rank 0's checkpoint, whatever the other ranks' disks hold
+        resumed = trainer.resume_multihost(str(resume_dir))
+        if resumed is not None:
+            start_epoch = resumed
             print(f"Resumed from {resume_dir} at epoch {start_epoch}")
     history = trainer.fit(progress=True, start_epoch=start_epoch)
     trainer.close()

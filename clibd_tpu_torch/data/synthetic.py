@@ -47,6 +47,15 @@ inputs a batch carries (a loader's `with_image` / `with_dna` /
 `BatchSpec(two_view=True)` adds for SimCLR, "image2": the same rows' images
 with fresh pixel noise of up to ±`IMAGE_NOISE` (the loader's two crops of
 one decode), for `engine.simclr.TwoViewLoader(loader=...)`.
+
+`host_id=g, num_hosts=W` keep rank g's share of the split the same
+arguments make unsharded, as `BioscanLoader` shards one: the rows that
+`data.pipeline.shard_indices(n, 0, g, W, batch_size, shuffle=False,
+drop_last=drop_last)` names, in batches of `batch_size`.  With
+drop_last=False (the default, an eval loader's) the shards are the strided
+rows g::W wrap-padded to equal counts; drop_last=True (a train loader's)
+cuts each to whole batches.  `label_dicts()` and `ids()` stay the whole
+split's, as `BioscanLoader`'s do.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from .pipeline import shard_indices
 from .tokenizers import tokenize_dna_batch, tokenize_dna_batch_overlapping
 
 
@@ -102,11 +112,22 @@ class _Specimens:
                                                                np.float32)
 
 
+def _concat(batches: list) -> dict:
+    first = batches[0]
+    return {k: _concat([b[k] for b in batches]) if isinstance(first[k], dict)
+            else np.concatenate([b[k] for b in batches]) for k in first}
+
+
+def _take(tree: dict, rows: np.ndarray) -> dict:
+    return {k: _take(v, rows) if isinstance(v, dict) else v[rows] for k, v in tree.items()}
+
+
 class SyntheticSplit:
     def __init__(self, name: str, n: int, mc, seed: int, species: Optional[int] = None,
                  two_view: bool = False, species_range: Optional[Tuple[int, int]] = None,
                  cover_species: bool = False, batch_size: Optional[int] = None,
-                 modalities: Sequence[str] = ("image", "dna", "language")):
+                 modalities: Sequence[str] = ("image", "dna", "language"),
+                 host_id: int = 0, num_hosts: int = 1, drop_last: bool = False):
         rng = np.random.default_rng(seed)
         batch_size = batch_size or mc.batch_size
         self.spec = SimpleNamespace(batch_size=batch_size)
@@ -192,6 +213,12 @@ class SyntheticSplit:
         for batch in self._batches:
             for m in {"image", "dna", "language"} - set(modalities):
                 del batch[m]
+        if num_hosts > 1 or drop_last:
+            rows = shard_indices(n, 0, host_id, num_hosts, batch_size, shuffle=False,
+                                 drop_last=drop_last)
+            whole = _concat(self._batches)
+            self._batches = [_take(whole, rows[lo:lo + batch_size])
+                             for lo in range(0, len(rows), batch_size)]
         labels = row_species if specimens else rng.integers(0, 40, n)
         self._labels = [{"order": f"order_{s % 3}", "family": f"family_{s % 7}",
                          "genus": f"genus_{s % 13}", "species": f"species_{s}"} for s in labels]

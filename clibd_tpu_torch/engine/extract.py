@@ -1,5 +1,4 @@
-"""Feature extraction: the port of `clibd_tpu/engine/extract.py` (single
-device).
+"""Feature extraction: the port of `clibd_tpu/engine/extract.py`.
 
 `extract_split` runs the tri-encoder over a split loader in eager PyTorch
 under `torch.inference_mode()` and assembles the reference's split dict
@@ -22,8 +21,9 @@ drain, and resumes a killed run from its consistent prefix.  The ragged last
 batch needs no padding here (eager PyTorch has no compiled batch shape).
 h5py is imported where a file is opened.
 
-Not ported yet: host-sharded multi-process extraction
-(`extract_split_multihost`, ROADMAP.md Queue 1 item 6).
+`extract_split_multihost` shards a split over the ranks of a process group:
+each rank encodes the strided rows g::W on its own card, and the
+embeddings are gathered so that every rank holds the whole split's dict.
 """
 
 from __future__ import annotations
@@ -130,6 +130,60 @@ def extract_split(model: CLIBD, cfg: ExperimentConfig, loader, for_key_set: bool
 
     enc = {k: (np.concatenate(v, axis=0) if v else None) for k, v in feats.items()}
     return finalize_split_dict(enc, loader.label_dicts(), loader.ids(), for_key_set,
+                               strict_all_keys=getattr(cfg, "parity_strict", False))
+
+
+def extract_split_multihost(model: CLIBD, cfg: ExperimentConfig, path: Optional[str],
+                            split: str, spec, for_key_set: bool = False, num_workers: int = 2,
+                            use_native: bool = False, progress: bool = False,
+                            make_loader=None, mesh=None) -> Dict:
+    """`extract_split` with the split sharded over the ranks
+    (`clibd_tpu/engine/extract.py:194-258`): rank g encodes the strided rows
+    g::W, wrap-padded to equal counts as `shard_indices(drop_last=False)`
+    gives them, the embeddings are all-gathered, the padding dropped and
+    the rows put back in split order, so every rank returns the whole
+    split's dict.  Labels and ids are metadata every rank reads whole.
+
+    make_loader(host_id, num_hosts): a loader over one rank's shard (whose
+    label_dicts() and ids() are the whole split's) in place of
+    `BioscanLoader(path, split, spec, host_id=, num_hosts=,
+    drop_last=False)`.  mesh: default `create_mesh()`.  With one rank it is
+    `extract_split` over the whole split."""
+    from ..parallel.mesh import all_gather_tensor, create_mesh
+
+    mesh = mesh if mesh is not None else create_mesh()
+    g, n_ranks = (mesh.rank, mesh.size) if mesh.group is not None else (0, 1)
+    if make_loader is None:
+        from ..data.pipeline import BioscanLoader
+
+        def make_loader(host_id, num_hosts):
+            return BioscanLoader(path, split, spec, host_id=host_id, num_hosts=num_hosts,
+                                 num_workers=num_workers, use_native=use_native,
+                                 drop_last=False)
+
+    loader = make_loader(g, n_ranks)
+    try:
+        if n_ranks == 1:
+            return extract_split(model, cfg, loader, for_key_set=for_key_set, progress=progress)
+        local = extract_split(model, cfg, loader, for_key_set=False, progress=progress)
+        label_list, ids = loader.label_dicts(), loader.ids()
+    finally:
+        loader.close()
+    n_total = len(label_list)
+    counts = [len(range(r, n_total, n_ranks)) for r in range(n_ranks)]
+    enc: Dict = {}
+    for modality in MODALITIES:
+        arr = local[f"encoded_{modality}_feature"]
+        if arr is None:
+            enc[modality] = None
+            continue
+        gathered = all_gather_tensor(torch.from_numpy(np.asarray(arr, np.float32)),
+                                     mesh.group).numpy().reshape(n_ranks, -1, arr.shape[1])
+        full = np.empty((n_total, arr.shape[1]), np.float32)
+        for r in range(n_ranks):
+            full[r::n_ranks] = gathered[r][:counts[r]]
+        enc[modality] = full
+    return finalize_split_dict(enc, label_list, ids, for_key_set,
                                strict_all_keys=getattr(cfg, "parity_strict", False))
 
 

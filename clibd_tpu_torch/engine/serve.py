@@ -35,8 +35,10 @@ connection gets a thread, which is the concurrency the batcher coalesces.
 ``ServeStats``, ``open_gallery_readonly`` and the HTTP handler are copied
 from the JAX package's module.
 
-Not ported yet: the key-sharded gallery (``keys_mesh`` / ``KeySet(mesh=)``,
-ROADMAP.md Queue 1 item 6).
+The key-sharded gallery (``KeySet(mesh=)``, ``InferenceService(keys_mesh=)``,
+``serve --shard-keys``): the rows split over a list of local devices, each
+search the key-sharded exact top k of ``ops.knn`` (each device's own top k,
+the candidates merged), for a gallery larger than one card's memory.
 """
 
 from __future__ import annotations
@@ -57,11 +59,9 @@ import numpy as np
 import torch
 
 from ..config.schema import LEVELS
-from ..ops.knn import QuantizedKeys, knn_search, prepare_keys, rerank_candidates
+from ..ops.knn import QuantizedKeys, ShardedKeys, knn_search, prepare_keys, rerank_candidates
 from .extract import EXPORT_FEATURES, to_device
 
-_SHARDED = ("a key-sharded gallery is not ported to clibd_tpu_torch yet (ROADMAP.md Queue 1 "
-            "item 6: multi-GPU)")
 
 
 def _next_bucket(n: int, buckets) -> int:
@@ -153,24 +153,29 @@ class KeySet:
     force.  The re-rank (the original fp32 rows in host memory) is on for
     int8 always and for fp32 under explicit "approx"; fp32 + "auto" stays
     exact on the card with no host copy.  0 disables it.  "approx" selects
-    exactly on the card (`ops.knn.knn_search`)."""
+    exactly on the card (`ops.knn.knn_search`).
+
+    mesh: a list of local devices (or a `parallel.Mesh`; one card may be
+    named twice) to shard each key matrix's rows over (`ops.knn.ShardedKeys`,
+    the JAX package's resident layout for a gallery larger than one chip);
+    every search is then the key-sharded exact top k, and `device` is
+    unused."""
 
     def __init__(self, path: str, mesh=None, max_k: int = 16, dtype: str = "float32",
                  rerank_oversample: int = 4, selector: str = "auto",
                  device: torch.device | str = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(_SHARDED)
         with open_gallery_readonly(path) as f:
             features = {t: f[t][:] for t in EXPORT_FEATURES if t in f}
             labels = {level: [x.decode() for x in f[f"{level}_list"][:]] for level in LEVELS}
         if not features:
             raise ValueError(f"{path} contains no encoded_*_feature datasets")
-        self._setup(features, labels, max_k, dtype, rerank_oversample, selector, device)
+        self._setup(features, labels, max_k, dtype, rerank_oversample, selector, device, mesh)
 
     @classmethod
     def from_arrays(cls, features: Dict[str, np.ndarray], labels: Dict[str, List[str]],
                     max_k: int = 16, dtype: str = "float32", rerank_oversample: int = 4,
-                    selector: str = "auto", device: torch.device | str = "cuda") -> "KeySet":
+                    selector: str = "auto", device: torch.device | str = "cuda",
+                    mesh=None) -> "KeySet":
         """The gallery from arrays in memory: features {encoded_*_feature:
         [N, D]} (None entries skipped), labels {level: [N names]}.  The
         arrays are copied."""
@@ -179,14 +184,16 @@ class KeySet:
             raise ValueError("no encoded_*_feature arrays given")
         ks = cls.__new__(cls)
         ks._setup(features, {level: list(labels[level]) for level in LEVELS}, max_k, dtype,
-                  rerank_oversample, selector, device)
+                  rerank_oversample, selector, device, mesh)
         return ks
 
-    def _setup(self, features, labels, max_k, dtype, rerank_oversample, selector, device):
+    def _setup(self, features, labels, max_k, dtype, rerank_oversample, selector, device,
+               mesh=None):
         if selector not in ("auto", "exact", "approx"):
             raise ValueError(f"selector must be auto/exact/approx, got {selector!r}")
         self.dtype = dtype
         self.device = torch.device(device)
+        self.mesh = mesh
         if dtype == "int8":
             self.rerank_oversample = rerank_oversample
             self.selector = (("approx" if rerank_oversample else "exact")
@@ -197,7 +204,7 @@ class KeySet:
         self.features: Dict[str, object] = {}
         self._host_fp32: Dict[str, np.ndarray] = {}
         for t, rows in features.items():
-            self.features[t] = prepare_keys(rows, device=self.device, dtype=dtype)
+            self.features[t] = prepare_keys(rows, device=self.device, dtype=dtype, mesh=mesh)
             if self.rerank_oversample:
                 self._host_fp32[t] = np.asarray(rows, np.float32)
         self.labels = labels
@@ -210,7 +217,8 @@ class KeySet:
         """Run the search once per modality (query batch 1, the fixed device
         k), so that no client request pays the first product's set-up."""
         for key_type, mat in self.features.items():
-            dim = mat.q.shape[1] if isinstance(mat, QuantizedKeys) else mat.shape[1]
+            dim = (mat.dim if isinstance(mat, ShardedKeys) else
+                   mat.q.shape[1] if isinstance(mat, QuantizedKeys) else mat.shape[1])
             self.search(np.zeros((1, dim), np.float32), key_type, k=1)
 
     def search(self, queries: np.ndarray, key_type: str, k: int):
@@ -218,8 +226,8 @@ class KeySet:
             raise KeyError(f"key set has no {key_type} (available: {sorted(self.features)})")
         k = min(max(int(k), 1), self.max_k)
         sims, idx = knn_search(queries, self.features[key_type], k=self._device_k,
-                               keys_normalized=True, n_valid_keys=self.n,
-                               selector=self.selector, device=self.device)
+                               keys_normalized=True, mesh=self.mesh, shard="keys",
+                               n_valid_keys=self.n, selector=self.selector, device=self.device)
         if self.rerank_oversample:
             sims, idx = rerank_candidates(queries, idx, self._host_fp32[key_type], k=self.max_k)
         return sims[:, :k], idx[:, :k]
@@ -229,7 +237,8 @@ class InferenceService:
     """Resident model + micro-batching executor (see module docstring).
 
     model: the port's `CLIBD` module, moved to `device` (the card unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU).  keys_mesh: devices to shard the gallery over
+    (`KeySet(mesh=)`)."""
 
     def __init__(
         self,
@@ -252,8 +261,6 @@ class InferenceService:
     ):
         from ..models.clibd import clibd_apply
 
-        if keys_mesh is not None:
-            raise NotImplementedError(_SHARDED)
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.mc = model_cfg
@@ -268,7 +275,7 @@ class InferenceService:
                                     | {self.max_batch}))
         self.stats = ServeStats()
         self._keys_cfg = {"dtype": keys_dtype, "rerank_oversample": keys_rerank,
-                          "selector": keys_selector, "device": self.device}
+                          "selector": keys_selector, "device": self.device, "mesh": keys_mesh}
         self.keys_path = keys_path
         self.reloads = 0
         self._reload_lock = threading.Lock()

@@ -1,7 +1,7 @@
 """SimCLR pretraining of the image encoder alone: the port of
 `clibd_tpu/engine/simclr.py` (`TwoViewLoader`, `make_simclr_step`,
 `SimCLRTrainer`, `:33-229`; reference util/simclr.py:50-168 and
-scripts/unimodel/unimodel_training_for_image_encoder.py) on one device.
+scripts/unimodel/unimodel_training_for_image_encoder.py).
 
 Two views of each image: the host pipeline makes two independent random
 crops of one decode (`BatchSpec(two_view=True)`), the device applies the
@@ -13,6 +13,15 @@ No remat, as in the JAX step.  The optimizer is the reference's torch Adam
 with L2 weight decay (`engine/train.py::ScheduledAdam`), its learning rate
 cosine-annealed per epoch from epoch 2 with T_max the steps of an epoch
 (the reference's units quirk).
+
+Data parallel, one rank a card (`make_simclr_step(mesh=)`,
+`SimCLRTrainer(mesh=)`, `clibd_tpu/engine/simclr.py:86-107`): each rank
+takes the NT-Xent of its own `batch_size` images with local negatives (the
+reference never gathers SimCLR features), its augmentation drawn from
+`fold_in(generator, rank)`; the gradients are summed over the ranks and the
+loss averaged, as the JAX package's `psum` and `pmean` do (DDP would
+average the gradients: a deviation of the JAX package that the port keeps,
+ROADMAP.md Queue 3).  Only rank 0 writes checkpoints.
 
 Checkpoints: `checkpoint_{epoch:04d}/` every epoch and `model_best/` at the
 lowest epoch loss, the ViT's params under the JAX package's keys and the
@@ -35,8 +44,9 @@ from ..models.vit import ViT
 from ..ops.color import simclr_augment
 from ..ops.loss import simclr_loss
 from .checkpoint import save_train_state
+from ..parallel.mesh import Mesh, all_reduce_grads, all_reduce_mean, create_mesh
 from .extract import to_device
-from .train import ScheduledAdam, batch_generator
+from .train import ScheduledAdam, batch_generator, fold_in
 
 
 class TwoViewLoader:
@@ -47,14 +57,16 @@ class TwoViewLoader:
     place of the HDF5 one."""
 
     def __init__(self, path: Optional[str], split: str, batch_size: int, num_workers: int = 2,
-                 seed: int = 0, use_native: bool = False, loader=None):
+                 seed: int = 0, use_native: bool = False, loader=None, host_id: int = 0,
+                 num_hosts: int = 1):
         if loader is None:
             from ..data.pipeline import BatchSpec, BioscanLoader
 
             spec = BatchSpec(batch_size=batch_size, train=True, with_dna=False,
                              with_language=False, two_view=True)
             loader = BioscanLoader(path, split, spec, num_workers=num_workers, seed=seed,
-                                   use_native=use_native)
+                                   use_native=use_native, host_id=host_id,
+                                   num_hosts=num_hosts)
         self.a = loader
 
     def __len__(self):
@@ -83,18 +95,44 @@ def make_simclr_loss_fn(cfg: ExperimentConfig, model: ViT, temperature: float = 
     return loss_fn
 
 
-def make_simclr_step(cfg: ExperimentConfig, model: ViT, optimizer: torch.optim.Optimizer,
-                     temperature: float = 0.07) -> Callable:
-    """→ step(view1, view2, generator) → the loss as a device tensor; the
-    parameters are updated in place."""
+def make_simclr_grad_fn(cfg: ExperimentConfig, model: ViT, temperature: float = 0.07,
+                        mesh: Optional[Mesh] = None) -> Callable:
+    """→ grad_fn(view1, view2, generator) → the loss, its gradients in the
+    parameters' `.grad`.  With a process group: this rank's views, the
+    generator folded with the rank, the gradients summed over the ranks
+    (`psum`) and the loss averaged (`pmean`); with one rank the plain
+    step, as the JAX package's at mesh size 1."""
     loss_fn = make_simclr_loss_fn(cfg, model, temperature)
+    if mesh is None or mesh.group is None or mesh.size == 1:
+        def grad_fn(view1, view2, generator):
+            loss = loss_fn(view1, view2, generator)
+            loss.backward()
+            return loss.detach()
+
+        return grad_fn
+    params = list(model.parameters())
+
+    def sharded_grad_fn(view1, view2, generator):
+        loss = loss_fn(view1, view2, fold_in(generator, mesh.rank))
+        loss.backward()
+        all_reduce_grads(params, "sum", mesh.group)
+        return all_reduce_mean(loss, mesh.group)
+
+    return sharded_grad_fn
+
+
+def make_simclr_step(cfg: ExperimentConfig, model: ViT, optimizer: torch.optim.Optimizer,
+                     temperature: float = 0.07, mesh: Optional[Mesh] = None) -> Callable:
+    """→ step(view1, view2, generator) → the loss as a device tensor; the
+    parameters are updated in place.  mesh: a rank's mesh for the data-
+    parallel step (`make_simclr_grad_fn`)."""
+    grad_fn = make_simclr_grad_fn(cfg, model, temperature, mesh)
 
     def step(view1, view2, generator):
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(view1, view2, generator)
-        loss.backward()
+        loss = grad_fn(view1, view2, generator)
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return step
 
@@ -125,17 +163,27 @@ class SimCLRTrainer:
         log_fn: Optional[Callable] = None,
         loader=None,
         device: torch.device | str = "cuda",
+        mesh: Optional[Mesh] = None,
     ):
         """loader: a `TwoViewLoader` (or any loader yielding (view1, view2,
-        index)) in place of the HDF5 one."""
+        index)) in place of the HDF5 one; under a process group it yields
+        this rank's share.  mesh: default `create_mesh(device=device)`;
+        under a group the step is the data-parallel one, `batch_size`
+        images a rank."""
         self.gcfg = global_cfg
         self.cfg = cfg = global_cfg.model_config
         self.output_dir = output_dir
-        self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None else create_mesh(device=device)
+        if self.mesh.group is None and len(self.mesh.devices) > 1:
+            raise ValueError("SimCLR trains on one card a process: start a rank a card "
+                             "(torchrun) instead of a list of devices")
+        self.device = self.mesh.device
+        self.is_main = self.mesh.rank == 0
         self.log_fn = log_fn or (lambda d: None)
         self.loader = loader if loader is not None else TwoViewLoader(
             hdf5_path, split, cfg.batch_size, num_workers=num_workers, seed=cfg.default_seed,
-            use_native=global_cfg.pipeline.use_native_decoder)
+            use_native=global_cfg.pipeline.use_native_decoder, host_id=self.mesh.rank,
+            num_hosts=self.mesh.size)
         if model is None:
             # the whole ViT trains: no LoRA, its output_dim head kept as the
             # projection (reference simple_clip.py:64-72)
@@ -148,7 +196,7 @@ class SimCLRTrainer:
         self.schedule = epoch_cosine(lr, max(len(self.loader), 1))
         self.optimizer = ScheduledAdam(model.parameters(), self.schedule,
                                        weight_decay=weight_decay)
-        self.step_fn = make_simclr_step(cfg, model, self.optimizer, temperature)
+        self.step_fn = make_simclr_step(cfg, model, self.optimizer, temperature, self.mesh)
 
     def fit(self, progress: bool = False) -> dict:
         best_loss = None
@@ -171,7 +219,7 @@ class SimCLRTrainer:
             history["loss"].append(mean_loss)
             if progress:
                 print(f"SimCLR epoch {epoch}: loss {mean_loss:.4f}")
-            if self.gcfg.save_ckpt:
+            if self.gcfg.save_ckpt and self.is_main:
                 step = self.optimizer.update_count()
                 save_train_state(os.path.join(self.output_dir, f"checkpoint_{epoch:04d}"),
                                  self.model, self.optimizer, step=step, epoch=epoch)

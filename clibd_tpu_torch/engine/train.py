@@ -1,5 +1,5 @@
-"""Contrastive trainer: the port of `clibd_tpu/engine/train.py` on one device
-(reference scripts/train_cl.py:145-369, epoch/train_epoch.py:9-81).
+"""Contrastive trainer: the port of `clibd_tpu/engine/train.py` (reference
+scripts/train_cl.py:145-369, epoch/train_epoch.py:9-81).
 
 One train step: uint8 images → [0, 1] → compute dtype → device-side
 augmentation (flips and rotation; the host pipeline decodes, resizes and
@@ -18,9 +18,16 @@ checkpointed in optax's layout (`engine/checkpoint.py`), so a run resumes
 in either package.  The trainer takes any loader with the `BioscanLoader`
 interface, the INSECT one (`data/insect.py`) included.
 
-Left out, each raising NotImplementedError (ROADMAP.md Queue 1 item 6,
-multi-GPU): the shard_map / multi-device step (`make_train_step_shard_map`)
-and the multi-host resume (`resume_multihost`).
+Data parallel, one rank a card (`parallel/mesh.py`): under a process group
+of W ranks, `Trainer(mesh=...)` runs `make_train_step_shard_map`, the
+counterpart of the JAX package's shard_map step: each rank encodes its
+share of the global batch (`batch_size` rows: the batch size is per device,
+as in the reference), `ops.loss.sharded_clip_loss` gathers the features
+with gradients, and the parameters' gradients are averaged over the ranks
+before the update, which is then that of `make_train_step` on the global
+batch.  Only rank 0 writes checkpoints; `resume_multihost` loads on rank 0
+and broadcasts; the in-training eval shards each split over the ranks
+(`engine.extract.extract_split_multihost`).
 """
 
 from __future__ import annotations
@@ -36,13 +43,14 @@ import torch
 from ..config.schema import ExperimentConfig, GlobalConfig
 from ..models.clibd import clibd_apply, dequantize_image, init_clibd_model
 from ..ops.augment import train_augment
-from ..ops.loss import MODALITY_ORDER, clip_loss
-from .checkpoint import BestLastCheckpointer, load_train_state
+from ..ops.loss import MODALITY_ORDER, clip_loss, sharded_clip_loss
+from ..parallel.mesh import (Mesh, all_hosts_agree, all_reduce_grads, broadcast_from_main,
+                             create_mesh, mesh_is_multiprocess)
+from .checkpoint import (BestLastCheckpointer, load_train_state, opt_state_from_optax,
+                         opt_state_to_optax)
 from .evaluate import compute_overall_acc, convert_acc_dict_to_wandb_dict, inference_and_eval
-from .extract import extract_split, to_device
+from .extract import extract_split, extract_split_multihost, to_device
 from .schedules import build_schedule
-
-_LATER = "is not ported to clibd_tpu_torch yet (ROADMAP.md Queue 1 item 6, multi-GPU)"
 
 
 def clip_by_global_norm_(grads, max_norm: float) -> None:
@@ -255,8 +263,47 @@ def make_train_step_accum(cfg: ExperimentConfig, model: torch.nn.Module,
     return step
 
 
-def make_train_step_shard_map(*args, **kwargs):
-    raise NotImplementedError(f"the shard_map multi-device train step {_LATER}")
+def make_sharded_grad_fn(cfg: ExperimentConfig, model: torch.nn.Module, mesh: Mesh) -> Callable:
+    """→ grad_fn(batch, generator) → the global batch's loss, on one rank of
+    `mesh`: batch holds this rank's rows, and the gradient of the global
+    batch's loss is left in every rank's `.grad`.
+
+    The augmentation draws from `fold_in(generator, rank)`, so the ranks'
+    images get different flips and rotations
+    (`clibd_tpu/engine/train.py:259`).  `sharded_clip_loss`'s gather passes
+    each rank W times its rows' gradient, so the parameters' gradients are
+    averaged over the ranks, not summed: (1/W) sum_r W dL/df_r df_r/dtheta
+    is dL/dtheta.  The logit scale's gradient is the whole dL/ds on every
+    rank, and the mean leaves it so."""
+    encode = make_encode_fn(cfg, model)
+    trainable = [p for p in model.parameters() if p.requires_grad]
+
+    def grad_fn(batch: dict, generator: Optional[torch.Generator]) -> torch.Tensor:
+        out = encode(batch, fold_in(generator, mesh.rank))
+        logit_scale = (1.0 / 0.07) if cfg.loss.fix_temperature else out["logit_scale"]
+        features = {m: out[m] for m in MODALITY_ORDER}
+        loss = sharded_clip_loss(features, batch["label"], logit_scale, cfg.loss, mesh.group)
+        loss.backward()
+        all_reduce_grads(trainable, "mean", mesh.group)
+        return loss.detach()
+
+    return grad_fn
+
+
+def make_train_step_shard_map(cfg: ExperimentConfig, model: torch.nn.Module,
+                              optimizer: torch.optim.Optimizer, mesh: Mesh) -> Callable:
+    """→ step(batch, generator) → the loss: `make_sharded_grad_fn`'s
+    gradients and one optimizer update, the same on every rank (the
+    counterpart of `clibd_tpu/engine/train.py:232-292`)."""
+    grad_fn = make_sharded_grad_fn(cfg, model, mesh)
+
+    def step(batch: dict, generator: Optional[torch.Generator]) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        loss = grad_fn(batch, generator)
+        optimizer.step()
+        return loss
+
+    return step
 
 
 def batch_generator(device: torch.device, seed: int, epoch: int, batch_idx: int) -> torch.Generator:
@@ -279,8 +326,8 @@ def fold_in(generator: Optional[torch.Generator], i: int) -> Optional[torch.Gene
 
 
 class Trainer:
-    """The full training loop on one device: loaders + model + optimizer +
-    eval + checkpoints."""
+    """The full training loop: loaders + model + optimizer + eval +
+    checkpoints, on one card or on one rank of a process group."""
 
     def __init__(
         self,
@@ -294,17 +341,38 @@ class Trainer:
         num_workers: Optional[int] = None,
         train_labels: Optional[np.ndarray] = None,
         train_loader=None,
-        eval_loader_factory: Optional[Callable[[str, bool], object]] = None,
+        eval_loader_factory: Optional[Callable[..., object]] = None,
         device: torch.device | str = "cuda",
+        mesh: Optional[Mesh] = None,
     ):
         """train_loader / eval_loader_factory take the place of the HDF5
         loaders (a dataset in memory, `data.SyntheticSplit`):
         eval_loader_factory(split_name, train) returns a loader with
-        batches()/label_dicts()/ids()/close()."""
+        batches()/label_dicts()/ids()/close().
+
+        mesh: default `create_mesh(device=device)`, this rank's mesh in a
+        process group, else the card alone.  Under a group of W > 1 ranks
+        (or with `step_impl: shard_map`) a step is
+        `make_train_step_shard_map`'s; `batch_size` is per rank, the HDF5
+        loader yields this rank's strided share of the split, and a given
+        train_loader must too.  There the eval shards each split over the
+        ranks, with eval_loader_factory(split_name, train, host_id,
+        num_hosts) making a rank's shard (`SyntheticSplit(host_id=,
+        num_hosts=)`)."""
         self.gcfg = global_cfg
         self.cfg = cfg = global_cfg.model_config
         self.hdf5_path = hdf5_path
-        self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None else create_mesh(device=device)
+        if self.mesh.group is None and len(self.mesh.devices) > 1:
+            raise ValueError("training takes one card a process: start a rank a card "
+                             "(torchrun) instead of a list of devices")
+        self.device = self.mesh.device
+        self.world_size = self.mesh.size
+        self.is_main = self.mesh.rank == 0
+        multi_rank = self.world_size > 1 or cfg.step_impl == "shard_map"
+        if multi_rank and cfg.accum_steps > 1:
+            raise ValueError("accum_steps > 1 runs on one rank (the gradient cache's step is "
+                             "the global batch's)")
         self.log_fn = log_fn or (lambda d: None)
         # async checkpoint writes: the disk leg of last/best saves overlaps
         # the next epoch; fit() and close() join before returning
@@ -312,8 +380,6 @@ class Trainer:
         self.eval_splits = eval_splits or {"keys": "all_keys", "seen": "val_seen",
                                            "unseen": "val_unseen"}
         self.eval_loader_factory = eval_loader_factory
-        if cfg.step_impl == "shard_map":
-            make_train_step_shard_map()
         if train_loader is not None:
             self.train_loader = train_loader
         else:
@@ -333,7 +399,9 @@ class Trainer:
             self.train_loader = BioscanLoader(
                 hdf5_path, train_split, spec, labels=train_labels, num_workers=nw,
                 prefetch=global_cfg.pipeline.prefetch_batches, seed=cfg.default_seed,
-                use_native=global_cfg.pipeline.use_native_decoder)
+                use_native=global_cfg.pipeline.use_native_decoder,
+                # DistributedSampler's shards (reference dataset.py:44-51)
+                host_id=self.mesh.rank, num_hosts=self.world_size)
 
         if model is None:
             model = init_clibd_model(cfg, torch.Generator().manual_seed(cfg.default_seed),
@@ -341,10 +409,14 @@ class Trainer:
         self.model = model
         steps_per_epoch = len(self.train_loader)
         total_steps = max(steps_per_epoch * cfg.epochs, 1)
-        # LR × batch/500 (reference util/util.py:753-756), one device
-        self.schedule = build_schedule(cfg.optim, total_steps, cfg.batch_size, world_size=1)
+        # LR × (batch × world)/500 (reference util/util.py:753-756)
+        self.schedule = build_schedule(cfg.optim, total_steps, cfg.batch_size,
+                                       world_size=self.world_size)
         self.optimizer = build_optimizer(cfg, model, self.schedule)
-        self.step_fn = make_train_step_accum(cfg, model, self.optimizer, cfg.accum_steps)
+        if multi_rank:
+            self.step_fn = make_train_step_shard_map(cfg, model, self.optimizer, self.mesh)
+        else:
+            self.step_fn = make_train_step_accum(cfg, model, self.optimizer, cfg.accum_steps)
         self.global_step = 0
         self.stop_flag = False
         self._resume_start_batch = 0
@@ -383,7 +455,7 @@ class Trainer:
             n_steps += 1
             # step-cadence last/ (mid-epoch failure recovery); meta.epoch is
             # the last completed epoch, so resume continues inside this one
-            if (cfg.checkpoint_every_steps and self.gcfg.save_ckpt
+            if (cfg.checkpoint_every_steps and self.gcfg.save_ckpt and self.is_main
                     and self.global_step % cfg.checkpoint_every_steps == 0):
                 self.checkpointer.save_last(self.model, self.optimizer, self.global_step,
                                             epoch - 1)
@@ -397,14 +469,32 @@ class Trainer:
         if progress:
             print()
         if timer.times:
-            self.log_fn({"epoch": epoch, **{f"throughput/{k}": v for k, v in
-                                            timer.summary(cfg.batch_size).items()}})
+            summary = timer.summary(cfg.batch_size * self.world_size, n_chips=self.world_size)
+            self.log_fn({"epoch": epoch, **{f"throughput/{k}": v for k, v in summary.items()}})
         return epoch_loss / max(n_steps, 1)
 
     def evaluate(self) -> dict:
+        """The retrieval grid over the eval splits.  Under a group of W > 1
+        each rank encodes a strided 1/W of each split and every rank
+        assembles the whole (`extract_split_multihost`); the grid then runs
+        on every rank over the same inputs, so the early stop agrees
+        everywhere (`clibd_tpu/engine/train.py:486-519`)."""
         cfg = self.cfg
+        multiproc = mesh_is_multiprocess(self.mesh)
 
         def run(split, for_key=False):
+            if multiproc:
+                from ..data.pipeline import BatchSpec
+
+                make_loader = None
+                if self.eval_loader_factory is not None:
+                    def make_loader(g, n):
+                        return self.eval_loader_factory(split, False, g, n)
+                return extract_split_multihost(
+                    self.model, cfg, self.hdf5_path, split, BatchSpec.eval_spec(cfg),
+                    for_key_set=for_key, num_workers=self.gcfg.pipeline.num_workers,
+                    use_native=self.gcfg.pipeline.use_native_decoder, make_loader=make_loader,
+                    mesh=self.mesh)
             if self.eval_loader_factory is not None:
                 loader = self.eval_loader_factory(split, False)
             else:
@@ -433,9 +523,11 @@ class Trainer:
         params only); → the epoch to continue from, with the batch to start
         at inside it kept for `fit`."""
         meta = load_train_state(directory, self.model, self.optimizer)
-        self.global_step = int(meta.get("step", 0))
-        ckpt_epoch = int(meta.get("epoch", -1))
-        best = self._read_best_meta(directory)
+        return self._apply_resume_state(int(meta.get("step", 0)), int(meta.get("epoch", -1)),
+                                        self._read_best_meta(directory))
+
+    def _apply_resume_state(self, step: int, ckpt_epoch: int, best) -> int:
+        self.global_step = step
         # otherwise the first eval after resume always "improves" and may
         # overwrite best/ with a worse model
         if best is not None:
@@ -447,7 +539,42 @@ class Trainer:
         return ckpt_epoch + 1
 
     def resume_multihost(self, directory: str):
-        raise NotImplementedError(f"multi-host resume {_LATER}")
+        """Resume a group whose checkpoints only rank 0 writes
+        (`clibd_tpu/engine/train.py:543-590`): the ranks agree by a
+        collective whether rank 0 has `directory`, rank 0 loads it, and one
+        broadcast carries the params, the optimizer state, the step, epoch
+        and best metric to every rank.  Another rank's own copy at the same
+        path, even a stale one, is never read: matching shapes would let the
+        run go on silently diverged.  → the epoch to continue from, or None
+        where rank 0 has no checkpoint (a fresh start everywhere).  One
+        process: `resume` where the directory exists."""
+        local_has = os.path.exists(os.path.join(directory, "params.npz"))
+        if not mesh_is_multiprocess(self.mesh):
+            return self.resume(directory) if local_has else None
+        if not all_hosts_agree(local_has or not self.is_main, self.mesh.group):
+            return None  # rank 0 has nothing: a fresh start everywhere
+        ints = np.zeros(4, np.int64)  # step, epoch, best epoch, has best
+        metric = np.zeros(1, np.float64)
+        if self.is_main:
+            meta = load_train_state(directory, self.model, self.optimizer)
+            best = self._read_best_meta(directory)
+            ints[:] = (int(meta.get("step", 0)), int(meta.get("epoch", -1)),
+                       best[1] if best else -1, int(best is not None))
+            metric[0] = best[0] if best else 0.0
+        params = dict(self.model.named_parameters())
+        # rank 0's optimizer state as it loaded it; elsewhere zeros of the
+        # same keys and shapes, as optax's init gives them
+        state = {"params": {n: p.detach() for n, p in params.items()},
+                 "opt": opt_state_to_optax(self.model, self.optimizer),
+                 "ints": ints, "metric": metric}
+        state = broadcast_from_main(state, self.mesh.group)
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(state["params"][n])
+        opt_state_from_optax(state["opt"], self.model, self.optimizer)
+        step, ckpt_epoch, best_epoch, has_best = (int(x) for x in state["ints"])
+        best = (float(state["metric"][0]), best_epoch) if has_best else None
+        return self._apply_resume_state(step, ckpt_epoch, best)
 
     def _read_best_meta(self, directory: str):
         """(best_metric, best_epoch) from the sibling best/meta.json, else None."""
@@ -476,7 +603,7 @@ class Trainer:
             history["loss"].append(self.train_epoch(epoch, progress=progress,
                                                     start_batch=start_batch))
             # last/ every epoch, so a crash always leaves something to resume
-            if self.gcfg.save_ckpt:
+            if self.gcfg.save_ckpt and self.is_main:
                 self.checkpointer.save_last(self.model, self.optimizer, self.global_step, epoch)
             do_eval = ((epoch % cfg.evaluation_period == 0 or epoch == cfg.epochs - 1)
                        and epoch > cfg.eval_skip_epoch)
@@ -487,7 +614,7 @@ class Trainer:
                 self.log_fn(convert_acc_dict_to_wandb_dict(acc_dict))
                 improved = self.checkpointer.maybe_save_best(
                     overall, self.model, self.optimizer, self.global_step, epoch,
-                    save=self.gcfg.save_ckpt)
+                    save=self.gcfg.save_ckpt and self.is_main)
                 if improved:
                     history["best_epoch"] = epoch
                 elif self.gcfg.enable_early_stopping:

@@ -1,6 +1,6 @@
-"""kNN retrieval: the port of `clibd_tpu/ops/knn.py` on one device
-(L2-normalised inner-product search as a matmul plus top-k, the reference's
-FAISS IndexFlatIP).
+"""kNN retrieval: the port of `clibd_tpu/ops/knn.py` (L2-normalised
+inner-product search as a matmul plus top-k, the reference's FAISS
+IndexFlatIP).
 
 Scores over an fp32 gallery are an fp32 `torch.matmul` with TF32 off (the
 package sets it at import; the counterpart of `Precision.HIGHEST`), and
@@ -23,22 +23,33 @@ against the original fp32 rows on the host.
 
 `selector="approx"` wraps `jax.lax.approx_max_k`, the TPU's partial-reduce
 selection; it has no counterpart on the card and selects exactly here (on
-the CPU JAX lowers it exactly too).  The query- and key-sharded searches
-(`mesh=`, `shard="keys"`) wait for the multi-GPU port (ROADMAP.md Queue 1
-item 6).
+the CPU JAX lowers it exactly too).
+
+Over a list of local devices (`mesh=`: a `parallel.Mesh` or a list of
+`torch.device`s, which may name one card twice; `clibd_tpu/ops/knn.py:
+120-225`):
+
+- shard="queries": the keys whole on every device, the queries split into
+  one block a device; no merge is needed, and the result is the unsharded
+  search's;
+- shard="keys": 1/D of the gallery a device (`prepare_keys(mesh=)` pads
+  the rows to a multiple of D and gives a `ShardedKeys`; the int8 gallery
+  is sharded the same way), each device's pad rows set to -inf before its
+  own top k, and the D*k candidates merged into the global top k on the
+  first device.  Candidates lie in shard order and, within a shard, in
+  `top_k_lower_index_first`'s order, so the merge keeps `jax.lax.top_k`'s
+  order of equal scores: lower key index first.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.clibd import l2_normalize
 
-_MULTI_GPU = ("is not ported to clibd_tpu_torch yet (ROADMAP.md Queue 1 item 6: "
-              "multi-GPU, the sharded kNN)")
 # int8 key rows widened to fp32 at a time: 64k x 768 fp32 is 192 MiB
 KEY_CHUNK = 65536
 
@@ -73,6 +84,51 @@ def quantize_keys(keys: np.ndarray, chunk: int = 262144) -> Tuple[np.ndarray, np
     return q, scale
 
 
+class ShardedKeys(NamedTuple):
+    """A gallery split by rows over devices (`prepare_keys(mesh=)`): shard d
+    holds rows [d * R, (d + 1) * R) on its device, an fp32 tensor or a
+    `QuantizedKeys`; rows from n_valid on are zero padding."""
+
+    shards: tuple
+    n_valid: int
+
+    @property
+    def dim(self) -> int:
+        first = self.shards[0]
+        return (first.q if isinstance(first, QuantizedKeys) else first).shape[1]
+
+
+def _mesh_devices(mesh) -> list:
+    """The devices of a `parallel.Mesh` or of a list of devices."""
+    devices = getattr(mesh, "devices", mesh)
+    return [torch.device(d) for d in devices]
+
+
+def _split_rows(x: np.ndarray, n_shards: int) -> list:
+    """x padded with zero rows to a multiple of n_shards, in n_shards blocks."""
+    pad = (-x.shape[0]) % n_shards
+    if pad:
+        x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+    return np.split(x, n_shards)
+
+
+def _shard_rows(keys, devices: list) -> "ShardedKeys":
+    """An fp32 key matrix or a `QuantizedKeys` split by rows over `devices`
+    as it stands (no normalisation), zero rows padding the last shard."""
+    n = len(devices)
+    if isinstance(keys, QuantizedKeys):
+        q = torch.as_tensor(keys.q).cpu().numpy()
+        scale = torch.as_tensor(keys.scale).cpu().numpy()
+        return ShardedKeys(tuple(
+            QuantizedKeys(torch.from_numpy(qs).to(d), torch.from_numpy(ss).to(d), qs.shape[0])
+            for qs, ss, d in zip(_split_rows(q, n), _split_rows(scale, n), devices)),
+            keys.n_valid)
+    keys = (keys.detach().cpu().numpy() if isinstance(keys, torch.Tensor)
+            else np.asarray(keys, np.float32))
+    return ShardedKeys(tuple(torch.from_numpy(part).to(d) for part, d in
+                             zip(_split_rows(keys, n), devices)), keys.shape[0])
+
+
 def _as_tensor(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
@@ -83,17 +139,25 @@ def prepare_keys(keys, device: torch.device | str = "cuda", dtype: str = "float3
     """Upload and L2-normalise a key matrix once, for reuse across the eval
     grid → an fp32 tensor; dtype="int8": a `QuantizedKeys` gallery (int8
     rows and fp32 scales on `device`), which `knn_search` takes wherever a
-    key matrix goes."""
-    if mesh is not None:
-        raise NotImplementedError(f"prepare_keys(mesh=...) {_MULTI_GPU}")
+    key matrix goes.  mesh (more than one device): a `ShardedKeys` over its
+    devices, the rows padded to a multiple of their number, for
+    `knn_search(shard="keys")`; `device` is then unused."""
     if dtype not in ("float32", "int8"):
         raise ValueError(f"dtype must be 'float32' or 'int8', got {dtype!r}")
+    devices = _mesh_devices(mesh) if mesh is not None else [torch.device(device)]
+    if len(devices) == 1:
+        device = devices[0]
     if dtype == "int8":
         if isinstance(keys, torch.Tensor):
             keys = keys.detach().cpu().numpy().copy()  # leave the caller's tensor as it is
         q, scale = quantize_keys(keys)
+        if len(devices) > 1:
+            return _shard_rows(QuantizedKeys(q, scale, q.shape[0]), devices)
         return QuantizedKeys(torch.from_numpy(q).to(device), torch.from_numpy(scale).to(device),
                              q.shape[0])
+    if len(devices) > 1:
+        sharded = _shard_rows(keys, devices)
+        return ShardedKeys(tuple(l2_normalize(s) for s in sharded.shards), sharded.n_valid)
     return l2_normalize(_as_tensor(keys, device))
 
 
@@ -136,6 +200,46 @@ def _scores(q: torch.Tensor, keys: torch.Tensor, scale) -> torch.Tensor:
     return out
 
 
+def _search_chunks(queries: torch.Tensor, keys: torch.Tensor, scale, k: int, query_chunk: int,
+                   valid: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top k of each query row against one key matrix, query_chunk rows at
+    a time; valid [N] bool: keys outside it score -inf."""
+    sims, idx = [], []
+    for lo in range(0, queries.shape[0], query_chunk):
+        q = queries[lo:lo + query_chunk]
+        rows = q.shape[0]
+        # zero rows up to a multiple of 8: a one-row chunk would take BLAS's
+        # matrix-vector path, which scores identical keys a last bit apart by
+        # their position, and an exact tie would no longer be one (the
+        # reference pads every chunk to query_chunk rows)
+        q = torch.cat([q, q.new_zeros((-rows) % 8, q.shape[1])])
+        scores = _scores(q, keys, scale)[:rows]
+        if valid is not None:
+            scores = scores.masked_fill(~valid, float("-inf"))
+        s, i = top_k_lower_index_first(scores, k)
+        sims.append(s)
+        idx.append(i)
+    if not sims:
+        return (queries.new_zeros((0, k)),
+                torch.zeros((0, k), dtype=torch.int64, device=queries.device))
+    return torch.cat(sims), torch.cat(idx)
+
+
+def _unpack(keys, device):
+    """(keys, scale or None) of one key matrix or `QuantizedKeys` on
+    `device`."""
+    if isinstance(keys, QuantizedKeys):
+        return torch.as_tensor(keys.q).to(device), _as_tensor(keys.scale, device)
+    return _as_tensor(keys, device), None
+
+
+def _gather_shards(keys: ShardedKeys, device) -> Tuple[torch.Tensor, object]:
+    """The shards on one device, as one matrix (and scale)."""
+    parts = [_unpack(s, device) for s in keys.shards]
+    scale = None if parts[0][1] is None else torch.cat([p[1] for p in parts])
+    return torch.cat([p[0] for p in parts]), scale
+
+
 def knn_search(queries, keys, k: int = 5, query_chunk: int = 4096, normalize: bool = True,
                keys_normalized: bool = False, selector: str = "exact", mesh=None,
                shard: str = "queries", n_valid_keys: int = None,
@@ -147,51 +251,101 @@ def knn_search(queries, keys, k: int = 5, query_chunk: int = 4096, normalize: bo
     keys_normalized=True: keys came from prepare_keys.  keys may be a
     `QuantizedKeys` (approximate scores; see the module docstring).
     n_valid_keys: only the first n_valid_keys rows are keys (default: all,
-    or a `QuantizedKeys`' n_valid).  selector="approx" selects exactly (the
-    TPU's approx_max_k has no counterpart here)."""
-    if mesh is not None or shard != "queries":
-        raise NotImplementedError(f"knn_search(mesh=..., shard={shard!r}) {_MULTI_GPU}")
+    or a `QuantizedKeys`' or `ShardedKeys`' n_valid).  selector="approx"
+    selects exactly (the TPU's approx_max_k has no counterpart here).
+
+    mesh (a `parallel.Mesh` or a list of devices) with more than one
+    device: shard="queries" searches a block of queries on each device
+    against the whole gallery; shard="keys" searches each device's rows of
+    a `ShardedKeys` (a plain matrix is split first) and merges the
+    candidates on the first device.  A shard of fewer than k rows is
+    searched whole on the first device, as the JAX package does."""
+    if shard not in ("queries", "keys"):
+        raise ValueError(f"shard must be 'queries' or 'keys', got {shard!r}")
     if selector not in ("exact", "approx"):
         raise ValueError(f"selector must be 'exact' or 'approx', got {selector!r}")
-    scale = None
+    devices = _mesh_devices(mesh) if mesh is not None else []
+    sharded = isinstance(keys, ShardedKeys)
+    if sharded or (len(devices) > 1 and shard == "keys"):
+        if not sharded:
+            keys = _shard_rows(keys, devices)
+        return _knn_keys_sharded(queries, keys, k, query_chunk, normalize, keys_normalized,
+                                 n_valid_keys)
     if isinstance(keys, QuantizedKeys):
-        keys, scale, qk_valid = keys.q, keys.scale, keys.n_valid
-        if n_valid_keys is None:
-            n_valid_keys = qk_valid
         keys_normalized = True  # quantised after normalisation
-    tensors = [x for x in (keys, queries) if isinstance(x, torch.Tensor)]
-    device = tensors[0].device if tensors else torch.device(device)
-    queries = _as_tensor(queries, device)
-    if scale is None:
-        keys = _as_tensor(keys, device)
+        if n_valid_keys is None:
+            n_valid_keys = keys.n_valid
+    tensors = [x for x in ((keys.q if isinstance(keys, QuantizedKeys) else keys), queries)
+               if isinstance(x, torch.Tensor)]
+    home = tensors[0].device if tensors else torch.device(device)
+    queries = _as_tensor(queries, home)
+    if normalize:
+        queries = l2_normalize(queries)
+    query_chunk = int(max(1, query_chunk))
+    if len(devices) > 1:  # shard="queries"
+        blocks = queries.tensor_split(len(devices))
+        outs = [_knn_one(b.to(d), keys, k, query_chunk, normalize, keys_normalized,
+                         n_valid_keys, d) for b, d in zip(blocks, devices)]
+        sims = torch.cat([o[0].to(home) for o in outs])
+        idx = torch.cat([o[1].to(home) for o in outs])
     else:
-        keys = torch.as_tensor(keys).to(device)
-        scale = _as_tensor(scale, device)
+        sims, idx = _knn_one(queries, keys, k, query_chunk, normalize, keys_normalized,
+                             n_valid_keys, home)
+    return sims.cpu().numpy(), idx.cpu().numpy()
+
+
+def _knn_one(queries: torch.Tensor, keys, k: int, query_chunk: int, normalize: bool,
+             keys_normalized: bool, n_valid_keys, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The search of (already normalised) queries against one whole gallery
+    on `device`."""
+    keys, scale = _unpack(keys, device)
     n_valid = int(n_valid_keys if n_valid_keys is not None else keys.shape[0])
     keys = keys[:n_valid]
     if scale is not None:
         scale = scale[:n_valid]
+    elif normalize and not keys_normalized:
+        keys = l2_normalize(keys)
+    return _search_chunks(queries, keys, scale, int(min(k, n_valid)), query_chunk)
+
+
+def _knn_keys_sharded(queries, keys: ShardedKeys, k: int, query_chunk: int, normalize: bool,
+                      keys_normalized: bool, n_valid_keys) -> Tuple[np.ndarray, np.ndarray]:
+    """Key-sharded search (`clibd_tpu/ops/knn.py:164-225`): each shard's top
+    k with its pad rows at -inf, then the exact top k of the D*k
+    candidates on the first shard's device."""
+    quantized = isinstance(keys.shards[0], QuantizedKeys)
+    n_valid = int(n_valid_keys if n_valid_keys is not None else keys.n_valid)
+    home = (keys.shards[0].q if quantized else keys.shards[0]).device
+    queries = _as_tensor(queries, home)
     if normalize:
         queries = l2_normalize(queries)
-        if not keys_normalized:
-            keys = l2_normalize(keys)
+    normalize_keys = normalize and not keys_normalized and not quantized
     k = int(min(k, n_valid))
     query_chunk = int(max(1, query_chunk))
-    sims, idx = [], []
-    for lo in range(0, queries.shape[0], query_chunk):
-        q = queries[lo:lo + query_chunk]
-        rows = q.shape[0]
-        # zero rows up to a multiple of 8: a one-row chunk would take BLAS's
-        # matrix-vector path, which scores identical keys a last bit apart by
-        # their position, and an exact tie would no longer be one (the
-        # reference pads every chunk to query_chunk rows)
-        q = torch.cat([q, q.new_zeros((-rows) % 8, q.shape[1])])
-        s, i = top_k_lower_index_first(_scores(q, keys, scale)[:rows], k)
-        sims.append(s)
-        idx.append(i)
-    if not sims:
-        return np.zeros((0, k), np.float32), np.zeros((0, k), np.int64)
-    return torch.cat(sims).cpu().numpy(), torch.cat(idx).cpu().numpy()
+    rows = (keys.shards[0].q if quantized else keys.shards[0]).shape[0]
+    if rows < k:  # a shard smaller than k: search the gallery whole
+        whole, scale = _gather_shards(keys, home)
+        whole = whole[:n_valid]
+        if scale is not None:
+            scale = scale[:n_valid]
+        elif normalize_keys:
+            whole = l2_normalize(whole)
+        sims, idx = _search_chunks(queries, whole, scale, k, query_chunk)
+        return sims.cpu().numpy(), idx.cpu().numpy()
+    cand_sims, cand_idx = [], []
+    for d, part in enumerate(keys.shards):
+        shard_keys, scale = _unpack(part, (part.q if quantized else part).device)
+        if normalize_keys:
+            shard_keys = l2_normalize(shard_keys)
+        offset = d * rows
+        valid = (offset + torch.arange(rows, device=shard_keys.device)) < n_valid
+        s, i = _search_chunks(queries.to(shard_keys.device), shard_keys, scale, k, query_chunk,
+                              valid)
+        cand_sims.append(s.to(home))
+        cand_idx.append((i + offset).to(home))
+    sims_all, idx_all = torch.cat(cand_sims, dim=1), torch.cat(cand_idx, dim=1)
+    top, pos = top_k_lower_index_first(sims_all, k)
+    return top.cpu().numpy(), idx_all.gather(1, pos).cpu().numpy()
 
 
 def rerank_candidates(queries: np.ndarray, cand_idx: np.ndarray, keys_fp32, k: int,

@@ -1,8 +1,8 @@
 """Tri-modal multi-positive InfoNCE and SimCLR's NT-Xent: the port of
 `clibd_tpu/ops/loss.py` (`label_equality_matrix`, `soft_target_cross_entropy`,
-`_pair_list`, `clip_loss`, `:43-102`, and `simclr_info_nce_loss`,
-`simclr_loss`, `:154-190`; reference bioscanclip/model/loss_func.py:25-201,
-util/simclr.py:64-92).
+`_pair_list`, `clip_loss`, `:43-102`, `sharded_clip_loss`, `:105-151`, and
+`simclr_info_nce_loss`, `simclr_loss`, `:154-190`; reference
+bioscanclip/model/loss_func.py:25-201, util/simclr.py:64-92).
 
 - The target is the label-equality matrix M[i, j] = (l_i == l_j):
   multi-positive soft targets, not row-normalised (torch CrossEntropyLoss
@@ -15,8 +15,10 @@ util/simclr.py:64-92).
 - Features are re-normalised inside the loss, and the similarity matmuls run
   in fp32 with TF32 off (set at import by the package), the counterpart of
   `Precision.HIGHEST`.
-
-Not ported yet: `sharded_clip_loss` (ROADMAP.md Queue 1 item 6, multi-GPU).
+- `sharded_clip_loss` is the loss of one rank of a process group: its
+  features are the rank's rows, and the global batch is gathered with
+  gradients (`parallel.all_gather_with_grad`, the reference's
+  gather_with_grad, loss_func.py:73-106).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from ..config.schema import LossConfig
 from ..models.clibd import l2_normalize
+from ..parallel.mesh import all_gather_tensor, all_gather_with_grad, all_reduce_mean
 
 MODALITY_ORDER = ("image", "dna", "language")
 _BIND_IDX = {"image": 0, "dna": 1, "text": 2, "language": 2}
@@ -81,6 +84,49 @@ def clip_loss(features: Dict[str, Optional[torch.Tensor]], labels: torch.Tensor,
     terms = []
     for a, b in _pair_list(present, cfg):
         sim_ab = logit_scale * torch.matmul(normed[a], normed[b].T)
+        terms.append(soft_target_cross_entropy(sim_ab, target))
+        terms.append(soft_target_cross_entropy(sim_ab.T, target))
+    return sum(terms) / len(terms)
+
+
+def sharded_clip_loss(features: Dict[str, Optional[torch.Tensor]], labels: torch.Tensor,
+                      logit_scale, cfg: LossConfig, group=None) -> torch.Tensor:
+    """`clip_loss` of the global batch from one rank: features and labels
+    are this rank's rows, and every rank gets the same loss.
+
+    - cfg.local_loss: this rank's rows against the gathered columns, both
+      directions; the value is the mean over ranks (`pmean`), the gradient
+      that of this rank's term, so that the ranks' gradients average to
+      the gradient of the mean;
+    - otherwise: `clip_loss` of the gathered batch, the same on every rank.
+
+    The gathered features carry gradients: a rank's features get the sum
+    over ranks of their rows' gradients, W times dL/dx (see
+    `all_gather_with_grad`), which `all_reduce_grads(op="mean")` of the
+    parameters' gradients takes back out."""
+    present = [m for m in MODALITY_ORDER if features.get(m) is not None]
+    if len(present) < 2:
+        raise ValueError("Too less element for calculating the contrastive loss.")
+    all_labels = all_gather_tensor(labels, group)
+    local_normed = {m: l2_normalize(features[m].float()) for m in present}
+    gathered = {m: all_gather_with_grad(local_normed[m], group) for m in present}
+
+    if cfg.local_loss:
+        target_rows = label_equality_matrix(labels, all_labels)
+        terms = []
+        for a, b in _pair_list(present, cfg):
+            sim_ab = logit_scale * torch.matmul(local_normed[a], gathered[b].T)
+            sim_ba = logit_scale * torch.matmul(local_normed[b], gathered[a].T)
+            terms.append(soft_target_cross_entropy(sim_ab, target_rows))
+            terms.append(soft_target_cross_entropy(sim_ba, target_rows))
+        local = sum(terms) / len(terms)
+        # the value of the mean, the gradient of this rank's term
+        return local - local.detach() + all_reduce_mean(local, group)
+
+    target = label_equality_matrix(all_labels)
+    terms = []
+    for a, b in _pair_list(present, cfg):
+        sim_ab = logit_scale * torch.matmul(gathered[a], gathered[b].T)
         terms.append(soft_target_cross_entropy(sim_ab, target))
         terms.append(soft_target_cross_entropy(sim_ab.T, target))
     return sum(terms) / len(terms)

@@ -6,6 +6,7 @@ import json
 import os
 import subprocess
 import sys
+import urllib.request
 from pathlib import Path
 
 import h5py
@@ -25,6 +26,7 @@ from clibd_tpu.ops import knn as jax_knn
 from clibd_tpu.parallel.mesh import create_mesh
 from clibd_tpu_torch.engine import evaluate as port_evaluate
 from clibd_tpu_torch.engine import extract as port_extract
+from clibd_tpu_torch.engine.extract import save_embedding_export
 from clibd_tpu_torch.models.convert import model_from_jax
 from clibd_tpu_torch.ops import knn as port_knn
 
@@ -273,17 +275,48 @@ def test_cli_eval_end_to_end(tiny_hdf5, tmp_path):
 
 
 def test_options_not_ported_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        port_knn.prepare_keys(np.ones((3, 4), np.float32), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        port_knn.knn_search(np.ones((3, 4)), np.ones((3, 4)), mesh=object(), device="cpu")
+    """The sharded gallery is ported: prepare_keys(mesh=) and a sharded
+    knn_search equal the unsharded search, and `serve --shard-keys --device
+    cpu` answers a /search request.  The image retrieval grids and the
+    similarity distributions still raise."""
+    rng = np.random.default_rng(29)
+    keys = rng.standard_normal((5, 4)).astype(np.float32)
+    q = rng.standard_normal((3, 4)).astype(np.float32)
+    want = port_knn.knn_search(q, keys, k=2, device="cpu")
+    sharded = port_knn.prepare_keys(keys, device="cpu", mesh=["cpu", "cpu"])
+    for got in (port_knn.knn_search(q, sharded, k=2, keys_normalized=True),
+                port_knn.knn_search(q, keys, k=2, mesh=["cpu", "cpu"], device="cpu")):
+        np.testing.assert_array_equal(got[1], want[1])
     exp = tmp_path / "tiny.yaml"
     exp.write_text(TINY_EXP)
+    gallery = tmp_path / "gallery.hdf5"
+    save_embedding_export(str(gallery), {
+        "encoded_image_feature": rng.standard_normal((7, 32)).astype(np.float32),
+        "encoded_dna_feature": rng.standard_normal((7, 32)).astype(np.float32),
+        "encoded_language_feature": None, "file_name_list": [f"f{i}" for i in range(7)],
+        "label_list": [{lv: f"{lv}{i}" for lv in ("order", "family", "genus", "species")}
+                       for i in range(7)]})
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    proc = subprocess.run([sys.executable, "-m", "clibd_tpu_torch.cli", "serve", "-e", str(exp),
-                           "--device", "cpu", "--shard-keys"], cwd=tmp_path, env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
+    proc = subprocess.Popen([sys.executable, "-m", "clibd_tpu_torch.cli", "serve", "-e", str(exp),
+                             "--device", "cpu", "--shard-keys", "--keys", str(gallery),
+                             "--port", "0", "--no-warm"], cwd=tmp_path, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        port = None
+        for line in proc.stdout:
+            if line.startswith("serving on "):
+                port = int(line.split(":")[2].split()[0])
+                break
+        assert port, "the server did not start"
+        request = urllib.request.Request(
+            f"http://127.0.0.1:{port}/search", method="POST",
+            data=json.dumps({"dna": "ACGTACGTAAACCCGGGTTTACGT", "k": 3}).encode())
+        with urllib.request.urlopen(request, timeout=120) as resp:
+            answer = json.loads(resp.read())
+        assert len(answer["dna"]["predictions"]) == 3 and len(answer["dna"]["scores"]) == 3
+    finally:
+        proc.terminate()
+        proc.communicate(timeout=60)
     proc = _run_cli(tmp_path, "inference_and_eval_setting.retrieve_images=true")
     assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
     # eval --unimodel is ported (tests/test_torch_simclr.py); the similarity

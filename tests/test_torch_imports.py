@@ -35,10 +35,11 @@ def _absolute_imports(path: str):
 def test_the_walk_covers_the_port():
     assert "chip_smoke.py" in PORT_FILES
     for tool in ("profile_extract", "exp_attn", "exp_mxu", "exp_mxu2", "exp_flash",
-                 "exp_mlp_activation"):
+                 "exp_mlp_activation", "dryrun_multigpu"):
         assert f"clibd_tpu_torch/tools/{tool}.py" in PORT_FILES
     for module in ("engine/train.py", "engine/serve.py", "engine/extract.py", "ops/knn.py",
-                   "cli/extract_cmds.py", "cli/ops_cmds.py", "tools/bench_serve.py"):
+                   "cli/extract_cmds.py", "cli/ops_cmds.py", "tools/bench_serve.py",
+                   "parallel/__init__.py", "parallel/mesh.py", "engine/simclr.py"):
         assert f"clibd_tpu_torch/{module}" in PORT_FILES
     assert len(PORT_FILES) >= 45, PORT_FILES
 
@@ -64,13 +65,17 @@ def _entry_points():
                                                method_nn, train_linear_probe)
     from clibd_tpu_torch.engine.verify_parity import verify_parity
     from clibd_tpu_torch.engine.serve import InferenceService, KeySet
+    from clibd_tpu_torch.engine.simclr import SimCLRTrainer
     from clibd_tpu_torch.engine.train import Trainer
     from clibd_tpu_torch.models import init_clibd_model, model_from_jax
     from clibd_tpu_torch.ops.knn import (find_k_closest_records, knn_search, make_prediction,
                                          prepare_keys)
+    from clibd_tpu_torch.parallel import create_mesh, maybe_initialize_distributed
     from clibd_tpu_torch.utils.profiling import PhaseTimer, StepTimer
 
-    return {"init_clibd_model": init_clibd_model, "model_from_jax": model_from_jax,
+    return {"create_mesh": create_mesh,
+            "maybe_initialize_distributed": maybe_initialize_distributed,
+            "SimCLRTrainer": SimCLRTrainer.__init__,"init_clibd_model": init_clibd_model, "model_from_jax": model_from_jax,
             "inference_and_eval": inference_and_eval,
             "prepare_keys": prepare_keys, "Trainer": Trainer.__init__, "knn_search": knn_search,
             "find_k_closest_records": find_k_closest_records, "make_prediction": make_prediction,
@@ -88,7 +93,8 @@ def _entry_points():
                                   "PhaseTimer", "InferenceService", "KeySet",
                                   "KeySet.from_arrays", "load_model_any", "verify_parity",
                                   "method_nn", "method_linear", "fit_frozen_probe",
-                                  "train_linear_probe", "fit_linear_probe"])
+                                  "train_linear_probe", "fit_linear_probe", "create_mesh",
+                                  "maybe_initialize_distributed", "SimCLRTrainer"])
 def test_entry_point_defaults_to_cuda(name):
     fn = _entry_points()[name]
     assert inspect.signature(fn).parameters["device"].default == "cuda"

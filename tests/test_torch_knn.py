@@ -157,9 +157,18 @@ def test_int8_with_rerank_equals_exact_fp32_topk():
 
 @pytest.mark.parametrize("call", ["knn_search_mesh", "knn_search_shard_keys", "prepare_keys_mesh"])
 def test_sharded_search_raises(call):
-    q = np.eye(3, 4, dtype=np.float32)
-    run = {"knn_search_mesh": lambda: port_knn.knn_search(q, q, mesh=object(), device="cpu"),
-           "knn_search_shard_keys": lambda: port_knn.knn_search(q, q, shard="keys", device="cpu"),
-           "prepare_keys_mesh": lambda: port_knn.prepare_keys(q, "cpu", mesh=object())}[call]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        run()
+    """The sharded calls, once raising, are ported: over the CPU named
+    twice each equals the unsharded search (tests/test_torch_sharded_knn.py
+    holds them against the JAX package)."""
+    rng = np.random.default_rng(23)
+    keys, q = _unit_rows(rng, 7, 4), _unit_rows(rng, 3, 4)
+    mesh = ["cpu", "cpu"]
+    want = port_knn.knn_search(q, keys, k=3, device="cpu")
+    got = {"knn_search_mesh": lambda: port_knn.knn_search(q, keys, k=3, mesh=mesh, device="cpu"),
+           "knn_search_shard_keys": lambda: port_knn.knn_search(q, keys, k=3, mesh=mesh,
+                                                                shard="keys", device="cpu"),
+           "prepare_keys_mesh": lambda: port_knn.knn_search(
+               q, port_knn.prepare_keys(keys, "cpu", mesh=mesh), k=3, keys_normalized=True,
+               shard="keys")}[call]()
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-6)

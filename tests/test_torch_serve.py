@@ -682,12 +682,34 @@ def test_keyset_from_arrays_equals_the_file_form(tmp_path, dtype):
 
 @pytest.mark.parametrize("where", ["service", "keyset"])
 def test_sharded_gallery_raises(served, where):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        if where == "service":
-            port_serve.InferenceService(served["model"], served["mc"], keys_mesh=object(),
-                                        device="cpu")
-        else:
-            port_serve.KeySet("unused.hdf5", mesh=object(), device="cpu")
+    """The key-sharded gallery, once raising, is ported: the fixture's
+    gallery sharded over two devices (the CPU named twice; 6 rows, 3 a
+    shard) answers as the unsharded one does, the service's search and a
+    KeySet's alike."""
+    svc = served["service"]
+    devices = ["cpu", "cpu"]
+    if where == "service":
+        sharded = port_serve.InferenceService(served["model"], served["mc"],
+                                              keys_path=svc.keys_path, keys_mesh=devices,
+                                              device="cpu", window_ms=1.0, buckets=(1,),
+                                              image_size=64, resize_to=72)
+        try:
+            for against in ("image", "dna"):
+                got = sharded.search(image_bytes=served["jpeg"], k=4, against=against)
+                want = svc.search(image_bytes=served["jpeg"], k=4, against=against)
+                assert got["image"]["predictions"] == want["image"]["predictions"]
+                np.testing.assert_allclose(got["image"]["scores"], want["image"]["scores"],
+                                           rtol=0, atol=1e-6)
+        finally:
+            sharded.close()
+        return
+    keys = port_serve.KeySet(svc.keys_path, mesh=devices, device="cpu")
+    assert all(len(f.shards) == 2 for f in keys.features.values())
+    q = served["rng"].normal(size=(3, served["mc"].output_dim)).astype(np.float32)
+    for key_type in keys.features:
+        got, want = keys.search(q, key_type, k=5), svc.keys.search(q, key_type, k=5)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-6)
 
 
 def test_bench_serve_accounting_on_the_cpu():

@@ -108,13 +108,29 @@ def test_resume_rejects_a_foreign_optimizer_state(tmp_path, splits):
 
 
 def test_options_not_ported_raise_in_training(tmp_path, splits):
-    """Only the multi-device paths raise, naming their ROADMAP item;
-    gradient-cache accumulation is ported."""
+    """The multi-device options, once raising, run on one process: the
+    gradient cache; `step_impl: shard_map` takes the multi-rank step, whose
+    update at W=1 is the global step's with the generator folded with rank
+    0 (bit for bit: no collective runs outside a group); and
+    `resume_multihost` is `resume` where the checkpoint exists, None where
+    it does not (tests/test_torch_multirank.py holds both at W=2)."""
     assert _trainer(tmp_path, splits, {"accum_steps": 2}).step_fn is not None
-    with pytest.raises(NotImplementedError, match="shard_map.*item 6"):
-        _trainer(tmp_path, splits, {"step_impl": "shard_map"})
-    with pytest.raises(NotImplementedError, match="multi-host.*item 6"):
-        _trainer(tmp_path, splits).resume_multihost(str(tmp_path))
+    sharded = _trainer(tmp_path / "s", splits, {"step_impl": "shard_map"})
+    plain = _trainer(tmp_path / "p", splits)
+    plain.model.load_state_dict(sharded.model.state_dict())
+    batch = port_train.to_device(next(splits["train"].batches()), torch.device("cpu"))
+    batch = {k: batch[k] for k in ("image", "dna", "language", "label")}
+    gen = port_train.batch_generator(torch.device("cpu"), 0, 0, 0)
+    loss_s = sharded.step_fn(batch, gen)
+    loss_p = plain.step_fn(batch, port_train.fold_in(gen, 0))
+    assert torch.equal(loss_s, loss_p)
+    for (n, p), q in zip(sharded.model.named_parameters(), plain.model.parameters()):
+        assert torch.equal(p, q), n
+    assert sharded.resume_multihost(str(tmp_path / "none")) is None
+    save_train_state(str(tmp_path / "ck"), sharded.model, sharded.optimizer, step=3, epoch=0)
+    assert plain.resume_multihost(str(tmp_path / "ck")) == 1 and plain.global_step == 3
+    for (n, p), q in zip(sharded.model.named_parameters(), plain.model.parameters()):
+        assert torch.equal(p, q), n
 
 
 TINY_TRAIN_EXP = """
