@@ -332,11 +332,45 @@ Phases, each of which raises on failure:
    The ranks' launches go into the kernels line under the path
    "multi_gpu".
 
+21. cli_tail: the rest of the command line (`cli/{ops,analysis}_cmds.py`),
+   the flagship at full width, seeded:
+   - leg 1, `bench`: the body of `tools/bench.py` (`cli bench`) on the
+     flagship's image and DNA towers, bf16, batch 256, 3 warm-up calls and
+     3 passes of 10: its JSON line (samples/s, the card's name and power
+     limit); exactly 24 forward launches a call (12 ViT + 12 BarcodeBERT,
+     under the path "bench") and no other kernel; finite unit-norm
+     embeddings; on 8 rows the kernels against the plain versions (cosine
+     >= 0.99 per row);
+   - leg 2, the attention-rollout probes of `analysis/attention_maps.py`
+     (plain torch, fp32, TF32 off): ViT-B/16 on 8 images (N=197),
+     BarcodeBERT at N=133 on 8 rows, and the overlap recipe's DNA tower at
+     N=657 with a key mask on 4 rows ([12, 4, 12, 657, 657] fp32 is 0.99 GB;
+     8 rows would be 2.0 GB).  Each: the card's probabilities against the
+     same function on the CPU on 2 rows (max |d| <= 1e-4), every row summing
+     to 1 within 1e-5, masked key columns < 1e-6, the rollout masks card
+     against CPU at cosine >= 0.999; each probe timed;
+   - leg 3, the device searches of `analysis/failure_cases.find_failures`
+     (with and without prepared keys) and `engine/retrieval_grid.
+     retrieval_records` (with and without only_failures) over synthetic
+     feature dicts, 500 queries against a 21,118 x 768 gallery: the card's
+     cases and records identical to the CPU's, each timed;
+   - leg 4, `doctor --device cuda --timeout 60 -e <flagship recipe>` in a
+     subprocess: rc 0, device status "ok" with the card's name, experiment
+     config "ok"; `configs` lists the YAMLs under clibd_tpu/config/configs/
+     (read as files), name for name.
+
 The INSECT HDF5 loader itself (`data/insect.py`) is held only on the CPU
 (tests/test_torch_insect.py): the card machine has no h5py, so phases 16-17
-feed the engines INSECT-shaped synthetic splits.
+feed the engines INSECT-shaped synthetic splits.  For the same reason (no
+h5py, matplotlib, pandas or sklearn there) the data commands (`create-splits`,
+`build-hdf5`, `subset-hdf5`, `generate-split-csv`, `fetch-taxonomy`), the
+figure writers and the CSV and plot commands (`flatten-csv`,
+`plot-embeddings`, `stats-summary`, `compare-experiments`,
+`confusion-matrices`, the figures of `attention-maps`, `failure-cases` and
+`eval`'s retrieval grids) are held only on the CPU
+(tests/test_torch_{data_cmds,analysis_cmds,attention_maps,retrieval_grid}.py).
 
-Phases 3-5 and 12-20 run with both opt-in kernels off, as the flagship
+Phases 3-5 and 12-21 run with both opt-in kernels off, as the flagship
 recipe does.
 The last three lines are the kernel summary JSON, the card line, and
 `{"ok": true, "device": {...}}`.
@@ -459,6 +493,14 @@ MULTI_GPU_EXTRACT_COSINE = 0.999
 MULTI_GPU_SIMCLR_BATCH = 210   # images a rank: phase 15's 420 over two ranks
 MULTI_GPU_TIMEOUT = 600        # seconds a group of ranks may take
 DP_LOSS_REL_TOL = ACCUM_LOSS_REL_TOL  # a data-parallel loss against one card's, as phase 14
+PROBE_IMAGES = 8            # phase 21: ViT and BarcodeBERT probes, rows on the card
+PROBE_OVERLAP_ROWS = 4      # N=657: [12, 4, 12, 657, 657] fp32 = 0.99 GB (8 rows: 2.0 GB)
+PROBE_CPU_ROWS = 2          # rows the CPU computes again
+PROBE_ATOL = 1e-4           # fp32 probabilities, card against CPU, TF32 off
+PROBE_ROW_SUM_TOL = 1e-5
+PROBE_MASKED_MAX = 1e-6     # probability on a masked key column
+ROLLOUT_COSINE_MIN = 0.999  # rollout masks, card against CPU, per row
+SEARCH_QUERIES = 500        # leg 3: queries against the GALLERY_ROWS x 768 gallery
 
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
@@ -4201,6 +4243,223 @@ def sharded_gallery_leg(card: str, device) -> None:
         torch.cuda.empty_cache()
 
 
+def _probe_leg(card: str, device, label: str, fn, rows: int, masked_cols=None) -> None:
+    """fn(device, n) → probabilities [L, n, H, N, N] of the first n rows on
+    that device: on the card for `rows` rows (timed), on the CPU for
+    PROBE_CPU_ROWS; the card's rows sum to 1, masked key columns
+    (masked_cols [rows, N] bool) hold nothing, and the first rows and their
+    rollout masks agree with the CPU's."""
+    import torch
+
+    from clibd_tpu_torch.analysis.attention_maps import attention_rollout
+
+    fn(device, 1)  # warm-up
+    sync(device)
+    t0 = time.perf_counter()
+    probs = fn(device, rows)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = fn(torch.device("cpu"), PROBE_CPU_ROWS)
+    t_cpu = time.perf_counter() - t0
+    err = float(np.abs(probs[:, :PROBE_CPU_ROWS] - ref).max())
+    row_err = float(np.abs(probs.sum(-1, dtype=np.float64) - 1.0).max())
+    masked = 0.0
+    if masked_cols is not None:
+        cols = np.broadcast_to(masked_cols[None, :, None, None, :], probs.shape)
+        masked = float(probs[cols].max()) if cols.any() else 0.0
+    card_masks = attention_rollout(probs[:, :PROBE_CPU_ROWS], layer_range=(1, -6))
+    cpu_masks = attention_rollout(ref, layer_range=(1, -6))
+    cos = min(float(c) for c in cosine_rows(torch.from_numpy(card_masks).double(),
+                                            torch.from_numpy(cpu_masks).double()))
+    L, B, H, N, _ = probs.shape
+    print(f"cli_tail attention probe {label}: [{L}, {B}, {H}, {N}, {N}] fp32 "
+          f"({probs.nbytes / 1e9:.2f} GB) on the card in {t_card * 1e3:.1f} ms (the copy to the "
+          f"host included), {PROBE_CPU_ROWS} rows on the CPU in {t_cpu:.2f} s; card vs CPU max "
+          f"|d| {err:.2e} (tol {PROBE_ATOL}), rows sum to 1 within {row_err:.1e}, masked key "
+          f"columns max {masked:.1e} ({0 if masked_cols is None else int(masked_cols.sum())} "
+          f"masked), rollout masks min cosine {cos:.6f}  [{card}]")
+    if not (err <= PROBE_ATOL and row_err <= PROBE_ROW_SUM_TOL and masked < PROBE_MASKED_MAX
+            and cos >= ROLLOUT_COSINE_MIN):
+        fail(f"cli_tail: the {label} attention probe on the card disagrees with the CPU or is "
+             "not a probability")
+
+
+def cli_tail_phase(card: str, entries: dict, device) -> None:
+    """Phase 21: `bench`'s body, the attention-rollout probes, the device
+    searches of `failure_cases` and `retrieval_grid`, `doctor` and
+    `configs`."""
+    import contextlib
+    import io
+    import subprocess
+
+    import torch
+
+    from clibd_tpu_torch.analysis.attention_maps import (bert_attention_probs,
+                                                         vit_attention_probs)
+    from clibd_tpu_torch.analysis.failure_cases import find_failures
+    from clibd_tpu_torch.config import load_config
+    from clibd_tpu_torch.data.tokenizers import tokenize_dna_batch_overlapping
+    from clibd_tpu_torch.engine.retrieval_grid import retrieval_records
+    from clibd_tpu_torch.models import init_clibd_model
+    from clibd_tpu_torch.models.bert import Bert
+    from clibd_tpu_torch.models.clibd import clibd_apply
+    from clibd_tpu_torch.ops.knn import prepare_keys
+    from clibd_tpu_torch.tools import bench
+
+    t_phase = time.perf_counter()
+    # leg 1: bench
+    cfg = bench.flagship_config()
+    model = init_clibd_model(cfg, torch.Generator().manual_seed(0), device)
+    n_layers = cfg.image.vit.num_layers + cfg.dna.bert.num_layers
+    calls = bench.WARMUP + bench.PASSES * bench.ITERS
+    reset_counts()
+    record = bench.run_bench(cfg, bench.BATCH, device, model=model)
+    counts = read_counts()
+    others = {n: c for n, c in counts.items() if n != "flash_attention_qkv"}
+    print(json.dumps(record))
+    print(f"cli_tail bench: {record['value']} samples/s (image+DNA, bf16, batch {bench.BATCH}, "
+          f"best of {bench.PASSES} passes of {bench.ITERS} calls); forward launches "
+          f"{counts['flash_attention_qkv']} (expected {n_layers} x {calls} calls)  [{card}]")
+    if counts["flash_attention_qkv"] != n_layers * calls or any(others.values()) \
+            or record["card"] != (card if device.type == "cuda" else None) \
+            or not record["value"] > 0:
+        fail(f"cli_tail bench launched {counts} or printed {record}")
+    add_launches(entries, "bench", counts)
+    image, dna = bench.bench_inputs(cfg, bench.BATCH, device)
+    with torch.inference_mode():
+        out = clibd_apply(model, cfg, image_input=image, dna_input=dna)
+    for m in ("image", "dna"):
+        norms = out[m].norm(dim=-1)
+        if out[m].shape != (bench.BATCH, cfg.output_dim) or not torch.isfinite(out[m]).all() \
+                or float((norms - 1).abs().max()) > 1e-3:
+            fail(f"cli_tail bench: {m} embeddings {tuple(out[m].shape)} not finite unit rows")
+
+    def eight():
+        with torch.inference_mode():
+            o = clibd_apply(model, cfg, image_input=image[:8], dna_input=dna[:8])
+        return [o["image"], o["dna"]]
+
+    kernel_vs_plain_cosine("cli_tail bench bf16 image and DNA embeddings (8 samples)", eight,
+                           rows=True)
+
+    # leg 2: the attention-rollout probes, fp32 with TF32 off
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("cli_tail: TF32 is on for fp32 matmuls; the probes are held in fp32")
+    rng = np.random.default_rng(2101)
+    vit_cfg, bert_cfg = cfg.image.vit, cfg.dna.bert
+    images = rng.standard_normal((PROBE_IMAGES, vit_cfg.image_size, vit_cfg.image_size, 3)
+                                 ).astype(np.float32)
+    _probe_leg(card, device, f"ViT-B/16 N={vit_cfg.seq_len}",
+               lambda d, n: vit_attention_probs(model.image_encoder, images[:n], vit_cfg, d),
+               PROBE_IMAGES)
+    ids = rng.integers(0, bert_cfg.vocab_size, (PROBE_IMAGES, 133)).astype(np.int32)
+    _probe_leg(card, device, "BarcodeBERT N=133",
+               lambda d, n: bert_attention_probs(model.dna_encoder, ids[:n], None, bert_cfg, d),
+               PROBE_IMAGES)
+    del model, out, image, dna
+    omc = load_config(experiment=OVERLAP).model_config
+    overlap = Bert(omc.dna.bert, head_dim=omc.output_dim)
+    overlap.reset_parameters(torch.Generator().manual_seed(omc.default_seed))
+    overlap.to(device)
+    barcodes = ["".join(rng.choice(list("ACGT"), int(n)))
+                for n in rng.integers(400, omc.dna.max_bp + 1, PROBE_OVERLAP_ROWS)]
+    o_ids, o_att = tokenize_dna_batch_overlapping(barcodes, k=omc.dna.kmer, stride=omc.dna.stride,
+                                                  max_bp=omc.dna.max_bp)
+    o_att = o_att[:, :o_ids.shape[1]]
+    if o_ids.shape[1] != 657:
+        fail(f"cli_tail: the overlap tokenizer gave N={o_ids.shape[1]}, expected 657")
+    _probe_leg(card, device, "overlap BarcodeBERT N=657 (key mask)",
+               lambda d, n: bert_attention_probs(overlap, o_ids[:n], o_att[:n], omc.dna.bert, d),
+               PROBE_OVERLAP_ROWS, masked_cols=o_att == 0)
+    del overlap
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # leg 3: the device searches over a gallery of BIOSCAN-1M's key count
+    dim = cfg.output_dim
+    species = [f"species_{i}" for i in rng.integers(0, 400, GALLERY_ROWS)]
+    keys = {m: unit_rows(rng, GALLERY_ROWS, dim) for m in ("encoded_image_feature",
+                                                            "encoded_dna_feature")}
+    keys.update(label_list=[dict.fromkeys(("order", "family", "genus"), "x") | {"species": s}
+                            for s in species],
+                processed_id_list=[f"key_{i}" for i in range(GALLERY_ROWS)])
+    planted = rng.integers(0, GALLERY_ROWS, SEARCH_QUERIES)
+    noise = 0.8 * unit_rows(rng, SEARCH_QUERIES, dim)
+    queries = {m: (keys[m][planted] + noise).astype(np.float32)
+               for m in ("encoded_image_feature", "encoded_dna_feature")}
+    q_species = [species[j] if i % 2 else f"species_{(int(j) + 1) % 400}"
+                 for i, j in enumerate(planted)]
+    queries.update(label_list=[dict.fromkeys(("order", "family", "genus"), "x") | {"species": s}
+                               for s in q_species],
+                   processed_id_list=[f"query_{i}" for i in range(SEARCH_QUERIES)])
+    pairs = [("encoded_image_feature", "encoded_image_feature"),
+             ("encoded_image_feature", "encoded_dna_feature"),
+             ("encoded_dna_feature", "encoded_dna_feature")]
+    cpu = torch.device("cpu")
+    timed = {}
+    for name, run in (
+            ("find_failures", lambda d: find_failures(
+                queries, keys, *pairs[0], max_cases=SEARCH_QUERIES, device=d)),
+            ("find_failures (prepared keys)", lambda d: find_failures(
+                queries, keys, *pairs[2], max_cases=SEARCH_QUERIES,
+                keys_prepared=prepare_keys(keys[pairs[2][1]], device=d), device=d)),
+            ("retrieval_records", lambda d: retrieval_records(
+                queries, keys, pairs, num_queries=SEARCH_QUERIES, max_k=3, device=d)),
+            ("retrieval_records only_failures", lambda d: retrieval_records(
+                queries, keys, pairs, num_queries=SEARCH_QUERIES, max_k=3, only_failures=True,
+                device=d))):
+        run(device)
+        sync(device)
+        t0 = time.perf_counter()
+        got = run(device)
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = run(cpu)
+        timed[name] = (t_card, time.perf_counter() - t0)
+        n = len(got) if name.startswith("find") else len(got[1])
+        if got != want or not n:
+            fail(f"cli_tail: {name} on the card differs from the CPU's (or found nothing)")
+        print(f"cli_tail {name}: {SEARCH_QUERIES} queries x {GALLERY_ROWS} x {dim} keys, "
+              f"{n} {'cases' if name.startswith('find') else 'records'} identical on the card "
+              f"and the CPU; card {t_card * 1e3:.1f} ms, CPU {timed[name][1] * 1e3:.1f} ms  "
+              f"[{card}]")
+
+    # leg 4: doctor and configs
+    repo = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "clibd_tpu_torch.cli", "doctor", "--device",
+                           device.type, "--timeout", "60", "-e", EXPERIMENT], cwd=repo,
+                          capture_output=True, text=True, timeout=180)
+    t_doctor = time.perf_counter() - t0
+    try:
+        report = json.loads(proc.stdout[proc.stdout.index("{"):])
+    except ValueError:
+        fail(f"cli_tail doctor printed no report (rc {proc.returncode}): "
+             f"{proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+    dev = report.get("device", {})
+    print(f"cli_tail doctor --device {device.type} -e {EXPERIMENT}: rc {proc.returncode}, status "
+          f"{report.get('status')}, device {dev.get('status')} {dev.get('device_name')} "
+          f"x{dev.get('device_count')}, round trip {dev.get('device_roundtrip_s')} s, native "
+          f"decoder {report.get('native_decoder', {}).get('status')}, experiment config "
+          f"{report.get('experiment', {}).get('config')}; the process {t_doctor:.1f} s")
+    if proc.returncode != 0 or dev.get("status") != "ok" or (
+            device.type == "cuda" and dev.get("device_name") != torch.cuda.get_device_name(0)) \
+            or report.get("experiment", {}).get("config") != "ok":
+        fail(f"cli_tail doctor: {report}")
+    from clibd_tpu_torch.cli import main as cli_main
+
+    listing = io.StringIO()
+    with contextlib.redirect_stdout(listing):
+        rc = cli_main(["configs"])
+    names = listing.getvalue().split()
+    yamls = sorted(p.relative_to(repo / "clibd_tpu/config/configs").as_posix()
+                   for p in (repo / "clibd_tpu/config/configs").rglob("*.yaml"))
+    print(f"cli_tail configs: rc {rc}, {len(names)} names, {len(yamls)} YAML files")
+    if rc != 0 or names != yamls:
+        fail("cli_tail configs does not list the bundled YAMLs")
+    print(f"cli_tail: the phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def load_config_feature():
     """The flagship with `image.input_type: feature` over FEATURE_DIM-wide
     image features (the MLP encoder of `models/mlp.py`)."""
@@ -4278,6 +4537,7 @@ def main() -> int:
         method_nn_phase(card, entries, cuda)
         zeroshot_phase(card, entries, cuda)
         multi_gpu_phase(card, entries, cuda)
+        cli_tail_phase(card, entries, cuda)
     if "jax" in sys.modules or any(m == "clibd_tpu" or m.startswith("clibd_tpu.")
                                    for m in sys.modules):
         fail("jax or the JAX package was imported: the port must run without them")

@@ -1,6 +1,8 @@
 """`eval`: the port of `clibd_tpu/cli/eval_cmds.py::cmd_eval` -- extract
 all_keys / {eval_on}_seen / {eval_on}_unseen, write the embedding cache, run
-the kNN grid, print the reference's table and write its reports; with
+the kNN grid, the retrieval grids (`retrieve_images`) and the similarity
+distributions (`similarity_distributions`) where the config asks for them,
+print the reference's table and write its reports; with
 `--unimodel`, of a SimCLR-pretrained image encoder alone; `zeroshot`
 (`cmd_zeroshot`, `:180-298`) and `method-nn` (`cmd_method_nn`, `:299-495`),
 thin commands over `engine/downstream.py`; and `verify-parity`
@@ -14,11 +16,6 @@ import os
 import torch
 
 from .common import _dataset_hdf5_path, _extract_split_auto, _load_cfg, _resolve_params
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to clibd_tpu_torch yet "
-                               "(ROADMAP.md Queue 1: the other CLI commands and options)")
 
 
 def unimodel_config(cfg, simclr_ckpt: str):
@@ -50,10 +47,6 @@ def cmd_eval(args, overrides) -> int:
     if getattr(args, "unimodel", None):
         unimodel_config(cfg, args.unimodel)
     settings = cfg.inference_and_eval_setting
-    if settings.retrieve_images:
-        raise _not_ported("inference_and_eval_setting.retrieve_images")
-    if settings.similarity_distributions:
-        raise _not_ported("inference_and_eval_setting.similarity_distributions")
     device = torch.device(args.device)
     timing = PhaseTimer(device)  # reported when CLIBD_EVAL_TIMING=1
 
@@ -102,6 +95,30 @@ def cmd_eval(args, overrides) -> int:
             query_chunk=settings.knn_query_chunk, with_preds=bool(cfg.save_inference and main),
             device=device)
 
+    if settings.retrieve_images and main:
+        from ..engine.retrieval_grid import retrieve_images_multi
+
+        rs = settings.retrieve_settings
+        pairs = [(q, k) for q in ("encoded_image_feature", "encoded_dna_feature")
+                 for k in ("encoded_image_feature", "encoded_dna_feature")
+                 if seen_dict.get(q) is not None and keys_dict.get(k) is not None]
+        with timing.phase("retrieval image grids"):
+            retrieve_images_multi(
+                os.path.join(folder, "retrieval"), hdf5, f"{eval_on}_seen", "all_keys",
+                seen_dict, keys_dict,
+                query_keys=pairs or [("encoded_image_feature", "encoded_image_feature")],
+                num_queries=rs.num_queries, max_k=rs.max_k, seed=rs.seed,
+                independent=rs.independent, load_cached_results=rs.load_cached_results,
+                only_failures=rs.only_failures, device=device)
+    if settings.similarity_distributions and main:
+        from ..analysis.distributions import (plot_similarity_distributions,
+                                              similarity_distribution_rows, write_distance_csv)
+
+        with timing.phase("similarity distributions"):
+            rows = similarity_distribution_rows(keys_dict, seen_dict, unseen_dict)
+            write_distance_csv(rows, os.path.join(folder, "similarity_distances.csv"))
+            plot_similarity_distributions(rows,
+                                          os.path.join(folder, "similarity_distributions.png"))
     if settings.plot_embeddings and main:
         from ..analysis.plots import generate_embedding_plot
 

@@ -274,11 +274,12 @@ def test_cli_eval_end_to_end(tiny_hdf5, tmp_path):
     assert "Loading embeddings from file" in proc.stdout and "Seen Order" in proc.stdout
 
 
-def test_options_not_ported_raise(tmp_path):
-    """The sharded gallery is ported: prepare_keys(mesh=) and a sharded
-    knn_search equal the unsharded search, and `serve --shard-keys --device
-    cpu` answers a /search request.  The image retrieval grids and the
-    similarity distributions still raise."""
+def test_options_not_ported_raise(tmp_path, tiny_hdf5):
+    """Every option is ported now, and none raises.  The sharded gallery:
+    prepare_keys(mesh=) and a sharded knn_search equal the unsharded search,
+    and `serve --shard-keys --device cpu` answers a /search request.  The
+    image retrieval grids and the similarity distributions: `eval` writes
+    them (held against the JAX package in tests/test_torch_retrieval_grid.py)."""
     rng = np.random.default_rng(29)
     keys = rng.standard_normal((5, 4)).astype(np.float32)
     q = rng.standard_normal((3, 4)).astype(np.float32)
@@ -317,12 +318,15 @@ def test_options_not_ported_raise(tmp_path):
     finally:
         proc.terminate()
         proc.communicate(timeout=60)
-    proc = _run_cli(tmp_path, "inference_and_eval_setting.retrieve_images=true")
-    assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
-    # eval --unimodel is ported (tests/test_torch_simclr.py); the similarity
-    # distributions are not
-    proc = _run_cli(tmp_path, "inference_and_eval_setting.similarity_distributions=true")
-    assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
+    proc = _run_cli(tmp_path, "--hdf5", tiny_hdf5,
+                    "inference_and_eval_setting.retrieve_images=true",
+                    "inference_and_eval_setting.similarity_distributions=true",
+                    "inference_and_eval_setting.plot_embeddings=false")
+    assert proc.returncode == 0 and "NotImplementedError" not in proc.stderr, proc.stderr[-3000:]
+    folder = tmp_path / "extracted_embedding" / "bioscan_1m" / "tiny_torch"
+    for name in ("retrieval/retrieved_images.json", "similarity_distances.csv",
+                 "similarity_distributions.png"):
+        assert (folder / name).stat().st_size > 0, name
 
 
 def test_port_imports_no_jax():

@@ -39,9 +39,15 @@ def test_the_walk_covers_the_port():
         assert f"clibd_tpu_torch/tools/{tool}.py" in PORT_FILES
     for module in ("engine/train.py", "engine/serve.py", "engine/extract.py", "ops/knn.py",
                    "cli/extract_cmds.py", "cli/ops_cmds.py", "tools/bench_serve.py",
-                   "parallel/__init__.py", "parallel/mesh.py", "engine/simclr.py"):
+                   "parallel/__init__.py", "parallel/mesh.py", "engine/simclr.py",
+                   "engine/retrieval_grid.py", "analysis/__init__.py", "analysis/attention_maps.py",
+                   "analysis/failure_cases.py", "analysis/distributions.py", "analysis/tables.py",
+                   "analysis/statistics.py", "analysis/per_class.py", "analysis/compare.py",
+                   "data/bins.py", "data/splits.py", "data/builders.py", "data/builders_5m.py",
+                   "data/subset.py", "data/ncbi.py", "cli/data_cmds.py", "cli/analysis_cmds.py",
+                   "tools/bench.py"):
         assert f"clibd_tpu_torch/{module}" in PORT_FILES
-    assert len(PORT_FILES) >= 45, PORT_FILES
+    assert len(PORT_FILES) >= 65, PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES)
@@ -72,8 +78,19 @@ def _entry_points():
                                          prepare_keys)
     from clibd_tpu_torch.parallel import create_mesh, maybe_initialize_distributed
     from clibd_tpu_torch.utils.profiling import PhaseTimer, StepTimer
+    from clibd_tpu_torch.analysis.attention_maps import (bert_attention_probs, encoder_tensors,
+                                                         vit_attention_probs)
+    from clibd_tpu_torch.analysis.failure_cases import find_failures, save_paired_failure_cases
+    from clibd_tpu_torch.engine.retrieval_grid import (retrieval_records, retrieve_images,
+                                                       retrieve_images_multi)
+    from clibd_tpu_torch.tools.bench import run_bench
 
-    return {"create_mesh": create_mesh,
+    return {"vit_attention_probs": vit_attention_probs,
+            "bert_attention_probs": bert_attention_probs, "encoder_tensors": encoder_tensors,
+            "find_failures": find_failures, "save_paired_failure_cases": save_paired_failure_cases,
+            "retrieval_records": retrieval_records, "retrieve_images": retrieve_images,
+            "retrieve_images_multi": retrieve_images_multi, "run_bench": run_bench,
+            "create_mesh": create_mesh,
             "maybe_initialize_distributed": maybe_initialize_distributed,
             "SimCLRTrainer": SimCLRTrainer.__init__,"init_clibd_model": init_clibd_model, "model_from_jax": model_from_jax,
             "inference_and_eval": inference_and_eval,
@@ -94,7 +111,11 @@ def _entry_points():
                                   "KeySet.from_arrays", "load_model_any", "verify_parity",
                                   "method_nn", "method_linear", "fit_frozen_probe",
                                   "train_linear_probe", "fit_linear_probe", "create_mesh",
-                                  "maybe_initialize_distributed", "SimCLRTrainer"])
+                                  "maybe_initialize_distributed", "SimCLRTrainer",
+                                  "vit_attention_probs", "bert_attention_probs",
+                                  "encoder_tensors", "find_failures", "save_paired_failure_cases",
+                                  "retrieval_records", "retrieve_images", "retrieve_images_multi",
+                                  "run_bench"])
 def test_entry_point_defaults_to_cuda(name):
     fn = _entry_points()[name]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -102,7 +123,8 @@ def test_entry_point_defaults_to_cuda(name):
 
 @pytest.mark.parametrize("command", ["train", "eval", "extract", "extract-single", "serve",
                                      "verify-parity", "finetune", "bzsl-extract", "method-nn",
-                                     "zeroshot"])
+                                     "zeroshot", "attention-maps", "failure-cases", "doctor",
+                                     "bench"])
 def test_cli_defaults_to_cuda_with_no_fallback(command):
     proc = subprocess.run([sys.executable, "-m", "clibd_tpu_torch.cli", command, "--help"],
                           cwd=REPO, capture_output=True, text=True, timeout=120)
@@ -184,3 +206,31 @@ def test_export_and_serve_commands_need_the_card(argv, tmp_path):
     assert proc.returncode != 0
     assert "CUDA" in proc.stderr or "cuda" in proc.stderr, proc.stderr[-2000:]
     assert "serving on" not in proc.stdout
+
+
+ANALYSIS_IMPORT = """
+import torch
+calls = []
+real = torch.cuda._lazy_init
+torch.cuda._lazy_init = lambda: calls.append(1) or real()
+import clibd_tpu_torch.analysis as analysis
+names = list(analysis.__all__)
+for name in names:
+    exec(f"from clibd_tpu_torch.analysis import {name}")
+print(len(names), "names;", "lazy_init calls:", len(calls), torch.cuda.is_initialized())
+"""
+
+
+def test_the_analysis_package_exports_the_jax_names_without_cuda():
+    """`clibd_tpu_torch.analysis` exports the 32 names of clibd_tpu's
+    (`analysis/__init__.py`), each importable with CUDA left untouched."""
+    tree = ast.parse((REPO / "clibd_tpu" / "analysis" / "__init__.py").read_text())
+    want = next(ast.literal_eval(n.value) for n in tree.body if isinstance(n, ast.Assign)
+                and n.targets[0].id == "__all__")
+    import clibd_tpu_torch.analysis as analysis
+
+    assert list(analysis.__all__) == want and len(want) == 32
+    proc = subprocess.run([sys.executable, "-c", ANALYSIS_IMPORT], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "32 names; lazy_init calls: 0 False" in proc.stdout

@@ -29,6 +29,26 @@ def tiny_cfg(cls=ExperimentConfig, bert=BertConfig, vit=ViTConfig, **over):
     return cfg
 
 
+def numpy_params(init, seed, block_std=0.02):
+    """A weight set in the JAX package's layout for `init(key)`, from numpy
+    seeded by `seed`, the tree's shapes traced and `init` not run (its
+    op-by-op run takes seconds): LayerNorm scales 1, biases 0, the stacked
+    blocks' matrices N(0, block_std) and every other weight N(0, 0.02)."""
+    shapes = jax.eval_shape(init, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, shape):
+        name = path[-1].key
+        if name.endswith("scale"):
+            return np.ones(shape.shape, np.float32)
+        if name in ("b", "bias") or name.endswith(("_b", "_bias")):
+            return np.zeros(shape.shape, np.float32)
+        std = block_std if len(path) > 1 and path[-2].key == "blocks" else 0.02
+        return (rng.standard_normal(shape.shape) * std).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
 def port_tiny_cfg(**over):
     return tiny_cfg(port_schema.ExperimentConfig, port_schema.BertConfig, port_schema.ViTConfig,
                     **over)
