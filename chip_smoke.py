@@ -304,12 +304,18 @@ Phases, each of which raises on failure:
      multi-rank step (`step_impl: shard_map`) against the single-card
      `Trainer` on the same batches and generators (folded with rank 0):
      losses and params within 1e-6 relative (bit-identity printed); (28,
-     28) launches a step;
+     28) launches a step; leg 1b, in the same group, the gradient cache
+     across ranks (`make_accum_grad_fn(mesh=)`) at k=2 on one batch of 500
+     against the single-card k=2 cache on the same batch and generator:
+     the loss and every gradient bit for bit, (112, 56) launches;
    - two gloo ranks on the one card, 250 rows a rank (global 500): leg 2,
      one multi-rank gradient step (augmentation the identity) against the
      single-card batch-500 step on the same rows (loss within 1e-2 x
      |loss|, every gradient at cosine >= 0.99), its time, the gradient
-     all-reduce's time, each rank's peak memory; then `Trainer.fit` for one
+     all-reduce's time, each rank's peak memory; leg 2b, the gradient cache
+     across the two ranks at k=2 (microbatches of 125) on the same rows
+     against the same single-card step, at the same bounds, (112, 56)
+     launches on each rank, its time and peak memory; then `Trainer.fit` for one
      epoch (2 steps) and its eval over host-sharded `SyntheticSplit`s, (28,
      28) launches a step on each rank, both ranks' losses and eval equal,
      checkpoints written by rank 0 alone; leg 3, `extract_split_multihost`
@@ -359,6 +365,42 @@ Phases, each of which raises on failure:
      config "ok"; `configs` lists the YAMLs under clibd_tpu/config/configs/
      (read as files), name for name.
 
+22. tools: the ports of the repository's root tools/ harnesses
+   (`clibd_tpu_torch/tools/`) as a user runs them, the flagship's widths,
+   seeded, the kernels' launches counted under the path "tools":
+   - leg 1, `bench_train`: its two default cells (batch 128 image + DNA with
+     LoRA rank 4, remat "attn"; batch 500 tri-modal full fine-tune, remat
+     "attn"), batch 500 with the "dots", "none" and "attn+mlp" policies,
+     batch 128 with no remat ("off"; at 500 it holds 67.79 GiB), and batch
+     500 through the gradient cache at k=4, each 1 warm-up step and 2 timed
+     (the tool's own default: 2 and 3 passes of 8): ms a step, samples/s,
+     the loss, peak memory; launches per step layers x (2 where the policy
+     recomputes the attention, else 1) forward and layers backward, at k=4
+     layers x 4 x (1 + that) forward and layers x 4 backward; an
+     out-of-memory cell fails the phase;
+   - leg 2, `rehearse`: the flagship's widths with LoRA over the
+     learnable records (128 a split, 8 species) for 8 epochs of batch 32:
+     the loss must fall and overall_acc rise (both printed), with the
+     decoder it took;
+   - leg 3, `exp_bwd_floor`: the floor table (PERF.md's bound, 0.3161 and
+     0.2134 ms at B=500) and the backward kernel alone at ViT N=197 and
+     BarcodeBERT N=133 (8 keys masked) against its floor and SDPA's
+     backward, 16 rows held against its plain version;
+   - leg 4, `exp_prof`: the image and the DNA tower alone at batch 256
+     (both towers together is phase 21's `bench`);
+   - leg 5, `exp_block` and `exp_bert` at their default variants (plain
+     PyTorch, no kernel), each variant within 2^-4 of max |base| of its
+     base, timed with CUDA events;
+   - leg 6, `bench_knn`: the 42 searches of 40,000 seen and 8,000 unseen
+     queries against 21,118 keys (x3 for all_key_features) on the card, the
+     first 256 queries of each again on the CPU: the scores within 1e-5 and
+     the top-5 identical but where two keys' scores lie within 1e-5 (an
+     order fp32 sums may flip; the count printed); then the whole
+     `inference_and_eval`; both times printed.
+   The card machine has no h5py, so the harnesses that read or write HDF5
+   (`bench_eval`, `bench_extract`, `bench_pipeline`, the soaks) are held
+   only on the CPU (tests/test_torch_tools_{benches,train,soaks}.py).
+
 The INSECT HDF5 loader itself (`data/insect.py`) is held only on the CPU
 (tests/test_torch_insect.py): the card machine has no h5py, so phases 16-17
 feed the engines INSECT-shaped synthetic splits.  For the same reason (no
@@ -370,7 +412,7 @@ figure writers and the CSV and plot commands (`flatten-csv`,
 `eval`'s retrieval grids) are held only on the CPU
 (tests/test_torch_{data_cmds,analysis_cmds,attention_maps,retrieval_grid}.py).
 
-Phases 3-5 and 12-21 run with both opt-in kernels off, as the flagship
+Phases 3-5 and 12-22 run with both opt-in kernels off, as the flagship
 recipe does.
 The last three lines are the kernel summary JSON, the card line, and
 `{"ok": true, "device": {...}}`.
@@ -488,6 +530,7 @@ ZEROSHOT_SEED = 19
 MULTI_GPU_TRAIN_ROWS = 1000   # leg 2's Trainer at W=2: two steps of 250 a rank (global 500)
 MULTI_GPU_EVAL_ROWS = {"all_keys": 1101, "val_seen": 250, "val_unseen": 250}  # 1101: odd
 MULTI_GPU_NCCL_STEPS = 3
+MULTI_GPU_ACCUM_K = 2          # the gradient cache across ranks: microbatches a rank a step
 MULTI_GPU_NCCL_REL_TOL = 1e-6  # NCCL W=1 against the single-card trainer, relative
 MULTI_GPU_EXTRACT_COSINE = 0.999
 MULTI_GPU_SIMCLR_BATCH = 210   # images a rank: phase 15's 420 over two ranks
@@ -503,6 +546,18 @@ ROLLOUT_COSINE_MIN = 0.999  # rollout masks, card against CPU, per row
 SEARCH_QUERIES = 500        # leg 3: queries against the GALLERY_ROWS x 768 gallery
 
 
+# bench_train's (batch, policy, accum_steps) cells: its two defaults, every
+# other remat policy ("off" at 128: at 500 it holds 67.79 GiB), the cache at k=4
+TOOLS_TRAIN_CELLS = ((128, None, 1), (500, None, 1), (500, "dots", 1), (500, "none", 1),
+                     (500, "attn+mlp", 1), (128, "off", 1), (500, None, 4))
+TOOLS_TRAIN_TIMING = {"warmup": 1, "iters": 2, "passes": 1}   # cut from 2 + 3 passes of 8
+TOOLS_REHEARSE = (8, 32)       # the rehearsal's epochs and batch (rehearse_tpu.py's)
+TOOLS_KNN = (40000, 8000, 21118)  # bench_knn's seen, unseen queries and keys
+TOOLS_KNN_CPU_ROWS = 256       # queries of each split the CPU searches again
+KNN_TIE_TOL = 1e-5             # scores card against CPU; a swapped pair must be this close
+# exp_block / exp_bert: a variant against base, of max |base|: 8 bf16 ulps (2^-7 each); the
+# variants change LayerNorm's and GELU's arithmetic in each of 12 layers (4 ulps on the CPU)
+ABLATION_REL_TOL = 2 ** -4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores, published
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores, published
@@ -3711,6 +3766,53 @@ def _nccl_leg(payload: dict, mesh, device) -> dict:
             "batch": mc.batch_size, "rates": b["rates"], "single_rates": a["rates"]}
 
 
+def _nccl_accum_leg(payload: dict, mesh, device) -> dict:
+    """Leg 1b: the gradient cache at k=MULTI_GPU_ACCUM_K in the group of one
+    NCCL rank (`make_accum_grad_fn(mesh=)`: the gather, the sharded loss
+    and the gradient all-reduce) against the single-card cache on the same
+    batch and generator (folded with rank 0, as the group's step folds it):
+    the loss and every gradient bit for bit."""
+    import torch
+
+    from clibd_tpu_torch.data import SyntheticSplit
+    from clibd_tpu_torch.engine import train as train_mod
+    from clibd_tpu_torch.engine.extract import to_device
+    from clibd_tpu_torch.models import init_clibd_model
+
+    mc = payload["gcfg"].model_config
+    k = MULTI_GPU_ACCUM_K
+    batch = next(SyntheticSplit("train", mc.batch_size, mc, seed=52, drop_last=True).batches())
+    batch = to_device({key: v for key, v in batch.items() if key != "index"}, device)
+    model = init_clibd_model(mc, torch.Generator().manual_seed(mc.default_seed), device)
+    gen = train_mod.batch_generator(device, mc.default_seed, 0, 0)
+    runs = {}
+    for name, grad_mesh, g in (("single card", None, train_mod.fold_in(gen, 0)),
+                               ("nccl", mesh, gen)):
+        model.zero_grad(set_to_none=True)
+        grad_fn = train_mod.make_accum_grad_fn(mc, model, k, grad_mesh)
+        reset_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        loss = grad_fn(batch, g)
+        sync(device)
+        runs[name] = {"loss": float(loss), "ms": (time.perf_counter() - t0) * 1e3,
+                      "counts": read_counts(),
+                      "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                                if p.grad is not None}}
+    a, b = runs["single card"], runs["nccl"]
+    identical = a["loss"] == b["loss"] and set(a["grads"]) == set(b["grads"]) and all(
+        torch.equal(b["grads"][n], g) for n, g in a["grads"].items())
+    out = {"k": k, "loss": b["loss"], "single_loss": a["loss"], "bit_identical": identical,
+           "ms": b["ms"], "single_ms": a["ms"], "counts": b["counts"],
+           "per_step": (b["counts"]["flash_attention_qkv"],
+                        b["counts"]["flash_attention_qkv_bwd"]),
+           "tensors": len(a["grads"])}
+    del runs, model, batch
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def _dp_step_leg(payload: dict, mesh, device) -> dict:
     """Leg 2, the compared step: the multi-rank gradients of the global batch
     (identity augmentation) against the single-card step on the same rows,
@@ -3791,6 +3893,30 @@ def _dp_step_leg(payload: dict, mesh, device) -> dict:
             if abs(loss - ref_loss) > DP_LOSS_REL_TOL * abs(ref_loss) or cos < COSINE_MIN:
                 fail(f"multi_gpu W={mesh.size}: loss {loss} against {ref_loss}, min gradient "
                      f"cosine {cos} at {worst}")
+        # the gradient cache across the ranks on the same rows, k microbatches a rank
+        del grads
+        model.zero_grad(set_to_none=True)
+        accum_fn = train_mod.make_accum_grad_fn(mc, model, MULTI_GPU_ACCUM_K, mesh)
+        dist.barrier()
+        sync(device)
+        reset_peak(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        aloss = float(accum_fn(local, None))
+        sync(device)
+        counts = read_counts()
+        acc = {"k": MULTI_GPU_ACCUM_K, "loss": aloss, "step_ms": (time.perf_counter() - t0) * 1e3,
+               "peak_gib": peak_gib(device), "counts": counts,
+               "per_step": (counts["flash_attention_qkv"], counts["flash_attention_qkv_bwd"])}
+        if mesh.rank == 0:
+            agrads = {n: p.grad.float().cpu() for n, p in trainable}
+            cos, worst, n = _grad_cosines(agrads, ref)
+            acc.update(ref_loss=ref_loss, min_cosine=cos, worst=worst, tensors=n)
+            if abs(aloss - ref_loss) > DP_LOSS_REL_TOL * abs(ref_loss) or cos < COSINE_MIN:
+                fail(f"multi_gpu W={mesh.size} accum k={MULTI_GPU_ACCUM_K}: loss {aloss} against "
+                     f"{ref_loss}, min gradient cosine {cos} at {worst}")
+            del agrads
+        out["accum"] = acc
     finally:
         train_mod.train_augment = real_augment
     del model
@@ -4019,6 +4145,8 @@ def multi_gpu_rank_main(payload_path: str, work: str) -> int:
                     out[leg] = _dp_step_leg(payload, mesh, device)
                 elif leg == "dp_trainer":
                     out[leg] = _dp_trainer_leg(payload, mesh, device, work)
+                elif leg == "nccl_accum":
+                    out[leg] = _nccl_accum_leg(payload, mesh, device)
                 elif leg == "dp_simclr":
                     out[leg] = _dp_simclr_leg(payload, mesh, device)
                 out[leg]["leg_seconds"] = time.perf_counter() - t0
@@ -4052,7 +4180,7 @@ def multi_gpu_phase(card: str, entries: dict, device) -> None:
     B = gcfg.model_config.batch_size
     with tempfile.TemporaryDirectory(prefix="clibd_multi_gpu_") as work:
         t0 = time.perf_counter()
-        nccl = run_rank_group(1, {"legs": ["nccl"], "device": device.type,
+        nccl = run_rank_group(1, {"legs": ["nccl", "nccl_accum"], "device": device.type,
                                   "backend": "nccl" if device.type == "cuda" else "gloo",
                                   "gcfg": gcfg}, os.path.join(work, "nccl"))[0]
         t_nccl = time.perf_counter() - t0
@@ -4073,6 +4201,17 @@ def multi_gpu_phase(card: str, entries: dict, device) -> None:
                 or {tuple(s) for s in r["per_step"]} != {(n_layers, n_layers)}):
             fail("multi_gpu leg 1: the NCCL multi-rank Trainer differs from the single-card one")
         launches = dict(r["counts"])
+        a = nccl["nccl_accum"]
+        k = a["k"]
+        print(f"multi_gpu leg 1b, the gradient cache at k={k} in the {r['backend']} group of one "
+              f"rank (batch {B}): loss {a['loss']:.6f} against the single-card k={k} cache's "
+              f"{a['single_loss']:.6f}, every one of {a['tensors']} gradients and the loss bit for "
+              f"bit: {a['bit_identical']}; launches {a['per_step']} (expected ({2 * k * n_layers}, "
+              f"{k * n_layers})); {a['ms']:.1f} ms against {a['single_ms']:.1f} ms  [{card}]")
+        if not a["bit_identical"] or tuple(a["per_step"]) != (2 * k * n_layers, k * n_layers):
+            fail("multi_gpu leg 1b: the group's gradient cache differs from the single card's")
+        for name, n in a["counts"].items():
+            launches[name] = launches.get(name, 0) + n
 
         t0 = time.perf_counter()
         ranks = run_rank_group(2, {"legs": ["dp_step", "dp_trainer", "dp_simclr"],
@@ -4086,9 +4225,9 @@ def multi_gpu_phase(card: str, entries: dict, device) -> None:
         t_gloo = time.perf_counter() - t0
     _report_gloo(card, ranks, n_layers, B, t_gloo)
     for o in ranks:
-        for leg, key in (("dp_trainer", "counts"), ("dp_trainer", "extract_counts"),
-                         ("dp_simclr", "counts")):
-            for name, n in o[leg][key].items():
+        for counts in (o["dp_trainer"]["counts"], o["dp_trainer"]["extract_counts"],
+                       o["dp_simclr"]["counts"], o["dp_step"]["accum"]["counts"]):
+            for name, n in counts.items():
                 launches[name] = launches.get(name, 0) + n
     add_launches(entries, "multi_gpu", launches)
     sharded_gallery_leg(card, device)
@@ -4125,6 +4264,20 @@ def _report_gloo(card: str, ranks: list, n_layers: int, B: int, seconds: float) 
               f"memory {d['peak_gib']:.2f} GiB  [{card}]")
         if tuple(d["per_step"]) != (n_layers, n_layers):
             fail(f"multi_gpu leg 2 rank {r}: the step launched {d['per_step']}")
+    a = main["dp_step"]["accum"]
+    k = a["k"]
+    print(f"multi_gpu leg 2b, the gradient cache across 2 gloo ranks, k={k} microbatches of "
+          f"{B // 2 // k} a rank: loss {a['loss']:.6f} against the single-card batch-{B} "
+          f"monolithic step's {a['ref_loss']:.6f} (|d| {abs(a['loss'] - a['ref_loss']):.3e}, tol "
+          f"{DP_LOSS_REL_TOL} x |loss|); gradient min cosine {a['min_cosine']:.6f} at "
+          f"{a['worst']} over {a['tensors']} tensors (need >= {COSINE_MIN})")
+    for r, o in enumerate(ranks):
+        d = o["dp_step"]["accum"]
+        print(f"multi_gpu leg 2b rank {r}: one k={k} step {d['step_ms']:.1f} ms (both ranks on one "
+              f"card), launches {tuple(d['per_step'])} (expected ({2 * k * n_layers}, "
+              f"{k * n_layers})), peak device memory {d['peak_gib']:.2f} GiB  [{card}]")
+        if tuple(d["per_step"]) != (2 * k * n_layers, k * n_layers):
+            fail(f"multi_gpu leg 2b rank {r}: the step launched {d['per_step']}")
     t0, t1 = main["dp_trainer"], other["dp_trainer"]
     print(f"multi_gpu leg 2, Trainer at W={t0['world_size']}: losses {t0['losses']} (rank 1 "
           f"{t1['losses']}), eval {t0['overall_acc']}; launches per step "
@@ -4460,6 +4613,118 @@ def cli_tail_phase(card: str, entries: dict, device) -> None:
     print(f"cli_tail: the phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+def tools_phase(card: str, entries: dict, device) -> None:
+    """Phase 22: the ports of the repository's root tools/ harnesses as a
+    user runs them, each leg's kernel launches counted under "tools"."""
+    import torch
+
+    from clibd_tpu_torch.tools import (bench_knn, bench_train, exp_bert, exp_block,
+                                       exp_bwd_floor, exp_prof, rehearse)
+
+    t_phase = time.perf_counter()
+    total = {}
+    fwd, bwd = "flash_attention_qkv", "flash_attention_qkv_bwd"
+
+    def take(leg: str, counts: dict, want: tuple) -> None:
+        got = (counts[fwd], counts[bwd])
+        others = {n: c for n, c in counts.items() if n not in (fwd, bwd) and c}
+        print(f"tools launches, {leg}: forward {got[0]}, backward {got[1]} (expected {want})")
+        if got != want or others:
+            fail(f"tools {leg}: launches {got} and {others}, expected {want} and no other kernel")
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+
+    # leg 1: bench_train at its two default cells, the other remat policies and k=4
+    for batch, policy, accum in TOOLS_TRAIN_CELLS:
+        cfg = bench_train.cell_config(batch, policy, accum)
+        reset_counts()
+        try:
+            r = bench_train.bench(cfg, device, **TOOLS_TRAIN_TIMING)
+        except torch.cuda.OutOfMemoryError as e:
+            fail(f"tools bench_train batch {batch} policy {policy} accum {accum}: FAILED OOM "
+                 f"{str(e)[:200]}")
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        print(f"tools {bench_train.format_row(r)} ({r['steps']} steps)  [{card}]")
+        if not math.isfinite(r["loss"]):
+            fail(f"tools bench_train batch {batch} policy {policy} accum {accum}: loss {r['loss']}")
+        per_step = bench_train.attention_launches(cfg)
+        take(f"bench_train {r['mode']} batch {batch} ({per_step} a step x {r['steps']} steps)",
+             read_counts(), tuple(n * r["steps"] for n in per_step))
+
+    # leg 2: the accuracy rehearsal
+    epochs, batch = TOOLS_REHEARSE
+    reset_counts()
+    res = rehearse.run(epochs, batch, device)
+    layers = bench_train.attention_layers(rehearse.rehearsal_config(epochs, batch).model_config)
+    steps = epochs * res["steps_per_epoch"]
+    eval_batches = 3 * n_batches(rehearse.N_PER_SPLIT, batch)
+    evals = 2 + res["fit_evals"]
+    print(f"tools rehearse: loss {res['losses'][0]:.4f} -> {res['losses'][-1]:.4f} over {epochs} "
+          f"epochs ({res['seconds']:.1f} s), overall_acc {res['acc_before']:.4f} -> "
+          f"{res['acc_after']:.4f}; decoder: {res['decoder']}  [{card}]")
+    if not (res["losses"][-1] < res["losses"][0] and res["acc_after"] > res["acc_before"]):
+        fail("tools rehearse: the rehearsal did not lower the loss and raise overall_acc")
+    take(f"rehearse ({layers} layers x ({steps} steps + {evals} evals x {eval_batches} batches))",
+         read_counts(), (layers * (steps + evals * eval_batches), layers * steps))
+
+    # leg 3: the backward against its floor
+    table = {r["tower"]: r for r in exp_bwd_floor.table()}
+    if (round(table["vit"]["floor_ms"], 4), round(table["bert"]["floor_ms"], 4)) != (0.3161,
+                                                                                     0.2134):
+        fail(f"tools exp_bwd_floor: the floor table is not PERF.md's bound: {table}")
+    reset_counts()
+    rows = exp_bwd_floor.measure()
+    entries[bwd]["tools_floor_rows"] = rows
+    take("exp_bwd_floor measure (2 shapes x (1 check + 3 warm-up + 20 timed))", read_counts(),
+         (0, 2 * 24))
+
+    # leg 4: encoder timing per tower (both towers together is phase 21's bench)
+    reset_counts()
+    prof = exp_prof.run(("image", "dna"), device)
+    calls = exp_prof.WARMUP + exp_prof.PASSES * exp_prof.ITERS
+    pcfg = exp_prof.flagship_config()
+    towers = pcfg.image.vit.num_layers + pcfg.dna.bert.num_layers
+    print(f"tools exp_prof: {json.dumps(prof)}  [{card}]")
+    take(f"exp_prof (image, dna: {towers} layers x {calls} calls)", read_counts(),
+         (towers * calls, 0))
+
+    # leg 5: the block and BERT ablations (plain PyTorch: no kernel)
+    reset_counts()
+    ablations = {}
+    for name, tool in (("exp_block", exp_block), ("exp_bert", exp_bert)):
+        ablations[name] = tool.main(["--device", device.type])
+        for r in ablations[name]:
+            if r["max_abs_err_vs_base"] is not None and \
+                    r["max_abs_err_vs_base"] > ABLATION_REL_TOL * r["base_max_abs"]:
+                fail(f"tools {name} {r['variant']}: {r['max_abs_err_vs_base']} off its base "
+                     f"(max {r['base_max_abs']})")
+    print(f"tools ablations (ms): " + ", ".join(
+        f"{n} {r['variant']} {r['ms']}" for n, rs in ablations.items() for r in rs) + f"  [{card}]")
+    take("exp_block and exp_bert", read_counts(), (0, 0))
+
+    # leg 6: the eval grid's kNN at BIOSCAN-1M's shapes, a subset again on the CPU
+    seen_n, unseen_n, keys_n = TOOLS_KNN
+    keys, seen, unseen = bench_knn.synth_grid(seen_n, unseen_n, keys_n)
+    dev = bench_knn.device_leg(keys, seen, unseen, device)
+    head, t_cpu = bench_knn.subset_on_cpu(keys, seen, unseen, TOOLS_KNN_CPU_ROWS)
+    check = bench_knn.near_tie_check(keys, seen, unseen, dev, head, TOOLS_KNN_CPU_ROWS,
+                                     KNN_TIE_TOL)
+    acc_dict, t_full = bench_knn.full_leg(keys, seen, unseen, device)
+    print(f"tools bench_knn: {dev['searches']} searches of {seen_n} + {unseen_n} queries x "
+          f"{keys_n} keys (x3 for all_key_features) x 768: keys {dev['prep_s']:.3f} s, device "
+          f"leg {dev['search_s']:.3f} s ({dev['scores'] / 1e9:.2f} G scores), the first "
+          f"{TOOLS_KNN_CPU_ROWS} rows of each on the CPU {t_cpu:.3f} s: top-5 rows differing "
+          f"{check['rows_differing']} (each a near tie within {KNN_TIE_TOL}: {check['ok']}), "
+          f"scores max |d| {check['max_score_diff']:.2e}; inference_and_eval {t_full:.3f} s, "
+          f"{sum(len(v) for v in acc_dict.values())} grid cells  [{card}]")
+    if not check["ok"] or not acc_dict:
+        fail("tools bench_knn: the card's top-5 disagree with the CPU's beyond near ties")
+    del keys, seen, unseen, dev, head
+    add_launches(entries, "tools", total)
+    print(f"tools: the phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def load_config_feature():
     """The flagship with `image.input_type: feature` over FEATURE_DIM-wide
     image features (the MLP encoder of `models/mlp.py`)."""
@@ -4538,6 +4803,7 @@ def main() -> int:
         zeroshot_phase(card, entries, cuda)
         multi_gpu_phase(card, entries, cuda)
         cli_tail_phase(card, entries, cuda)
+        tools_phase(card, entries, cuda)
     if "jax" in sys.modules or any(m == "clibd_tpu" or m.startswith("clibd_tpu.")
                                    for m in sys.modules):
         fail("jax or the JAX package was imported: the port must run without them")

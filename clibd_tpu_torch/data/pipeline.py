@@ -174,7 +174,9 @@ def shard_indices(
 
 
 class BioscanLoader:
-    """Iterable over batches of one split."""
+    """Iterable over batches of one split.  `path`: the HDF5 file, or a
+    `BioscanSplit` of the split to read through instead (a reader of
+    records held in memory, such as `tools/rehearse.py`'s)."""
 
     def __init__(
         self,
@@ -193,7 +195,7 @@ class BioscanLoader:
         aug_seed: Optional[int] = None,
         limit: Optional[int] = None,
     ):
-        self.split_reader = BioscanSplit(path, split)
+        self.split_reader = path if isinstance(path, BioscanSplit) else BioscanSplit(path, split)
         self.spec = spec
         self.host_id = host_id
         self.num_hosts = num_hosts

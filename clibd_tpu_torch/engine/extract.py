@@ -361,7 +361,12 @@ class AppendableEmbeddingWriter:
         for level in LEVELS:
             self._append_rows(f"{level}_list", [lab[level] for lab in label_dicts], (),
                               self._str_dtype)
+        # the rows reach the file before file_name grows to claim them, so a
+        # process killed mid-append leaves file_name, and with it the
+        # consistent prefix, short of any row whose data was not written
+        self.file.flush()
         self._append_rows("file_name", list(file_names), (), self._str_dtype)
+        self.file.flush()
         self._n += n
 
     def close(self) -> None:

@@ -25,7 +25,11 @@ share of the global batch (`batch_size` rows: the batch size is per device,
 as in the reference), `ops.loss.sharded_clip_loss` gathers the features
 with gradients, and the parameters' gradients are averaged over the ranks
 before the update, which is then that of `make_train_step` on the global
-batch.  Only rank 0 writes checkpoints; `resume_multihost` loads on rank 0
+batch.  With `accum_steps` k > 1 the ranks run the gradient cache across
+ranks (`make_train_step_accum(mesh=...)`): each rank's k microbatches, the
+features gathered for the global batch's loss, the gradients averaged as
+above; only `step_impl: shard_map` refuses it, as the JAX package does.
+Only rank 0 writes checkpoints; `resume_multihost` loads on rank 0
 and broadcasts; the in-training eval shards each split over the ranks
 (`engine.extract.extract_split_multihost`).
 """
@@ -178,8 +182,8 @@ def _rows(x, lo: int, hi: int):
     return {k: _rows(v, lo, hi) for k, v in x.items()} if isinstance(x, dict) else x[lo:hi]
 
 
-def make_accum_grad_fn(cfg: ExperimentConfig, model: torch.nn.Module,
-                       accum_steps: int) -> Callable:
+def make_accum_grad_fn(cfg: ExperimentConfig, model: torch.nn.Module, accum_steps: int,
+                       mesh: Optional[Mesh] = None) -> Callable:
     """→ grad_fn(batch, generator) → the loss of the whole batch, its
     gradients added to the parameters' `.grad`: the gradient cache of
     `clibd_tpu/engine/train.py:122-229` (Gao et al. 2021's GradCache).
@@ -201,15 +205,32 @@ def make_accum_grad_fn(cfg: ExperimentConfig, model: torch.nn.Module,
     microbatch i, made anew for each pass), so they compute the same
     function and the gradients are the monolithic step's, up to the order
     of the sums.  `cfg.remat` applies inside each microbatch.  B must
-    divide by k."""
+    divide by k.
+
+    mesh of a process group (W >= 1 ranks; a mesh without one, or None, is
+    the one process's batch): batch holds this rank's rows (B a rank,
+    global batch B·W), split into k microbatches of its own, and the
+    gradient left in every rank's `.grad` is that of the global batch's
+    loss, as `make_sharded_grad_fn` leaves it.  Pass 2 is
+    `sharded_clip_loss` of the rank's features: its gather puts every
+    rank's features in rank order into the global [B·W, D], and its
+    backward keeps this rank's rows of the summed cotangents, W dL/df.
+    After pass 3 the parameters' gradients, the logit scale's among them,
+    are averaged over the ranks (`all_reduce_grads`), which makes them
+    dL/dθ.  The augmentation draws from `fold_in(fold_in(generator, rank),
+    i)`."""
     encode = make_encode_fn(cfg, model)
     ls_param = model.logit_scale
+    multi = mesh is not None and mesh.group is not None
+    trainable = [p for p in model.parameters() if p.requires_grad]
 
     def grad_fn(batch: dict, generator: Optional[torch.Generator]) -> torch.Tensor:
         B = batch["label"].shape[0]
         if B % accum_steps:
             raise ValueError(f"batch {B} not divisible by accum_steps={accum_steps}")
         b = B // accum_steps
+        if multi:
+            generator = fold_in(generator, mesh.rank)
         inputs = {k: v for k, v in batch.items() if k != "label"}
         micro = [_rows(inputs, i * b, (i + 1) * b) for i in range(accum_steps)]
 
@@ -225,7 +246,11 @@ def make_accum_grad_fn(cfg: ExperimentConfig, model: torch.nn.Module,
             else:
                 scale_leaf = ls_param.detach().requires_grad_()
                 logit_scale = torch.exp(scale_leaf)
-            loss = clip_loss(leaves, batch["label"], logit_scale, cfg.loss)
+            if multi:
+                loss = sharded_clip_loss(leaves, batch["label"], logit_scale, cfg.loss,
+                                         mesh.group)
+            else:
+                loss = clip_loss(leaves, batch["label"], logit_scale, cfg.loss)
             wrt = [leaves[m] for m in present] + ([scale_leaf] if scale_leaf is not None else [])
             grads = torch.autograd.grad(loss, wrt)
         cotangents = dict(zip(present, grads))
@@ -240,19 +265,25 @@ def make_accum_grad_fn(cfg: ExperimentConfig, model: torch.nn.Module,
         if scale_leaf is not None:
             d_scale = grads[-1]
             ls_param.grad = d_scale.clone() if ls_param.grad is None else ls_param.grad + d_scale
+        if multi:
+            all_reduce_grads(trainable, "mean", mesh.group)
         return loss.detach()
 
     return grad_fn
 
 
 def make_train_step_accum(cfg: ExperimentConfig, model: torch.nn.Module,
-                          optimizer: torch.optim.Optimizer, accum_steps: int) -> Callable:
+                          optimizer: torch.optim.Optimizer, accum_steps: int,
+                          mesh: Optional[Mesh] = None) -> Callable:
     """→ step(batch, generator) with `make_accum_grad_fn`'s gradients and
     one optimizer update (its global-norm clip sees the summed gradients);
-    `make_train_step` when accum_steps < 2."""
+    `make_train_step` (`make_train_step_shard_map` across ranks) when
+    accum_steps < 2.  mesh: as `make_accum_grad_fn`."""
     if accum_steps < 2:
+        if mesh is not None and mesh_is_multiprocess(mesh):
+            return make_train_step_shard_map(cfg, model, optimizer, mesh)
         return make_train_step(cfg, model, optimizer)
-    grad_fn = make_accum_grad_fn(cfg, model, accum_steps)
+    grad_fn = make_accum_grad_fn(cfg, model, accum_steps, mesh)
 
     def step(batch: dict, generator: Optional[torch.Generator]) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
@@ -353,7 +384,9 @@ class Trainer:
         mesh: default `create_mesh(device=device)`, this rank's mesh in a
         process group, else the card alone.  Under a group of W > 1 ranks
         (or with `step_impl: shard_map`) a step is
-        `make_train_step_shard_map`'s; `batch_size` is per rank, the HDF5
+        `make_train_step_shard_map`'s, or with accum_steps > 1 the gradient
+        cache across the ranks (`make_train_step_accum(mesh=)`; refused
+        under `step_impl: shard_map`); `batch_size` is per rank, the HDF5
         loader yields this rank's strided share of the split, and a given
         train_loader must too.  There the eval shards each split over the
         ranks, with eval_loader_factory(split_name, train, host_id,
@@ -369,10 +402,9 @@ class Trainer:
         self.device = self.mesh.device
         self.world_size = self.mesh.size
         self.is_main = self.mesh.rank == 0
-        multi_rank = self.world_size > 1 or cfg.step_impl == "shard_map"
-        if multi_rank and cfg.accum_steps > 1:
-            raise ValueError("accum_steps > 1 runs on one rank (the gradient cache's step is "
-                             "the global batch's)")
+        if cfg.step_impl == "shard_map" and cfg.accum_steps > 1:
+            raise ValueError("accum_steps>1 requires step_impl=global (the gradient cache's "
+                             "step is the global batch's)")
         self.log_fn = log_fn or (lambda d: None)
         # async checkpoint writes: the disk leg of last/best saves overlaps
         # the next epoch; fit() and close() join before returning
@@ -413,10 +445,11 @@ class Trainer:
         self.schedule = build_schedule(cfg.optim, total_steps, cfg.batch_size,
                                        world_size=self.world_size)
         self.optimizer = build_optimizer(cfg, model, self.schedule)
-        if multi_rank:
+        if cfg.step_impl == "shard_map":
             self.step_fn = make_train_step_shard_map(cfg, model, self.optimizer, self.mesh)
         else:
-            self.step_fn = make_train_step_accum(cfg, model, self.optimizer, cfg.accum_steps)
+            self.step_fn = make_train_step_accum(cfg, model, self.optimizer, cfg.accum_steps,
+                                                 self.mesh)
         self.global_step = 0
         self.stop_flag = False
         self._resume_start_batch = 0

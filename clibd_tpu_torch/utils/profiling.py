@@ -1,6 +1,7 @@
 """Timing: the port of `PhaseTimer` and `StepTimer` in
-`clibd_tpu/utils/profiling.py`, `cuda_ms`, device time by CUDA events, and
-`card_line`, the card that a time was taken on.
+`clibd_tpu/utils/profiling.py`, `cuda_ms`, device time by CUDA events,
+`timeit`, the harnesses' best-of-passes host clock, and `card_line`, the
+card that a time was taken on.
 
 A phase ends, and a step is ticked, with `torch.cuda.synchronize(device)`
 when the timer's device is CUDA, so the time of asynchronous kernels lands in
@@ -43,12 +44,47 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(times)
 
 
+def timeit(fn, device: torch.device | str, warmup: int, iters: int, passes: int) -> float:
+    """Seconds a call of fn(): the best of `passes` passes of `iters` calls
+    after `warmup` calls, on the host clock, each pass closed by a sync of
+    `device` when it is a card."""
+    device = torch.device(device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    for _ in range(warmup):
+        fn()
+    sync()
+    best = float("inf")
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        sync()
+        best = min(best, time.perf_counter() - t0)
+    return best / iters
+
+
 def card_line() -> str:
     """The card's name and power limit, as `nvidia-smi --query-gpu=name,
     power.limit --format=csv,noheader` prints them (first card)."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     return smi.stdout.strip().splitlines()[0]
+
+
+def require_card(tool: str, device: torch.device | str = "cuda") -> Optional[str]:
+    """A harness's start: where `device` is a card, raise unless one is
+    present, else print and return its `card_line`; None for the CPU."""
+    if torch.device(device).type != "cuda":
+        return None
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{tool} needs a CUDA card")
+    line = card_line()
+    print(f"card: {line}", flush=True)
+    return line
 
 
 class StepTimer:

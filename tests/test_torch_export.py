@@ -6,6 +6,9 @@ generator seeded inside its test."""
 
 import json
 import shutil
+import subprocess
+import sys
+from pathlib import Path
 
 import h5py
 import numpy as np
@@ -88,6 +91,47 @@ def test_appendable_writer_matches_jax(tmp_path):
     got = _read(tmp_path / "port.hdf5")
     assert {v[1].shape[0] for v in got.values()} == {4}
     assert got["file_name"][1][0] == b"rec0"
+
+
+# appends two batches through the port's writer, then SIGKILLs its own
+# process: no close, no atexit, no HDF5 shutdown
+_KILLED_WRITER = """
+import os, signal, sys
+import numpy as np
+from clibd_tpu_torch.engine.extract import AppendableEmbeddingWriter
+path, rows = sys.argv[1], [int(n) for n in sys.argv[2:]]
+rng = np.random.default_rng(5)
+w = AppendableEmbeddingWriter(path, feature_dim=8)
+for i, n in enumerate(rows):
+    feats = rng.standard_normal((n, 8)).astype(np.float32)
+    w.append({"encoded_image_feature": feats, "encoded_dna_feature": -feats},
+             [{lv: f"{lv}{i}" for lv in ("order", "family", "genus", "species")}] * n,
+             [f"b{i}r{j}" for j in range(n)])
+os.kill(os.getpid(), signal.SIGKILL)
+"""
+
+
+def test_appendable_writer_rows_survive_a_sigkill(tmp_path):
+    """Every append that returned is on disk when the process is killed
+    right after it: the file opens, file_name holds every appended row, and
+    each dataset's rows up to len(file_name) are the written ones."""
+    path, rows = tmp_path / "killed.hdf5", (5, 3)
+    repo = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", _KILLED_WRITER, str(path), *map(str, rows)],
+                          cwd=repo, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == -9, proc.stderr[-2000:]
+    rng = np.random.default_rng(5)
+    feats = np.concatenate([rng.standard_normal((n, 8)).astype(np.float32) for n in rows])
+    with h5py.File(path, "r") as f:
+        n = f["file_name"].shape[0]
+        assert n == sum(rows)
+        assert [x.decode() for x in f["file_name"][:n]] == [
+            f"b{i}r{j}" for i, k in enumerate(rows) for j in range(k)]
+        np.testing.assert_array_equal(f["encoded_image_feature"][:n], feats)
+        np.testing.assert_array_equal(f["encoded_dna_feature"][:n], -feats)
+        for lv in LEVELS:
+            assert [x.decode() for x in f[f"{lv}_list"][:n]] == [
+                f"{lv}{i}" for i, k in enumerate(rows) for _ in range(k)]
 
 
 def _cfgs():

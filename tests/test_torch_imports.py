@@ -45,9 +45,14 @@ def test_the_walk_covers_the_port():
                    "analysis/statistics.py", "analysis/per_class.py", "analysis/compare.py",
                    "data/bins.py", "data/splits.py", "data/builders.py", "data/builders_5m.py",
                    "data/subset.py", "data/ncbi.py", "cli/data_cmds.py", "cli/analysis_cmds.py",
-                   "tools/bench.py"):
+                   "tools/bench.py", "tools/bench_train.py", "tools/rehearse.py",
+                   "tools/exp_bwd_floor.py", "tools/exp_prof.py", "tools/exp_block.py",
+                   "tools/exp_bert.py", "tools/bench_knn.py", "tools/bench_eval.py",
+                   "tools/bench_extract.py", "tools/bench_pipeline.py", "tools/bench_decode.py",
+                   "tools/soak_train.py", "tools/soak_extract.py", "tools/soak_serve.py",
+                   "tools/fixtures.py"):
         assert f"clibd_tpu_torch/{module}" in PORT_FILES
-    assert len(PORT_FILES) >= 65, PORT_FILES
+    assert len(PORT_FILES) >= 80, PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES)
@@ -83,6 +88,8 @@ def _entry_points():
     from clibd_tpu_torch.analysis.failure_cases import find_failures, save_paired_failure_cases
     from clibd_tpu_torch.engine.retrieval_grid import (retrieval_records, retrieve_images,
                                                        retrieve_images_multi)
+    from clibd_tpu_torch.tools import (bench_eval, bench_extract, bench_knn, bench_train,
+                                       exp_prof, rehearse, soak_extract, soak_train)
     from clibd_tpu_torch.tools.bench import run_bench
 
     return {"vit_attention_probs": vit_attention_probs,
@@ -101,7 +108,14 @@ def _entry_points():
             "KeySet.from_arrays": KeySet.from_arrays, "load_model_any": load_model_any,
             "verify_parity": verify_parity, "method_nn": method_nn,
             "method_linear": method_linear, "fit_frozen_probe": fit_frozen_probe,
-            "train_linear_probe": train_linear_probe, "fit_linear_probe": fit_linear_probe}
+            "train_linear_probe": train_linear_probe, "fit_linear_probe": fit_linear_probe,
+            "bench_train.bench": bench_train.bench, "bench_train.sweep": bench_train.sweep,
+            "rehearse.run": rehearse.run, "exp_prof.run": exp_prof.run,
+            "bench_knn.device_leg": bench_knn.device_leg, "bench_knn.full_leg": bench_knn.full_leg,
+            "bench_knn.bench_int8": bench_knn.bench_int8, "bench_eval.run": bench_eval.run,
+            "bench_extract.run": bench_extract.run, "soak_train.run": soak_train.run,
+            "soak_extract.run": soak_extract.run, "soak_extract.verify": soak_extract.verify,
+            "soak_extract.stream": soak_extract.stream}
 
 
 @pytest.mark.parametrize("name", ["init_clibd_model", "model_from_jax",
@@ -115,7 +129,11 @@ def _entry_points():
                                   "vit_attention_probs", "bert_attention_probs",
                                   "encoder_tensors", "find_failures", "save_paired_failure_cases",
                                   "retrieval_records", "retrieve_images", "retrieve_images_multi",
-                                  "run_bench"])
+                                  "run_bench", "bench_train.bench", "bench_train.sweep",
+                                  "rehearse.run", "exp_prof.run", "bench_knn.device_leg",
+                                  "bench_knn.full_leg", "bench_knn.bench_int8", "bench_eval.run",
+                                  "bench_extract.run", "soak_train.run", "soak_extract.run",
+                                  "soak_extract.verify", "soak_extract.stream"])
 def test_entry_point_defaults_to_cuda(name):
     fn = _entry_points()[name]
     assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -150,6 +150,71 @@ def task_train_step(mesh, data: dict, out_dir: Path) -> dict:
     return out
 
 
+def task_accum_step(mesh, data: dict, out_dir: Path) -> dict:
+    """The gradient cache across the ranks (`make_accum_grad_fn(mesh=)`, k
+    microbatches of this rank's rows) and the multi-rank monolithic step
+    (`make_sharded_grad_fn`) from the payload's weights on each global
+    batch, the augmentation the identity: each one's loss and gradients;
+    then one update of `make_train_step_accum(mesh=)`'s step."""
+    from clibd_tpu_torch.engine import train
+    from clibd_tpu_torch.engine.extract import to_device
+    from clibd_tpu_torch.models import CLIBD, set_trainable
+    from clibd_tpu_torch.parallel import local_shard
+
+    _identity_augment()
+    cfg, k = data["cfg"], data["accum_k"]
+    model = set_trainable(CLIBD(cfg), cfg)
+    model.load_state_dict(data["state"])
+    cpu = torch.device("cpu")
+
+    def grads():
+        out = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    out = {"accum": [], "mono": []}
+    for i, batch in enumerate(data["accum_batches"]):
+        local = to_device(local_shard(mesh, batch), cpu)
+        gen = train.batch_generator(cpu, 0, 0, i)
+        for name, fn in (("accum", train.make_accum_grad_fn(cfg, model, k, mesh)),
+                         ("mono", train.make_sharded_grad_fn(cfg, model, mesh))):
+            loss = fn(local, gen)
+            out[name].append({"loss": loss, "grads": grads()})
+    opt = train.build_optimizer(cfg, model, lambda i: data["lr"])
+    step = train.make_train_step_accum(cfg, model, opt, k, mesh)
+    step(to_device(local_shard(mesh, data["accum_batches"][0]), cpu), None)
+    out["step_qualname"] = step.__qualname__
+    out["params_after"] = {n: p.detach().clone() for n, p in model.named_parameters()}
+    return out
+
+
+def task_accum_trainer(mesh, data: dict, out_dir: Path) -> dict:
+    """`Trainer.fit` at W ranks with accum_steps > 1 (one epoch, no eval),
+    then `resume_multihost` of rank 0's last/ into a fresh such trainer."""
+    import copy
+
+    from clibd_tpu_torch.config.schema import GlobalConfig
+    from clibd_tpu_torch.engine import train
+
+    cfg = copy.deepcopy(data["trainer_cfg"])
+    cfg.accum_steps, cfg.eval_skip_epoch = data["accum_k"], 10
+    gcfg = GlobalConfig()
+    gcfg.model_config = cfg
+    split = _split(cfg, "train", data["trainer_rows"]["train"], 0, cfg.batch_size, mesh,
+                   drop_last=True)
+    own = out_dir / f"accum{mesh.rank}"
+    trainer = train.Trainer(gcfg, None, str(own), train_loader=split, device="cpu", mesh=mesh)
+    qualname = trainer.step_fn.__qualname__
+    history = trainer.fit()
+    trainer.close()
+    cfg.default_seed += 1
+    fresh = train.Trainer(gcfg, None, str(out_dir / f"accum_fresh{mesh.rank}"),
+                          train_loader=split, device="cpu", mesh=mesh)
+    fresh.resume_multihost(str(out_dir / "accum0" / "last"))
+    return {"qualname": qualname, "losses": history["loss"], "resume_step": fresh.global_step,
+            "params": {n: p.detach().clone() for n, p in fresh.model.named_parameters()}}
+
+
 def _split(cfg, name: str, n: int, seed: int, batch: int, mesh, drop_last: bool = False):
     from clibd_tpu_torch.data import SyntheticSplit
 
@@ -253,7 +318,8 @@ def task_simclr_step(mesh, data: dict, out_dir: Path) -> dict:
 
 TASKS = {"parallel": task_parallel, "sharded_loss": task_sharded_loss,
          "train_step": task_train_step, "trainer": task_trainer, "extract": task_extract,
-         "simclr_step": task_simclr_step}
+         "simclr_step": task_simclr_step, "accum_step": task_accum_step,
+         "accum_trainer": task_accum_trainer}
 
 
 def main(payload_path: str, out_dir: str) -> int:
