@@ -10,10 +10,11 @@ Phases, each of which raises on failure:
 2. build: compiles every CUDA kernel of the paths from `clibd_tpu_torch/csrc`
    into `build/kernels/` (one nvcc per source, all started together) and
    prints each build's time and ptxas' register, spill and C75xx lines; the
-   three kernels on the wgmma attention core (phased, batched,
-   attention_bhnd) and the phased backward on wgmma must keep every
-   instance within 216 bytes of stack and have no warpgroup.arrive injected
-   (C7519), as before the core took its layout policies.
+   forward kernel of the main path, the three kernels on the wgmma
+   attention core (phased, batched, attention_bhnd) and the phased backward,
+   all on wgmma, must keep every instance within 216 bytes of stack and have
+   no warpgroup.arrive injected (C7519), as before the core took its layout
+   policies.
 3. kernels, each against its plain PyTorch version at the four shapes of
    the paths (ViT N=197 H=12, BarcodeBERT N=133 H=12, BERT-small N=20 H=8
    and the overlap-tokenizer BarcodeBERT N=657 H=12, the last two with a
@@ -25,7 +26,10 @@ Phases, each of which raises on failure:
    3 warm-up runs):
    - `flash_attention_qkv` (forward): max |kernel - plain| <= 2e-2; the
      fully masked row is the mean of V; N=300, which the kernels refused
-     before they streamed the keys, is taken and agrees;
+     before they streamed the keys, is taken and agrees; so do its edges
+     (FWD_EDGES: N = 1, 63, 64, 65, 127, 128, 129, 256, 257 and 657 at
+     B = 1, 3, 5 and H = 1, 8, 12, each with and without a mask); its time
+     is printed beside the mma.sync design's recorded one (FWD_RECORDED_MS);
    - `flash_attention_qkv_bwd` (backward): max |kernel - plain| <=
      2e-2 * max |plain| for each of dq, dk, dv; and at B=16,
      `torch.autograd.grad` through the attention operator equals the
@@ -594,10 +598,12 @@ BHND_EDGES = ((1, 1, 1), (3, 12, 63), (1, 12, 64), (3, 1, 65), (5, 12, 256), (1,
               (7, 12, 197))
 # the wgmma attention kernels' ptxas limits (their report before the core
 # took its layout policies, at three warpgroups a SM), which the phased
-# backward on wgmma is held to as well: stack bytes of any instance; no
-# warpgroup.arrive injected (C7519)
-WGMMA_ATTENTION_SOURCES = ("flash_attention_qkv_phased", "flash_attention_qkv_batched",
-                           "attention_bhnd", "flash_attention_qkv_bwd_phased")
+# backward and the key-tiled forward of the main path, both on wgmma, are
+# held to as well: stack bytes of any instance; no warpgroup.arrive injected
+# (C7519)
+WGMMA_ATTENTION_SOURCES = ("flash_attention_qkv", "flash_attention_qkv_phased",
+                           "flash_attention_qkv_batched", "attention_bhnd",
+                           "flash_attention_qkv_bwd_phased")
 WGMMA_MAX_STACK = 216
 # the two forward schedules' times that PERF.md §6 records from before the
 # core took its layout policies (NVIDIA H100 80GB HBM3, 700 W), B=256 H=12,
@@ -606,6 +612,17 @@ RECORDED_MS = {("flash_attention_qkv_phased", 197): 0.2493,
                ("flash_attention_qkv_phased", 133): 0.1455,
                ("flash_attention_qkv_batched", 197): 0.2755,
                ("flash_attention_qkv_batched", 133): 0.1816}
+# the forward kernel's times at B=500 before its redesign on wgmma: the
+# key-tiled mma.sync + cp.async kernel (NVIDIA H100 80GB HBM3, 700 W, PERF.md
+# §6), ms by shape: printed beside this run's
+FWD_RECORDED_MS = {"vit": 0.5791, "barcode_bert": 0.3392, "bert_small": 0.0353,
+                   "barcode_bert_overlap": 4.0708}
+# (B, N, H) edges of the forward kernel, each with and without a key mask
+# (batch row 0 fully masked): one key; a 64-key block one short, whole and
+# one past, at one, two and four blocks; the overlap tower's N; B = 1 and
+# odd B, H = 1, 8 and 12
+FWD_EDGES = ((1, 1, 1), (3, 63, 8), (5, 64, 12), (1, 65, 1), (3, 127, 8), (5, 128, 12),
+             (1, 129, 1), (3, 256, 8), (5, 257, 12), (1, 657, 12))
 
 
 def fail(msg: str) -> None:
@@ -712,7 +729,8 @@ def forward_kernel_phase(card: str) -> dict:
         nbytes = 500 * N * (3 * D + D) * 2 + (500 * N * 4 if masked else 0)
         bound_ms, bound_by = bound(nbytes, flops)
         print(f"time flash_attention_qkv {name} B=500: kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms (B={plain_B}), "
+              f"({flops / ms / 1e9:.1f} TFLOP/s; mma.sync design, recorded: "
+              f"{FWD_RECORDED_MS[name]:.4f} ms), plain {plain_ms:.4f} ms (B={plain_B}), "
               f"library (sdpa) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
         shapes.append({"shape": name, "B": 500, "N": N, "H": H, "ms": ms, "plain_ms": plain_ms,
                        "plain_B": plain_B, "library_ms": library_ms, "bound_ms": bound_ms,
@@ -721,6 +739,10 @@ def forward_kernel_phase(card: str) -> dict:
     # past the whole-row kernels' 256 keys: the key-tiled kernel takes any N
     qkv, mask = make_qkv(4, 300, 12, True, seed=300)
     check_forward(qkv, mask, 12, "B=4 N=300 H=12 mask=True (taken: any N)")
+    for B, N, H in FWD_EDGES:
+        for masked in (False, True):
+            qkv, mask = make_qkv(B, N, H, masked, seed=7 * N + B)
+            check_forward(qkv, mask, H, f"edge B={B} N={N} H={H} mask={masked}")
     torch.cuda.empty_cache()
     return kernel_entry("flash_attention_qkv", "clibd_tpu_torch/csrc/flash_attention_qkv.cu",
                         "clibd_tpu/ops/pallas/attention.py:143", shapes)

@@ -1,7 +1,21 @@
-"""Where do the phased forward and backward kernels' times go?
+"""Where do the phased forward and backward kernels' times go, and row 1's?
 
     python3 -m clibd_tpu_torch.tools.exp_flash_sched [--phased FILE] [--batched FILE]
         [--bwd FILE ...]
+    python3 -m clibd_tpu_torch.tools.exp_flash_sched --row1 [FILE ...]
+
+`--row1` times the main path's forward alone (`csrc/flash_attention_qkv.cu`)
+at the main path's four shapes, B=500 (ViT N=197, BarcodeBERT N=133,
+BERT-small N=20 H=8 masked, the overlap tower's N=657 masked): the
+committed kernel with 1, 2 and 4 warpgroups a CTA (through
+`clibd_flash_attention_qkv_fwd_w`), its `l2_only` and `no_softmax`
+variants at the number it picks, each FILE as it is (an earlier version of
+the file, say `git show 4605cf6:clibd_tpu_torch/csrc/flash_attention_qkv.cu`,
+the key-tiled mma.sync kernel), v0 (the wrapper) and SDPA, each checked on 8
+rows and timed twice, interleaved; then the `sections` variant's clock64
+cycles of thread 0 an item (the wait for q, per key block the wait for K,
+S, the softmax, the wait for V, P.V, the slot's release, the context's
+store).
 
 Builds scratch variants of the two forward schedules of `tools/exp_flash.py`
 -- FILE, by default the committed `csrc/flash_attention_qkv_phased.cu` and
@@ -648,16 +662,196 @@ def run_forward(args, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# row 1, the main path's forward (csrc/flash_attention_qkv.cu): every CTA
+# shape at the main path's four shapes, B=500
+# ---------------------------------------------------------------------------
+ROW1_SOURCE = CSRC / "flash_attention_qkv.cu"
+ROW1_SHAPES = (("vit", 197, 12, False), ("barcode_bert", 133, 12, False),
+               ("bert_small", 20, 8, True), ("barcode_bert_overlap", 657, 12, True))
+ROW1_B = 500
+R1_SOFTMAX = "  __device__ __forceinline__ void softmax(int j, float& al0, float& al1) {\n"
+R1_BLOCK = """    if (j > 0) cta.next_keys(j);
+    cta.wait_k(j);
+    fence_operand(s);
+    wgmma_fence();
+    issue_s(j);
+    wgmma_commit();
+    if (j > 0)
+      cta.release(j - 1);
+    else
+      cta.next_q();
+    wgmma_wait<0>();
+    fence_operand(s);
+    if (live) {
+      float al0, al1;
+      softmax<WIDTH>(j, al0, al1);
+      rescale_pack<WIDTH>(al0, al1);
+    }
+    fence_pv();
+    cta.wait_v(j);
+    wgmma_fence();
+    issue_pv<WIDTH>(j);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_pv();
+    if (j == cta.nblk - 1) cta.release(j);
+"""
+# the line of R1_BLOCK after which each section's tick goes
+R1_TICKS = {"    cta.wait_k(j);\n": 2, "      cta.next_q();\n": 7, "    wgmma_wait<0>();\n": 3,
+            "    fence_pv();\n": 4, "    cta.wait_v(j);\n": 5,
+            "    if (j == cta.nblk - 1) cta.release(j);\n": 7}
+R1_TILE_STATE = "  float m0, m1, l0, l1;\n"
+R1_ITEM = "  for (int k = 0; k < count; ++k) {\n"
+R1_Q_WAIT = "    mbar_wait(qfull + (k % 2) * W + wg, (k / 2) & 1);\n"
+R1_STORE = "    // the context, bf16, through the q box"
+R1_ITEM_END = "        tma_store_commit();\n      }\n    }\n  }\n"
+R1_KERNEL_END = "  if (tw == 0) tma_store_wait_read();  // the boxes stay"
+ROW1_SECTIONS = ("item set-up", "wait for q", "waits for K", "S", "softmax, P packed",
+                 "waits for V", "P.V", "slots released, next q loaded", "context stored")
+
+
+def _row1_sections(src: str) -> str:
+    """clock64 ticks of thread 0 through each item of the one-product-at-a-
+    time loop (block<>), summed in registers and added to g_prof once a
+    CTA: the item's set-up (the key row where it is staged), the wait for
+    q, and per key block the wait for K, S, the softmax, the wait for V,
+    P.V, and the release of a slot or the next item's q load, then the
+    context's store"""
+    ticked, seen = "", set()
+    for line in R1_BLOCK.splitlines(keepends=True):
+        ticked += line
+        k = R1_TICKS.get(line)
+        if line == "    wgmma_wait<0>();\n" and line in seen:
+            k = 6  # the second wait is P.V's
+        if line == "    fence_pv();\n" and line in seen:
+            k = None  # the second fence follows P.V's wait
+        seen.add(line)
+        if k is not None:
+            ticked += f"    TICK_({k})\n"
+    src = _profiled(src, [
+        (R1_BLOCK, ticked),
+        (R1_TILE_STATE, R1_TILE_STATE + "  long long* prof_;\n  long long c0_;\n"),
+        (R1_ITEM, "  long long prof_[9] = {};\n" + R1_ITEM + "    const long long i0_ = clock64();\n"),
+        (R1_Q_WAIT, "    tile.prof_ = prof_;\n    tile.c0_ = clock64();\n    prof_[0] += tile.c0_ - i0_;\n"
+         + R1_Q_WAIT + "    prof_[1] += clock64() - tile.c0_;\n    tile.c0_ = clock64();\n"),
+        (R1_STORE, "    const long long k9_ = clock64();\n" + R1_STORE),
+        (R1_ITEM_END, R1_ITEM_END[:-4] + "    prof_[8] += clock64() - k9_;\n  }\n"),
+        (R1_KERNEL_END, "  if (threadIdx.x == 0) {\n#pragma unroll\n    for (int i = 0; i < 9; ++i)\n"
+                        "      atomicAdd(g_prof + i, (unsigned long long)prof_[i]);\n  }\n"
+         + R1_KERNEL_END),
+    ])
+    tick = ("#define TICK_(k) { const long long c1_ = clock64(); prof_[k] += c1_ - c0_; "
+            "c0_ = c1_; }\n")
+    return src.replace(PROF_DECL, PROF_DECL + tick, 1)
+
+
+ROW1_VARIANTS = {
+    "kernel": lambda s: s,
+    # clock64 sections of thread 0 (the same function)
+    "sections": _row1_sections,
+    # every load from batch element 0, so from L2 (not the same function)
+    "l2_only": _l2_only,
+    # P = S rounded: no max, no exponentials, no row sums (not the same function)
+    "no_softmax": lambda s: _edit(s, [(R1_SOFTMAX, R1_SOFTMAX + "    al0 = al1 = 1.f;\n    return;\n")]),
+}
+
+
+ROW1_WARPGROUPS = (1, 2, 4)  # the kernel's CTA shapes: consumer warpgroups a CTA
+
+
+def _row1_entry(lib: ctypes.CDLL, by_w: bool):
+    fn = lib.clibd_flash_attention_qkv_fwd_w if by_w else lib.clibd_flash_attention_qkv_fwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return fn
+
+
+def run_row1(paths, card: str) -> None:
+    """The committed forward at every CTA shape (ROW1_WARPGROUPS, through
+    `clibd_flash_attention_qkv_fwd_w`), its `l2_only` and `no_softmax`
+    variants at the shape it picks (`clibd_flash_fwd_warpgroups`), and each
+    other source in `paths` as it is (an earlier version of the file): each
+    checked on the first 8 batch rows where it computes the function, then
+    timed twice, interleaved, beside v0 (the wrapper) and SDPA; then the
+    `sections` variant's clock64 cycles an item at the picked shape."""
+    texts = {f"row1_{n}": edit(ROW1_SOURCE.read_text()) for n, edit in ROW1_VARIANTS.items()}
+    for i, path in enumerate(paths):
+        texts[f"other{i}"] = path.read_text()
+    libs = build(texts, "exp_flash_sched_row1")
+    _report_ptxas(libs)
+    lib = libs["row1_kernel"][0]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    for name, N, heads, masked in ROW1_SHAPES:
+        qkv = torch.randn(ROW1_B, N, 3 * heads * 64, generator=g, device=dev).to(torch.bfloat16)
+        mask = None
+        if masked:
+            keep = torch.rand(ROW1_B, N, generator=g, device=dev) > 0.3
+            keep[:, 0] = True
+            mask = (~keep).float() * torch.finfo(torch.float32).min
+        out = torch.empty(ROW1_B, N, heads * 64, device=dev, dtype=torch.bfloat16)
+        want = flash_attention_qkv_reference(qkv[:8], heads,
+                                             None if mask is None else mask[:8]).float()
+
+        def call(fn, *w):
+            rc = fn(qkv.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
+                    ROW1_B, N, heads, *w, torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"launch failed: CUDA error {rc}")
+
+        runs, chosen = {}, lib.clibd_flash_fwd_warpgroups(N)
+        for w in ROW1_WARPGROUPS:
+            runs[f"kernel W={w}" + (" (picked)" if w == chosen else "")] = (
+                lambda w=w: call(_row1_entry(lib, True), w))
+        for v in ROW1_VARIANTS:
+            if v not in ("kernel", "sections"):
+                runs[f"{v} W={chosen}"] = (
+                    lambda v=v: call(_row1_entry(libs[f"row1_{v}"][0], True), chosen))
+        for i in range(len(paths)):
+            runs[f"other{i} ({paths[i].name})"] = (
+                lambda i=i: call(_row1_entry(libs[f"other{i}"][0], False), 1))
+        for n, run in runs.items():
+            if n.startswith(("kernel", "other")):
+                out.zero_()
+                run()
+                torch.cuda.synchronize()
+                err = float((out[:8].float() - want).abs().max())
+                print(f"{name} N={N} {n}: max|variant - plain| on 8 rows {err:.3e}", flush=True)
+        runs["v0 (forward kernel)"] = lambda: flash_attention_qkv_cuda(qkv, heads, mask)
+        runs["sdpa"] = lambda: sdpa(qkv, heads, mask)
+        print(f"row 1 {name} B={ROW1_B} H={heads} N={N} mask={masked}, ms  [{card}]", flush=True)
+        for n, ts in _interleaved(runs).items():
+            print(f"  {n:28s} {', '.join(f'{t:.4f}' for t in ts)}", flush=True)
+        prof_lib = libs["row1_sections"][0]
+        prof = (ctypes.c_ulonglong * 16)()
+        prof_lib.clibd_prof.argtypes = [ctypes.c_void_p]
+        prof_lib.clibd_prof(ctypes.addressof(prof))
+        call(_row1_entry(prof_lib, True), chosen)
+        torch.cuda.synchronize()
+        prof_lib.clibd_prof(ctypes.addressof(prof))
+        items = ROW1_B * heads * -(-N // (64 * chosen))  # of W query tiles each
+        print(f"  clock64 sections at W={chosen}, thread 0, cycles an item: " + ", ".join(
+            f"{sec} {prof[i] / items:.0f}" for i, sec in enumerate(ROW1_SECTIONS)), flush=True)
+        del qkv, mask, out
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phased", type=Path, default=SOURCES["phased"])
     parser.add_argument("--batched", type=Path, default=SOURCES["batched"])
     parser.add_argument("--bwd", type=Path, action="append", default=[])
+    parser.add_argument("--row1", type=Path, nargs="*", default=None,
+                        help="time row 1 alone: the committed forward's CTA shapes and "
+                             "variants, and each FILE as it is")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("exp_flash_sched needs a CUDA card")
     card = card_line()
     print(card, flush=True)
+    if args.row1 is not None:
+        run_row1(args.row1, card)
+        return
     run_forward(args, card)
     run_bwd(args.bwd or [BWD_SOURCE], card)
 

@@ -71,3 +71,24 @@ def test_an_earlier_bwd_source_is_built_as_it_is():
     assert kind == "prev_bwd" and sections == tool.PREV_BWD_SECTIONS
     assert variants["sections"].count("clock64()") == len(sections) + 1
     assert variants["sections"].count("atomicAdd(g_prof") == len(sections)
+
+
+def test_every_row1_variant_edits_the_committed_forward():
+    """`--row1`: the main path's forward (csrc/flash_attention_qkv.cu) as it
+    is, with its clock64 sections, with every load from L2 (the core
+    inlined, FusedQkv::load edited) and without the softmax"""
+    from clibd_tpu_torch.tools.exp_flash_sched import (ROW1_SECTIONS, ROW1_SOURCE,
+                                                      ROW1_VARIANTS)
+
+    src = ROW1_SOURCE.read_text()
+    variants = {name: edit(src) for name, edit in ROW1_VARIANTS.items()}
+    assert set(variants) == {"kernel", "sections", "l2_only", "no_softmax"}
+    assert variants["kernel"] == src
+    text = variants["sections"]
+    # the nine sections: seven ticks in the block loop, the item's start, the
+    # set-up and q-wait stamps, the context's start and end
+    assert text.count("TICK_(") == 7 + 1 and len(ROW1_SECTIONS) == 9
+    assert {int(k) for k in __import__("re").findall(r"prof_\[(\d)\] \+=", text)} == {0, 1, 8}
+    assert "clibd_prof" in text and "atomicAdd(g_prof + i" in text
+    assert variants["l2_only"].count(", 0);\n") == 1 and "attend_items" in variants["l2_only"]
+    assert "al0 = al1 = 1.f;\n    return;" in variants["no_softmax"]

@@ -15,7 +15,9 @@ and a tiny model on the card against the same model on the CPU, in
 extraction and in a training step, and with both opt-in kernels on.
 """
 
+import ast
 import copy
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -88,22 +90,44 @@ def _inputs(B, N, H, masked, seed):
     return qkv, mask
 
 
+# (B, N, H) edges of the forward kernel: one key; a 64-key block one short,
+# whole and one past, at one, two and four blocks; the overlap tower's N;
+# B = 1 and odd B, H = 1, 8 and 12 (as chip_smoke.py's FWD_EDGES)
+FWD_EDGES = [(1, 1, 1), (3, 63, 8), (5, 64, 12), (1, 65, 1), (3, 127, 8), (5, 128, 12),
+             (1, 129, 1), (3, 256, 8), (5, 257, 12), (1, 657, 12)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,H,masked", [(197, 12, False), (133, 12, False), (20, 8, True),
-                                         (657, 12, True)])
+@pytest.mark.parametrize("B,N,H,masked", [(8, 197, 12, False), (8, 133, 12, False),
+                                           (8, 20, 8, True), (8, 657, 12, True)]
+                         + [(B, N, H, masked) for B, N, H in FWD_EDGES for masked in (False, True)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_kernel_matches_plain_version(cuda_device, N, H, masked, dtype):
-    qkv, mask = _inputs(8, N, H, masked, seed=N)
+def test_kernel_matches_plain_version(cuda_device, B, N, H, masked, dtype):
+    qkv, mask = _inputs(B, N, H, masked, seed=N)
     t = torch.from_numpy(qkv).to(cuda_device, dtype)
     m = None if mask is None else torch.from_numpy(mask).to(cuda_device)
     before = flash_attention_qkv.launches
     got = flash_attention_qkv(t, H, m)
     torch.cuda.synchronize()
     assert flash_attention_qkv.launches == before + 1
-    assert got.dtype == dtype and got.shape == (8, N, H * 64)
+    assert got.dtype == dtype and got.shape == (B, N, H * 64)
     want = flash_attention_qkv_reference(t, H, m).float()
     err = float((got.float() - want).abs().max())
     assert err <= (FP32_ATOL if dtype == torch.float32 else BF16_ATOL), err
+
+
+def test_chip_smoke_holds_the_forward_kernel_to_the_wgmma_ptxas_limits():
+    """chip_smoke.py's build phase checks the forward kernel's ptxas report
+    (stack bytes, no C7519) with the other wgmma attention kernels; read
+    from the file with ast, which runs nothing."""
+    tree = ast.parse((Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text())
+    sources = next(ast.literal_eval(node.value) for node in tree.body
+                   if isinstance(node, ast.Assign)
+                   and any(getattr(t, "id", None) == "WGMMA_ATTENTION_SOURCES"
+                           for t in node.targets))
+    assert "flash_attention_qkv" in sources
+    assert {"flash_attention_qkv_phased", "flash_attention_qkv_batched", "attention_bhnd",
+            "flash_attention_qkv_bwd_phased"} <= set(sources)
 
 
 @pytest.mark.cuda
