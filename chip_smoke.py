@@ -10,11 +10,11 @@ Phases, each of which raises on failure:
 2. build: compiles every CUDA kernel of the paths from `clibd_tpu_torch/csrc`
    into `build/kernels/` (one nvcc per source, all started together) and
    prints each build's time and ptxas' register, spill and C75xx lines; the
-   forward kernel of the main path, the three kernels on the wgmma
-   attention core (phased, batched, attention_bhnd) and the phased backward,
-   all on wgmma, must keep every instance within 216 bytes of stack and have
-   no warpgroup.arrive injected (C7519), as before the core took its layout
-   policies.
+   forward and the backward kernels of the main path, the three kernels on
+   the wgmma attention core (phased, batched, attention_bhnd) and the phased
+   backward, all on wgmma, must keep every instance within 216 bytes of
+   stack and have no warpgroup.arrive injected (C7519), as before the core
+   took its layout policies.
 3. kernels, each against its plain PyTorch version at the four shapes of
    the paths (ViT N=197 H=12, BarcodeBERT N=133 H=12, BERT-small N=20 H=8
    and the overlap-tokenizer BarcodeBERT N=657 H=12, the last two with a
@@ -31,7 +31,13 @@ Phases, each of which raises on failure:
      B = 1, 3, 5 and H = 1, 8, 12, each with and without a mask); its time
      is printed beside the mma.sync design's recorded one (FWD_RECORDED_MS);
    - `flash_attention_qkv_bwd` (backward): max |kernel - plain| <=
-     2e-2 * max |plain| for each of dq, dk, dv; and at B=16,
+     2e-2 * max |plain| for each of dq, dk, dv, at the four shapes and at
+     its edges (BWD_EDGES: N = 1, 63, 64, 65, 127, 128, 129, 207, 208, 209,
+     256, 257, 300 and 657 at B = 1, 3, 5 and H = 1, 8, 12, each with and
+     without a mask, so either side of the whole-row route's 208 keys); two
+     launches give the same bits at ViT B=500 and at N=657 B=64; the route
+     each shape took, its TFLOP/s and the mma.sync design's recorded time
+     (BWD_RECORDED_MS) are printed beside its time; and at B=16,
      `torch.autograd.grad` through the attention operator equals the
      backward kernel's own output.
 4. eval slice: the flagship tri-modal recipe
@@ -598,12 +604,12 @@ BHND_EDGES = ((1, 1, 1), (3, 12, 63), (1, 12, 64), (3, 1, 65), (5, 12, 256), (1,
               (7, 12, 197))
 # the wgmma attention kernels' ptxas limits (their report before the core
 # took its layout policies, at three warpgroups a SM), which the phased
-# backward and the key-tiled forward of the main path, both on wgmma, are
-# held to as well: stack bytes of any instance; no warpgroup.arrive injected
+# backward and the main path's forward and backward, all on wgmma, are held
+# to as well: stack bytes of any instance; no warpgroup.arrive injected
 # (C7519)
 WGMMA_ATTENTION_SOURCES = ("flash_attention_qkv", "flash_attention_qkv_phased",
                            "flash_attention_qkv_batched", "attention_bhnd",
-                           "flash_attention_qkv_bwd_phased")
+                           "flash_attention_qkv_bwd_phased", "flash_attention_qkv_bwd")
 WGMMA_MAX_STACK = 216
 # the two forward schedules' times that PERF.md §6 records from before the
 # core took its layout policies (NVIDIA H100 80GB HBM3, 700 W), B=256 H=12,
@@ -623,6 +629,19 @@ FWD_RECORDED_MS = {"vit": 0.5791, "barcode_bert": 0.3392, "bert_small": 0.0353,
 # odd B, H = 1, 8 and 12
 FWD_EDGES = ((1, 1, 1), (3, 63, 8), (5, 64, 12), (1, 65, 1), (3, 127, 8), (5, 128, 12),
              (1, 129, 1), (3, 256, 8), (5, 257, 12), (1, 657, 12))
+# the backward kernel's times at B=500 before its redesign on wgmma: the
+# key-tiled mma.sync + cp.async row and column kernels (NVIDIA H100 80GB
+# HBM3, 700 W, PERF.md §6), ms by shape: printed beside this run's
+BWD_RECORDED_MS = {"vit": 2.2553, "barcode_bert": 1.3087, "bert_small": 0.1128,
+                   "barcode_bert_overlap": 16.1308}
+# (B, N, H) edges of the backward kernel, each with and without a key mask
+# (batch row 0 fully masked): one key; a 64-key block one short, whole and
+# one past, at one, two and four blocks; either side of the whole-row
+# route's 208 keys (207, 208; 209 key-tiled); N=300 and the overlap tower's
+# N; B = 1, 3, 5 and H = 1, 8, 12
+BWD_EDGES = ((1, 1, 1), (3, 63, 8), (5, 64, 12), (1, 65, 1), (3, 127, 8), (5, 128, 12),
+             (1, 129, 1), (3, 207, 8), (5, 208, 12), (1, 209, 1), (3, 256, 8), (5, 257, 12),
+             (1, 300, 12), (3, 657, 8))
 
 
 def fail(msg: str) -> None:
@@ -748,6 +767,39 @@ def forward_kernel_phase(card: str) -> dict:
                         "clibd_tpu/ops/pallas/attention.py:143", shapes)
 
 
+def bwd_parts_rel(got, want, D) -> list:
+    """max |got - want| / max |want| for each of dq, dk, dv; where a part of
+    the plain version is all zeros (dq and dk at N=1, where dS is 0), the
+    kernel's max |got| instead, which must be 0 as well."""
+    rel = []
+    for i in range(3):
+        a, b = got[..., i * D:(i + 1) * D], want[..., i * D:(i + 1) * D]
+        top = float(b.abs().max())
+        rel.append(float((a - b).abs().max()) / top if top else float(a.abs().max()))
+    return rel
+
+
+def check_backward(qkv, dout, mask, H, what) -> float:
+    """The backward kernel against its plain version → max |kernel - plain|,
+    failing past BWD_REL_TOL * max |plain| in any of dq, dk, dv."""
+    import torch
+
+    from clibd_tpu_torch.ops.attention import (flash_attention_qkv_bwd_cuda,
+                                               flash_attention_qkv_bwd_reference)
+
+    got = flash_attention_qkv_bwd_cuda(qkv, dout, H, mask).float()
+    want = flash_attention_qkv_bwd_reference(qkv, dout, H, mask).float()
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        fail(f"backward kernel output not finite at {what}")
+    rel = bwd_parts_rel(got, want, H * 64)
+    print(f"kernel flash_attention_qkv_bwd {what}: max|kernel-plain|/max|plain| dq {rel[0]:.3e} "
+          f"dk {rel[1]:.3e} dv {rel[2]:.3e} (tol {BWD_REL_TOL})")
+    if max(rel) > BWD_REL_TOL:
+        fail(f"backward kernel disagrees with its plain version at {what}: {rel}")
+    return float((got - want).abs().max())
+
+
 def backward_kernel_phase(card: str) -> dict:
     import torch
 
@@ -755,41 +807,38 @@ def backward_kernel_phase(card: str) -> dict:
         flash_attention_qkv,
         flash_attention_qkv_bwd_cuda,
         flash_attention_qkv_bwd_reference,
+        flash_attention_qkv_bwd_route,
     )
     from clibd_tpu_torch.utils.profiling import cuda_ms
+
+    def inputs(B, N, H, masked, seed):
+        qkv, mask = make_qkv(B, N, H, masked, seed=seed)
+        g = torch.Generator(device="cuda").manual_seed(N * B)
+        return qkv, mask, torch.randn(B, N, H * 64, generator=g, device="cuda").to(torch.bfloat16)
+
+    def same_bits(qkv, mask, dout, H, what):
+        first = flash_attention_qkv_bwd_cuda(qkv, dout, H, mask)
+        if not torch.equal(first, flash_attention_qkv_bwd_cuda(qkv, dout, H, mask)):
+            fail(f"two launches of the backward kernel differ at {what}")
+        print(f"two launches of flash_attention_qkv_bwd give the same bits at {what}")
 
     shapes = []
     for name, N, H, masked in SHAPES:
         D = H * 64
         err, plain_B = 0.0, plain_batch(N)
-
-        def inputs(B):
-            qkv, mask = make_qkv(B, N, H, masked, seed=N + B + 1)
-            g = torch.Generator(device="cuda").manual_seed(N * B)
-            return qkv, mask, torch.randn(B, N, D, generator=g, device="cuda").to(torch.bfloat16)
-
+        route = ("whole row", "key-tiled")[flash_attention_qkv_bwd_route(N)]
         for B in sorted({64, plain_B}):
-            qkv, mask, dout = inputs(B)
-            got = flash_attention_qkv_bwd_cuda(qkv, dout, H, mask).float()
-            want = flash_attention_qkv_bwd_reference(qkv, dout, H, mask).float()
-            torch.cuda.synchronize()
-            if not torch.isfinite(got).all():
-                fail(f"backward kernel output not finite at {name} B={B}")
-            rel = []
-            for i, part in enumerate(("dq", "dk", "dv")):
-                a, b = got[..., i * D:(i + 1) * D], want[..., i * D:(i + 1) * D]
-                rel.append(float((a - b).abs().max() / b.abs().max()))
-            err = max(err, float((got - want).abs().max()))
-            print(f"kernel flash_attention_qkv_bwd {name} B={B} N={N} H={H} mask={masked}: "
-                  f"max|kernel-plain|/max|plain| dq {rel[0]:.3e} dk {rel[1]:.3e} dv {rel[2]:.3e} "
-                  f"(tol {BWD_REL_TOL})")
-            if max(rel) > BWD_REL_TOL:
-                fail(f"backward kernel disagrees with its plain version at {name} B={B}: {rel}")
-            del got, want
+            qkv, mask, dout = inputs(B, N, H, masked, N + B + 1)
+            err = max(err, check_backward(qkv, dout, mask, H,
+                                          f"{name} B={B} N={N} H={H} mask={masked} ({route})"))
+            if N > LONG_N and B == 64:  # the overlap tower's determinism, where its plain fits
+                same_bits(qkv, mask, dout, H, f"{name} B=64")
             if B == plain_B:
                 plain_ms = cuda_ms(lambda: flash_attention_qkv_bwd_reference(qkv, dout, H, mask))
         if plain_B != 500:
-            qkv, mask, dout = inputs(500)
+            qkv, mask, dout = inputs(500, N, H, masked, N + 500 + 1)
+        if name == "vit":
+            same_bits(qkv, mask, dout, H, f"{name} B=500")
         ms = cuda_ms(lambda: flash_attention_qkv_bwd_cuda(qkv, dout, H, mask))
         leaf = qkv.detach().requires_grad_()
         lib_out = library_attention(leaf, H, mask)
@@ -798,15 +847,21 @@ def backward_kernel_phase(card: str) -> dict:
         flops = 10 * 500 * H * N * N * 64  # S, dP, dV, dQ, dK
         nbytes = 500 * N * (3 * D + D + 3 * D) * 2 + (500 * N * 4 if masked else 0)
         bound_ms, bound_by = bound(nbytes, flops)
-        print(f"time flash_attention_qkv_bwd {name} B=500: kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms (B={plain_B}), "
+        print(f"time flash_attention_qkv_bwd {name} B=500 ({route}): kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s; mma.sync design, recorded: "
+              f"{BWD_RECORDED_MS[name]:.4f} ms), plain {plain_ms:.4f} ms (B={plain_B}), "
               f"library (sdpa backward) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
               f"  [{card}]")
-        shapes.append({"shape": name, "B": 500, "N": N, "H": H, "ms": ms, "plain_ms": plain_ms,
-                       "plain_B": plain_B, "library_ms": library_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "max_abs_err": err})
+        shapes.append({"shape": name, "B": 500, "N": N, "H": H, "route": route, "ms": ms,
+                       "plain_ms": plain_ms, "plain_B": plain_B, "library_ms": library_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err})
         del qkv, mask, dout, leaf, lib_out
     torch.cuda.empty_cache()
+    for B, N, H in BWD_EDGES:
+        route = ("whole row", "key-tiled")[flash_attention_qkv_bwd_route(N)]
+        for masked in (False, True):
+            qkv, mask, dout = inputs(B, N, H, masked, 7 * N + B)
+            check_backward(qkv, dout, mask, H, f"edge B={B} N={N} H={H} mask={masked} ({route})")
 
     # autograd through the operator runs the backward kernel (B=16, text shape)
     qkv, mask = make_qkv(16, 20, 8, True, seed=5)

@@ -306,9 +306,9 @@ outproj_bf16_kernel(const __grid_constant__ CUtensorMap qkv_map,
     }
     if (live) {
       const unsigned char* kv = ring + (it & 1) * 2 * BOX;
-      online_tile<true>(st, qa, reinterpret_cast<const __nv_bfloat16*>(kv),
-                        reinterpret_cast<const __nv_bfloat16*>(kv + BOX),
-                        mrow ? mrow + kt * KTILE : nullptr, N - kt * KTILE, scale, lane);
+      online_tile(st, qa, reinterpret_cast<const __nv_bfloat16*>(kv),
+                  reinterpret_cast<const __nv_bfloat16*>(kv + BOX),
+                  mrow ? mrow + kt * KTILE : nullptr, N - kt * KTILE, scale, lane);
     }
     if (kt == tiles - 1) {
       // normalise; rows g and g+8 of the warp into head h's k-slab, swizzled

@@ -1,9 +1,10 @@
 // Device helpers shared by the port's kernels for Hopper, sm_90a: the bf16
-// tensor-core product, fragment packing and loads, asynchronous copies to
-// shared memory, warp/quad reductions, and the key-tiled attention cores of
-// the forward and out-projection kernels (the latter reading K and V from
-// TMA's swizzled tiles).  Included by the attention kernels and
-// scale_copy.cu; ops/cuda_build.py hashes it with each source.
+// tensor-core product (mma.sync), fragment packing and loads, asynchronous
+// copies to shared memory, warp/quad reductions, the key-tiled attention core
+// of the out-projection kernel (online_tile, reading K and V from TMA's
+// swizzled tiles) and the fp32 kernels' attend_head_f32.  Included by the
+// attention kernels and scale_copy.cu; ops/cuda_build.py hashes it with each
+// source.
 
 #pragma once
 
@@ -110,14 +111,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(gmem));
 }
 
-// cp_async16 that copies nothing and zero-fills the 16 bytes when !valid
-// (`gmem` must still be a mapped address)
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-
 // 4 bytes global -> shared by cp.async, zero-filled when !valid (`gmem` must
 // still be a mapped address): for rows of floats that are not 16-byte aligned
 __device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, bool valid) {
@@ -161,120 +154,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// store a 16 x 64 fp32 accumulator as bf16 rows row0 + g and row0 + g + 8
-// (those below N) at dst (row stride rs)
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long rs, const float (&acc)[HD / 8][4],
-                                           int row0, int N, int g, int t) {
-  const int r0 = row0 + g, r1 = r0 + 8;
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-    if (r0 < N)
-      *reinterpret_cast<__nv_bfloat162*>(dst + r0 * rs + dt * 8 + t * 2) =
-          __floats2bfloat162_rn(acc[dt][0], acc[dt][1]);
-    if (r1 < N)
-      *reinterpret_cast<__nv_bfloat162*>(dst + r1 * rs + dt * 8 + t * 2) =
-          __floats2bfloat162_rn(acc[dt][2], acc[dt][3]);
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[HD / 8][4]) {
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-}
-
-// A fragments of the 16 rows row0 .. row0+15 (64 columns) of a bf16 matrix in
-// device memory (`p`: row 0, row stride `rs`); rows at or past N read as 0
-__device__ __forceinline__ void load_rows_a(uint32_t (&a)[HD / 16][4], const __nv_bfloat16* p,
-                                            long rs, int N, int row0, int g, int t) {
-  const int r0 = row0 + g, r1 = r0 + 8;
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    const int c = ks * 16 + t * 2;
-    a[ks][0] = r0 < N ? ld_u32(p + r0 * rs + c) : 0u;
-    a[ks][1] = r1 < N ? ld_u32(p + r1 * rs + c) : 0u;
-    a[ks][2] = r0 < N ? ld_u32(p + r0 * rs + c + 8) : 0u;
-    a[ks][3] = r1 < N ? ld_u32(p + r1 * rs + c + 8) : 0u;
-  }
-}
-
-// One warp's attention over one head for the 16 query rows row0 + g and
-// row0 + g + 8 (g = lane/4, t = lane%4), the TPU kernel's arithmetic:
-// S = q.k^T (bf16 in, fp32 accumulate) * scale + the key mask, keys N ..
-// 16*KT-1 at -inf, the exact fp32 row softmax, P rounded to bf16 after the
-// normalisation, o = P.V accumulated in fp32 (o[dt] holds output columns
-// dt*8 + 2t, +1 of both rows).  q comes straight from device memory (`qg`:
-// the head's q columns of row 0, row stride `rs`; rows past N read as 0); K
-// (row stride HD+8) and V^T (row stride 16*KT+8) are staged in shared
-// memory, zero past N.  The whole 16 x 16*KT score block stays in
-// registers, and the score accumulators of key tile kt are the A fragment
-// of P for the P.V product.  No kernel of the tree calls it now: the earlier
-// mma.sync versions of attention_bhnd.cu and of the batched forward did,
-// and tools/exp_flash_sched.py and tools/exp_probe_sched.py rebuild those
-// versions (from git) against these headers to time them beside the
-// current ones.
-template <int KT>
-__device__ __forceinline__ void attend_rows_bf16(float (&o)[HD / 8][4], const __nv_bfloat16* qg,
-                                                 long rs, const __nv_bfloat16* Ks,
-                                                 const __nv_bfloat16* Vt, const float* mrow, int N,
-                                                 int row0, float scale, int g, int t) {
-  constexpr int KS = HD + 8;
-  constexpr int VS = KT * 16 + 8;
-  uint32_t qa[HD / 16][4];
-  load_rows_a(qa, qg, rs, N, row0, g, t);
-  float s[2 * KT][4];
-#pragma unroll
-  for (int nt = 0; nt < 2 * KT; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    const __nv_bfloat16* kr = Ks + (nt * 8 + g) * KS + t * 2;
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks)
-      mma_bf16_16816(s[nt], qa[ks], ld_u32(kr + ks * 16), ld_u32(kr + ks * 16 + 8));
-  }
-  float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-  for (int nt = 0; nt < 2 * KT; ++nt) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = nt * 8 + t * 2 + j;
-      const float add = col < N ? (mrow ? mrow[col] : 0.f) : -INFINITY;
-      s[nt][j] = s[nt][j] * scale + add;
-      s[nt][2 + j] = s[nt][2 + j] * scale + add;
-      mx0 = fmaxf(mx0, s[nt][j]);
-      mx1 = fmaxf(mx1, s[nt][2 + j]);
-    }
-  }
-  mx0 = quad_max(mx0);
-  mx1 = quad_max(mx1);
-  float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-  for (int nt = 0; nt < 2 * KT; ++nt) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      s[nt][j] = expf(s[nt][j] - mx0);
-      s[nt][2 + j] = expf(s[nt][2 + j] - mx1);
-      l0 += s[nt][j];
-      l1 += s[nt][2 + j];
-    }
-  }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-#pragma unroll
-  for (int kt = 0; kt < KT; ++kt) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16x2(s[2 * kt][0] / l0, s[2 * kt][1] / l0);
-    pa[1] = pack_bf16x2(s[2 * kt][2] / l1, s[2 * kt][3] / l1);
-    pa[2] = pack_bf16x2(s[2 * kt + 1][0] / l0, s[2 * kt + 1][1] / l0);
-    pa[3] = pack_bf16x2(s[2 * kt + 1][2] / l1, s[2 * kt + 1][3] / l1);
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      const __nv_bfloat16* vr = Vt + (dt * 8 + g) * VS + kt * 16 + t * 2;
-      mma_bf16_16816(o[dt], pa, ld_u32(vr), ld_u32(vr + 8));
-    }
-  }
-}
-
 // bytes of a [64, D] bf16 context tile at row stride D+8
 __host__ __device__ constexpr size_t ctx_tile_bytes(int D) {
   return (size_t)64 * (D + 8) * sizeof(__nv_bfloat16);
@@ -287,21 +166,6 @@ __host__ __device__ constexpr size_t ctx_tile_bytes(int D) {
 // ---------------------------------------------------------------------------
 
 constexpr int KTILE = 64;     // rows of a streamed tile
-constexpr int TS = HD + 8;    // its row stride in bf16: conflict-free ld_u32 and ldmatrix
-constexpr size_t TILE_BYTES = (size_t)KTILE * TS * sizeof(__nv_bfloat16);
-
-// One head's rows row0 .. row0+63 of a bf16 matrix in device memory (`src`:
-// row 0 of the head's columns, row stride `rs`) into the tile `dst` by
-// cp.async, over THREADS threads; rows at or past N are zero-filled.
-template <int THREADS>
-__device__ __forceinline__ void issue_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, long rs,
-                                           int row0, int N) {
-  for (int idx = threadIdx.x; idx < KTILE * (HD / 8); idx += THREADS) {
-    const int r = idx / (HD / 8), c = (idx % (HD / 8)) * 8;
-    const bool live = row0 + r < N;
-    cp_async16_zfill(dst + r * TS + c, src + (live ? row0 + r : 0) * rs + c, live);
-  }
-}
 
 // the key mask of keys key0 .. key0+63 into `add` by cp.async (no thread
 // waits on device memory), 0 past N or without a mask; read it with key_add,
@@ -323,31 +187,12 @@ __device__ __forceinline__ float key_add(const float* add, int col, int nvalid) 
 }
 
 // acc[nt] (16 x 8, nt < NT) = A (16 rows x 64, fragments `a`) times rows
-// row0 + 8nt .. +7 of the tile, transposed: 16 rows' products with 8*NT rows
-// of the tile (scores against keys, or dP against V rows).  B fragments by
-// ldmatrix, two k-steps per instruction.
-template <int NT>
-__device__ __forceinline__ void mma_rows_t(float (&acc)[NT][4], const uint32_t (&a)[HD / 16][4],
-                                           const __nv_bfloat16* tile, int row0, int lane) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-    const __nv_bfloat16* p = tile + (row0 + nt * 8 + (lane & 7)) * TS + (lane >> 3) * 8;
-#pragma unroll
-    for (int kp = 0; kp < HD / 32; ++kp) {
-      uint32_t b[4];
-      ldmatrix_x4(b, p + kp * 32);
-      mma_bf16_16816(acc[nt], a[2 * kp], b[0], b[1]);
-      mma_bf16_16816(acc[nt], a[2 * kp + 1], b[2], b[3]);
-    }
-  }
-}
-
-// mma_rows_t (row0 = 0) on a tile as TMA writes it with the 128-byte
-// swizzle: rows of 64 bf16, 128 bytes apart, unpadded, the 16-byte group
-// col/8 of row r at group (col/8) ^ (r % 8) (sw128_offset).  The 8 rows of
-// each ldmatrix matrix land in 8 distinct groups, so it is conflict-free
-// without the padding.
+// 8nt .. 8nt+7 of the tile, transposed (scores against keys), on a tile as
+// TMA writes it with the 128-byte swizzle: rows of 64 bf16, 128 bytes apart,
+// unpadded, the 16-byte group col/8 of row r at group (col/8) ^ (r % 8)
+// (sw128_offset).  B fragments by ldmatrix, two k-steps per instruction;
+// the 8 rows of each ldmatrix matrix land in 8 distinct groups, so it is
+// conflict-free without padding.
 template <int NT>
 __device__ __forceinline__ void mma_rows_t_sw128(float (&acc)[NT][4],
                                                  const uint32_t (&a)[HD / 16][4],
@@ -431,31 +276,25 @@ __device__ __forceinline__ HeadTile head_tile(int N, int H) {
 // One 64-key tile into the state: S = q.k^T * scale + mask in fp32, the
 // running max raised to the tile's, the state rescaled, P = exp(S - max)
 // rounded to bf16, o += P.V.  `Ks`, `Vs`: the tile's K and V rows (zero past
-// N), padded to row stride TS or, with SW128, as TMA's 128-byte swizzle lays
-// them out; `add`: its key mask row in shared memory or, with SW128, in
-// device memory (null without a mask); `nvalid` its keys below N.  exp is the
-// fast __expf (ex2.approx): its error, a few fp32 ulps, is far below the
+// N) as TMA's 128-byte swizzle lays them out; `add`: its key mask row in
+// device memory (null without a mask); `nvalid` its keys below N.  exp is
+// the fast __expf (ex2.approx): its error, a few fp32 ulps, is far below the
 // bf16 rounding of P, and the precise expf would cost the issue slots that
 // bound this loop.
-template <bool SW128 = false>
 __device__ __forceinline__ void online_tile(OnlineRows& st, const uint32_t (&qa)[HD / 16][4],
                                             const __nv_bfloat16* Ks, const __nv_bfloat16* Vs,
                                             const float* add, int nvalid, float scale,
                                             int lane) {
   const int t = lane & 3;
   float s[KTILE / 8][4];
-  if constexpr (SW128)
-    mma_rows_t_sw128<KTILE / 8>(s, qa, reinterpret_cast<const unsigned char*>(Ks), lane);
-  else
-    mma_rows_t<KTILE / 8>(s, qa, Ks, 0, lane);
+  mma_rows_t_sw128<KTILE / 8>(s, qa, reinterpret_cast<const unsigned char*>(Ks), lane);
   float mx0 = st.m0, mx1 = st.m1;
 #pragma unroll
   for (int nt = 0; nt < KTILE / 8; ++nt) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int col = nt * 8 + t * 2 + j;
-      const float a = !SW128 ? key_add(add, col, nvalid)
-                             : col < nvalid ? (add ? __ldg(add + col) : 0.f) : -INFINITY;
+      const float a = col < nvalid ? (add ? __ldg(add + col) : 0.f) : -INFINITY;
       s[nt][j] = fmaf(s[nt][j], scale, a);
       s[nt][2 + j] = fmaf(s[nt][2 + j], scale, a);
       mx0 = fmaxf(mx0, s[nt][j]);
@@ -492,84 +331,8 @@ __device__ __forceinline__ void online_tile(OnlineRows& st, const uint32_t (&qa)
   for (int kc = 0; kc < KTILE / 16; ++kc) {
     uint32_t pa[4];
     pack_a(pa, s, kc);
-    if constexpr (SW128)
-      mma_kmajor_sw128<HD / 8>(st.o, pa, reinterpret_cast<const unsigned char*>(Vs), kc * 16,
-                               lane);
-    else
-      mma_kmajor<HD / 8>(st.o, pa, Vs, TS, kc * 16, 0, lane);
-  }
-}
-
-// bytes of one stage of attend_head_group<G>'s ring: K and V tiles of G heads
-// and the key row
-__host__ __device__ constexpr size_t group_stage_bytes(int G) {
-  return 2 * G * TILE_BYTES + KTILE * sizeof(float);
-}
-
-// The attention of heads h0 .. h0+G-1 for the query rows q0 .. q0+63 of one
-// batch element, over 4*G warps: warp w takes head h0 + w/4 and rows
-// q0 + 16*(w%4) .. +15, and returns their normalised output in `o` (rows g
-// in o[dt][0..1], g+8 in o[dt][2..3]; zero where the warp has no live row:
-// a head at or past H, rows at or past N).  `base` is the element's fused
-// qkv (row stride rs, D = H*HD), `mrow` its key mask or null.  The 64-key
-// tiles stream through a ring of two stages at `smem`
-// (2 * group_stage_bytes(G) bytes) by cp.async, the next tile's copies in
-// flight while this one is computed.  Returns after a barrier: `smem` is
-// free again.
-template <int G>
-__device__ __forceinline__ void attend_head_group(float (&o)[HD / 8][4], unsigned char* smem,
-                                                  const __nv_bfloat16* base, long rs, int D,
-                                                  int H, int h0, int N, int q0,
-                                                  const float* mrow, float scale) {
-  constexpr int THREADS = G * 128;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int h = h0 + warp / 4, row0 = q0 + (warp % 4) * 16;
-  const bool live = h < H && row0 < N;
-  auto stage = [&](int i) { return smem + (i & 1) * group_stage_bytes(G); };
-  auto issue = [&](int i) {  // key tile i into stage i % 2
-    __nv_bfloat16* kv = reinterpret_cast<__nv_bfloat16*>(stage(i));
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      const int hh = min(h0 + gi, H - 1);  // a head past H copies a real one, never read
-      issue_tile<THREADS>(kv + 2 * gi * KTILE * TS, base + D + hh * HD, rs, i * KTILE, N);
-      issue_tile<THREADS>(kv + (2 * gi + 1) * KTILE * TS, base + 2 * D + hh * HD, rs, i * KTILE,
-                          N);
-    }
-    issue_mask_tile<THREADS>(reinterpret_cast<float*>(stage(i) + 2 * G * TILE_BYTES), mrow,
-                             i * KTILE, N);
-    cp_async_commit();
-  };
-
-  OnlineRows st;
-  online_init(st);
-  uint32_t qa[HD / 16][4];
-  load_rows_a(qa, base + h * HD, rs, live ? N : 0, row0, lane >> 2, lane & 3);
-  const int tiles = (N + KTILE - 1) / KTILE;
-  issue(0);
-  for (int i = 0; i < tiles; ++i) {
-    if (i + 1 < tiles) {
-      issue(i + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile i has landed, for every thread
-    if (live) {
-      const __nv_bfloat16* Ks = reinterpret_cast<const __nv_bfloat16*>(stage(i)) +
-                                2 * (warp / 4) * KTILE * TS;
-      online_tile(st, qa, Ks, Ks + KTILE * TS,
-                  reinterpret_cast<const float*>(stage(i) + 2 * G * TILE_BYTES), N - i * KTILE,
-                  scale, lane);
-    }
-    __syncthreads();  // stage i % 2 is no longer read
-  }
-  const float r0 = live ? 1.f / quad_sum(st.l0) : 0.f, r1 = live ? 1.f / quad_sum(st.l1) : 0.f;
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-    o[dt][0] = st.o[dt][0] * r0;
-    o[dt][1] = st.o[dt][1] * r0;
-    o[dt][2] = st.o[dt][2] * r1;
-    o[dt][3] = st.o[dt][3] * r1;
+    mma_kmajor_sw128<HD / 8>(st.o, pa, reinterpret_cast<const unsigned char*>(Vs), kc * 16,
+                             lane);
   }
 }
 

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's kernels: the wgmma
 // shared-memory descriptors and products (A from shared memory or from
 // registers), mbarriers, TMA loads (plain and
-// multicast to a cluster) and stores, proxy fences, named and cluster
+// multicast to a cluster), bulk copies and stores, proxy fences, named and cluster
 // barriers, and the host-side encoding of a 2-D or 3-D bf16 tensor map.
 // Operands loaded by TMA have the 128-byte swizzle: rows of 64 bf16 (128
 // bytes) in atoms of 8 rows (1 KB), so a tile's base must be 1024-byte
@@ -137,6 +137,17 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void*
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from src to dst (both 16-byte aligned) by the
+// bulk-copy engine; completes bytes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -18,10 +18,20 @@ On a CUDA tensor each direction launches its hand-written kernel
 tensor it runs its plain version (`flash_attention_qkv_reference`,
 `flash_attention_qkv_bwd_reference`), which has the same numerics.  There is
 no fallback from the card to the plain version: a launch error raises.  The
-kernels stream the keys in tiles, so they take any N, as the TPU package
-does; the bf16 forward kernel uses an online softmax and rounds P to bf16
-before dividing by the row sum (one bf16 rounding of P away from the
-numerics below, within the tolerance `chip_smoke.py` holds it to).
+kernels take any N, as the TPU package does.  The bf16 forward kernel uses
+an online softmax and rounds P to bf16 before dividing by the row sum (one
+bf16 rounding of P away from the numerics below, within the tolerance
+`chip_smoke.py` holds it to).  The bf16 backward takes one of two routes by
+N, a rule its library holds (`flash_attention_qkv_bwd_route`, read from
+`clibd_flash_bwd_route`), every product on `wgmma` fed by TMA: up to 208
+keys the whole row of a (batch, head) on chip (`csrc/wgmma_attention_bwd.cuh`:
+S and dP once, the exact softmax in registers, Pb and dS in shared memory,
+5 products, one exp pass); past them key-tiled in two kernels (9 products,
+three exp passes): a row kernel per 64-row query tile sweeps the keys once
+for each row's max, sum and rowsum(P * dP), then again for dQ, and a
+key-major column kernel per 64-key block forms dK and dV.  No two CTAs
+write the same output and nothing is added atomically, so the same inputs
+give the same bits.
 
 Forward numerics (the TPU kernel's, `attention.py:126-208`): S = q.k^T in
 fp32 times 1/sqrt(hd), plus the mask, fp32 softmax, P rounded to bf16 after
@@ -77,11 +87,13 @@ warpgroup's softmax runs while the next one's products are in flight;
 three warpgroups walk every head free of each other.  Both take N <= 256
 and, unlike the bf16 forward kernel above, round P to bf16 after the
 normalisation, as the numerics below do.  `csrc/flash_attention_qkv_bwd_phased.cu`
-keeps Pb and dS of a (batch, head) in shared memory so S is computed once:
-a CTA of two warpgroups per (batch, head), every product on `wgmma` with
-its operands loaded by TMA (a row phase of 64-query blocks: S, the softmax,
-dP in 64-key chunks, dQ; then a column phase of 64-key blocks: dV and dK
-from Pb and dS read transposed).  Each computes what its JAX variant does, so its plain
+is the entry point of the whole-row backward core that the backward above
+runs up to 208 keys (`csrc/wgmma_attention_bwd.cuh`): Pb and dS of a
+(batch, head) in shared memory so S is computed once, a CTA per (batch,
+head) of one warpgroup (N <= 64) or two, every product on `wgmma` with
+its operands loaded by TMA (a row phase of 64-query blocks: S, the
+softmax, dP in 64-key chunks, dQ; then a column phase of 64-key blocks: dV
+and dK from Pb and dS read transposed).  Each computes what its JAX variant does, so its plain
 version is the forward's or the backward's (`flash_attention_qkv_reference`,
 `flash_attention_qkv_bwd_reference`), and a CPU tensor runs that.  They
 take bf16 only (TypeError otherwise), have no autograd (the JAX variants
@@ -213,25 +225,39 @@ def flash_attention_qkv_cuda(qkv: torch.Tensor, num_heads: int,
     return out
 
 
+def flash_attention_qkv_bwd_route(N: int) -> int:
+    """The bf16 backward kernel's route at N keys, as its library picks it
+    (`clibd_flash_bwd_route`): 0, the whole row of a (batch, head) on chip
+    (N <= 208); 1, key-tiled (any N)."""
+    return function("flash_attention_qkv_bwd", "clibd_flash_bwd_route", [ctypes.c_int])(N)
+
+
 def flash_attention_qkv_bwd_cuda(qkv: torch.Tensor, dout: torch.Tensor, num_heads: int,
                                  mask_row: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the backward kernels → dqkv [B, N, 3D]: the row kernel (dQ and
-    each query row's softmax max, sum and rowsum(P * dP), into a scratch
-    allocated here), then the column kernel (dK, dV).  One call counts as one
-    launch of `flash_attention_qkv_bwd`, as one backward of the operator.
-    dout is made contiguous here (autograd may hand over a strided
-    gradient)."""
-    mask_row = _check_cuda_args("flash_attention_qkv_bwd", qkv, num_heads, mask_row)
+    """Launch the backward kernels → dqkv [B, N, 3D]: for bf16 the route
+    `flash_attention_qkv_bwd_route(N)` names (the whole-row kernel, or the
+    key-tiled row-statistics and column kernels), for fp32 the SIMT row and
+    column kernels, with the scratch they need allocated here.  One call
+    counts as one launch of `flash_attention_qkv_bwd`, as one backward of
+    the operator.  dout is made contiguous here (autograd may hand over a
+    strided gradient)."""
+    what = "flash_attention_qkv_bwd"
+    mask_row = _check_cuda_args(what, qkv, num_heads, mask_row)
     B, N, three_d = qkv.shape
     dout = dout.to(qkv.dtype).contiguous()
     if dout.shape != (B, N, three_d // 3) or dout.device != qkv.device or dout.data_ptr() % 16:
-        raise ValueError(f"flash_attention_qkv_bwd: dout {tuple(dout.shape)} on {dout.device} "
+        raise ValueError(f"{what}: dout {tuple(dout.shape)} on {dout.device} "
                          f"is not a 16-byte aligned [{B}, {N}, {three_d // 3}] on {qkv.device}")
+    code = DTYPE_CODE[qkv.dtype]
+    route = flash_attention_qkv_bwd_route(N) if qkv.dtype == torch.bfloat16 else 0
+    nbytes = function(what, "clibd_flash_bwd_scratch_bytes", [ctypes.c_int] * 5,
+                      ctypes.c_long)(B, N, num_heads, code, route)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=qkv.device)
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((B, num_heads, 3, N), dtype=torch.float32, device=qkv.device)
-    launch("flash_attention_qkv_bwd", "flash_attention_qkv_bwd", "clibd_flash_attention_qkv_bwd",
-           [qkv.data_ptr(), dout.data_ptr(), _ptr(mask_row), dqkv.data_ptr(), stats.data_ptr()],
-           [B, N, num_heads, DTYPE_CODE[qkv.dtype]], qkv.device)
+    launch(what, what, "clibd_flash_attention_qkv_bwd",
+           [qkv.data_ptr(), dout.data_ptr(), _ptr(mask_row), dqkv.data_ptr(),
+            scratch.data_ptr() if nbytes else None],
+           [B, N, num_heads, code, route], qkv.device)
     flash_attention_qkv_bwd.launches += 1
     return dqkv
 

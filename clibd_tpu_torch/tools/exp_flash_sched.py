@@ -1,8 +1,9 @@
-"""Where do the phased forward and backward kernels' times go, and row 1's?
+"""Where do the phased forward and backward kernels' times go, and rows 1 and 2's?
 
     python3 -m clibd_tpu_torch.tools.exp_flash_sched [--phased FILE] [--batched FILE]
         [--bwd FILE ...]
     python3 -m clibd_tpu_torch.tools.exp_flash_sched --row1 [FILE ...]
+    python3 -m clibd_tpu_torch.tools.exp_flash_sched --row2 [FILE ...]
 
 `--row1` times the main path's forward alone (`csrc/flash_attention_qkv.cu`)
 at the main path's four shapes, B=500 (ViT N=197, BarcodeBERT N=133,
@@ -10,12 +11,32 @@ BERT-small N=20 H=8 masked, the overlap tower's N=657 masked): the
 committed kernel with 1, 2 and 4 warpgroups a CTA (through
 `clibd_flash_attention_qkv_fwd_w`), its `l2_only` and `no_softmax`
 variants at the number it picks, each FILE as it is (an earlier version of
-the file, say `git show 4605cf6:clibd_tpu_torch/csrc/flash_attention_qkv.cu`,
-the key-tiled mma.sync kernel), v0 (the wrapper) and SDPA, each checked on 8
+the file, say 4605cf6's key-tiled mma.sync kernel, unpacked with its headers
+as below), v0 (the wrapper) and SDPA, each checked on 8
 rows and timed twice, interleaved; then the `sections` variant's clock64
 cycles of thread 0 an item (the wait for q, per key block the wait for K,
 S, the softmax, the wait for V, P.V, the slot's release, the context's
 store).
+
+`--row2` times the main path's backward alone (`csrc/flash_attention_qkv_bwd.cu`)
+at the same four shapes, B=500: the committed kernel with each route forced
+through its entry point's `route` argument (`row`, the whole row on chip,
+where N <= 208; `tiled`, key-tiled with a second sweep for dQ), each FILE as
+it is (an earlier version of the file, say the mma.sync row and column
+kernels of 1b418aa, or a design to compare), v0 (the wrapper) and SDPA's
+backward, each checked on 8 rows and timed twice, interleaved; then each
+route's clock64 sections of thread 0: the whole-row route's through the
+core (`--bwd`'s BWD_SECTIONS), the key-tiled route's from the source's
+BWD_TICK hooks (the row kernel's eight sections a CTA, the column kernel's
+six an item).
+
+Every FILE of every mode is compiled with its own directory ahead of
+`csrc/` on the include path, so an earlier version builds against the
+headers of its own commit, unpacked beside it:
+
+    mkdir -p build/prev && git archive 1b418aa clibd_tpu_torch/csrc | tar -x -C build/prev
+    python3 -m clibd_tpu_torch.tools.exp_flash_sched \
+        --row2 build/prev/clibd_tpu_torch/csrc/flash_attention_qkv_bwd.cu
 
 Builds scratch variants of the two forward schedules of `tools/exp_flash.py`
 -- FILE, by default the committed `csrc/flash_attention_qkv_phased.cu` and
@@ -41,8 +62,8 @@ the phased one also at every head group of `PHASED_GROUPS`; `sections`
 issued as soon as its own box has landed); and, computing another function,
 `l2_only` (every load from batch element 0, so from L2), `no_softmax` (P =
 S rounded) and `kv_once` (K and V loaded only by the first query tile's
-CTAs).  A source may also be the previous version of a file (`git show
-8075b1f:clibd_tpu_torch/csrc/<file>`): an mma.sync kernel fed by cp.async.
+CTAs).  A source may also be the previous version of a file (from
+8075b1f, with its headers): an mma.sync kernel fed by cp.async.
 Its phased variants are `kernel` and `sections` (the K copy, phase 1 (S),
 the barrier after it, phase 2 (the softmaxes, V's copies issued), the wait
 for V with its barrier, phase 3 (P.V and the store)); its batched ones
@@ -54,13 +75,14 @@ K and V) and `no_tile_1stage` (the same with one stage: three CTAs, 12
 warps a SM).
 
 The backward's variants (`bwd_variants`) are `kernel` and `sections`: the
-clock64 cycles of thread 0 a CTA, for the committed kernel (`BWD_SECTIONS`:
+clock64 cycles of thread 0 a CTA, for the committed kernel (its core,
+`csrc/wgmma_attention_bwd.cuh`, inlined; `BWD_SECTIONS`:
 the loads issued and K/V waited for, the row phase, the barrier after it,
 the wait for Q and dO, the column phase; and through each query block of
 warpgroup 0: the wait for q and dO, S, the softmax, dP, rowsum(P * dP)
 with dS and Pb, the warpgroup's barrier, the Pb/dS stores, dQ) and for the
 previous one
-(`PREV_BWD_SECTIONS`, `git show 60df5e0:...`: an mma.sync kernel fed by
+(`PREV_BWD_SECTIONS`, 60df5e0's: an mma.sync kernel fed by
 cp.async; K/V staged, the row phase, the barrier, the Q/dO copy with its
 wait, the column phase).  Each is checked against the plain version on the
 first 8 batch rows and timed twice, interleaved, beside the backward kernel
@@ -359,17 +381,27 @@ def variants_of(src: str) -> tuple:
     return kind, {name: edit(src) for name, edit in table.items()}, sections
 
 
-def build(sources: dict, subdir: str = "exp_flash_sched") -> dict:
+def include_flags(name: str, includes: dict | None) -> list:
+    """nvcc's include path for variant `name`: the directory `includes`
+    gives it (the FILE it was read from, whose commit's headers lie beside
+    it), then `csrc/`"""
+    first = (includes or {}).get(name)
+    return (["-I", str(first)] if first is not None else []) + ["-I", str(CSRC)]
+
+
+def build(sources: dict, subdir: str = "exp_flash_sched", includes: dict | None = None) -> dict:
     """One nvcc per variant, all together, into build_dir()/subdir → {name:
-    (its CDLL, nvcc's log)}."""
+    (its CDLL, nvcc's log)}; `includes` maps a variant to the directory
+    searched for its headers ahead of `csrc/`."""
     out = build_dir() / subdir
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in sources.items():
         (out / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
-            [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out / f"{name}.so"),
-             str(out / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            [find_nvcc(), *NVCC_FLAGS, *include_flags(name, includes), "-o",
+             str(out / f"{name}.so"), str(out / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
@@ -414,6 +446,7 @@ class Variant:
 # and the previous one (mma.sync from cp.async copies)
 # ---------------------------------------------------------------------------
 BWD_SOURCE = CSRC / "flash_attention_qkv_bwd_phased.cu"
+BWD_CORE = CSRC / "wgmma_attention_bwd.cuh"  # the whole-row core the sources include
 BWD_START = "  __nv_bfloat16* dg = dqkv + (long)b * N * rs + h * HD;\n"  # both kinds
 PREV_BWD_MARK = "mma_kmajor_swz(dv, pa, buf1, qt * 16, lane);"
 PBW_STAGED = ("  copy_tile(buf1, qg + 2 * D, rs, N);\n  cp_async_commit();\n  cp_async_wait<0>();\n"
@@ -424,7 +457,7 @@ PBW_COPIED = ("  copy_tile(buf1, og, D, N);\n  cp_async_commit();\n  cp_async_wa
 PBW_END = "    store_rows(dg + 2 * D, rs, dv, ct * 16, N, g, t);\n  }\n}\n"
 PREV_BWD_SECTIONS = ("K/V staged (issue, wait, barrier)", "row phase", "barrier after it",
                      "Q/dO copy and wait", "column phase")
-BWD_MARK = "column_block<KT>(pbds, tile0, tile1"
+BWD_MARK = '#include "wgmma_attention_bwd.cuh"\n'  # the core, inlined by a variant
 BW_KV = "  mbar_wait(bars + BAR_KV, 0);\n"
 BW_ROWS = "  fence_proxy_async();  // Pb and dS, visible to the column phase's wgmma\n"
 BW_BARRIER = "  __syncthreads();      // and K and V no longer read\n"
@@ -467,9 +500,18 @@ def _row_tick(k: int) -> str:
             f"{k}, (unsigned long long)(c1_ - c0_));\n  c0_ = c1_;\n")
 
 
+def _inline_bwd_core(src: str, prefix: str = "") -> str:
+    """the whole-row backward core (`csrc/wgmma_attention_bwd.cuh`) inlined
+    into a source that includes it, after `prefix`"""
+    core = BWD_CORE.read_text().replace("#pragma once\n", "", 1)
+    return _edit(src, [(BWD_MARK, prefix + core)])
+
+
 def _bwd_sections(src: str) -> str:
-    """clock64 ticks of thread 0: the kernel's five stretches in g_prof[0..4],
-    warpgroup 0's query blocks in g_prof[5..12] and their count in g_prof[13]"""
+    """clock64 ticks of thread 0 in the whole-row core (inlined): the
+    kernel's five stretches in g_prof[0..4], warpgroup 0's query blocks in
+    g_prof[5..12] and their count in g_prof[13]"""
+    src = _inline_bwd_core(src, PROF_DECL.split("namespace")[0])
     edits = [(BWD_START, BWD_START + _stamps(["p0"])),
              (BW_KV, BW_KV + _stamps(["p1"])),
              (BW_ROWS, _stamps(["p2"]) + BW_ROWS),
@@ -487,7 +529,7 @@ def _bwd_sections(src: str) -> str:
         edits.append((anchor, before + anchor + after))
     edits.append((RB_END, RB_END[:-2] + _row_tick(k)
                    + "  if (threadIdx.x == 0) atomicAdd(g_prof + 13, 1ull);\n}\n"))
-    return _profiled(src, edits)
+    return _edit(src, edits + [('extern "C" {\n', PROF_READ)])
 
 
 def bwd_variants(src: str) -> tuple:
@@ -532,12 +574,13 @@ def _interleaved(runs: dict) -> dict:
 def run_bwd(paths, card: str) -> None:
     """Every backward source's variants at SHAPES: checked, timed beside v0
     and SDPA's backward, and the sections variants' clock64 profile."""
-    texts, kinds = {}, {}
+    texts, kinds, includes = {}, {}, {}
     for i, path in enumerate(paths):
         kind, variants, names = bwd_variants(path.read_text())
         kinds[f"bwd{i}"] = (kind, names)
         texts.update({f"bwd{i}_{n}": text for n, text in variants.items()})
-    libs = build(texts)
+        includes.update({f"bwd{i}_{n}": path.parent for n in variants})
+    libs = build(texts, includes=includes)
     _report_ptxas(libs)
     fns = {}
     for name, (lib, _) in libs.items():
@@ -604,12 +647,13 @@ def run_bwd(paths, card: str) -> None:
 
 
 def run_forward(args, card: str) -> None:
-    sections, sources = {}, {}
+    sections, sources, includes = {}, {}, {}
     for schedule, path in (("phased", args.phased), ("batched", args.batched)):
         kind, variants, names = variants_of(path.read_text())
         sections[schedule] = (kind, names)
         sources.update({f"{schedule}_{n}": text for n, text in variants.items()})
-    libs = build(sources)
+        includes.update({f"{schedule}_{n}": path.parent for n in variants})
+    libs = build(sources, includes=includes)
     _report_ptxas(libs)
     dev = torch.device("cuda")
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
@@ -777,7 +821,8 @@ def run_row1(paths, card: str) -> None:
     texts = {f"row1_{n}": edit(ROW1_SOURCE.read_text()) for n, edit in ROW1_VARIANTS.items()}
     for i, path in enumerate(paths):
         texts[f"other{i}"] = path.read_text()
-    libs = build(texts, "exp_flash_sched_row1")
+    libs = build(texts, "exp_flash_sched_row1",
+                 includes={f"other{i}": path.parent for i, path in enumerate(paths)})
     _report_ptxas(libs)
     lib = libs["row1_kernel"][0]
     dev = torch.device("cuda")
@@ -836,6 +881,160 @@ def run_row1(paths, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# row 2, the main path's backward (csrc/flash_attention_qkv_bwd.cu): each
+# route at the main path's four shapes, B=500
+# ---------------------------------------------------------------------------
+ROW2_SOURCE = CSRC / "flash_attention_qkv_bwd.cu"
+# the routes of the bf16 backward, by the number its entry point takes
+ROW2_ROUTES = {"row": 0, "tiled": 1}
+ROW2_WHOLE_ROW_MAX_N = 208
+
+
+def row2_route(N: int) -> str:
+    """The kernel's rule (`route_for` in ROW2_SOURCE): the whole row on chip
+    up to 208 keys, key-tiled past them."""
+    return "row" if N <= ROW2_WHOLE_ROW_MAX_N else "tiled"
+
+
+# the key-tiled kernels' clock64 hooks (BWD_PROF_BEGIN, BWD_TICK(k),
+# BWD_PROF_END(first) in ROW2_SOURCE): thread 0's cycles, the row kernel's
+# eight sections in g_prof[0..7], the column kernel's six in [8..13]
+ROW2_PROF = """__device__ unsigned long long g_prof[16];
+#define BWD_PROF_BEGIN long long prof_[8] = {}; long long c0_ = clock64();
+#define BWD_TICK(k) { const long long c1_ = clock64(); prof_[k] += c1_ - c0_; c0_ = c1_; }
+#define BWD_PROF_END(first) if (threadIdx.x == 0) { for (int i_ = 0; i_ < 8; ++i_) \\
+    atomicAdd(g_prof + (first) + i_, (unsigned long long)prof_[i_]); }
+"""
+ROW2_ROW_SECTIONS = ("set-up", "q/dO wait", "K/V waits", "S and dP", "online statistics",
+                     "sweep 2: P and dS", "sweep 2: dQ", "statistics and dQ stores")
+ROW2_COL_SECTIONS = ("K/V wait", "Q/dO waits", "S^T and dP^T", "P^T and dS^T",
+                     "dV and dK products", "dK/dV stores, next K/V")
+
+
+def _row2_tiled_sections(src: str) -> str:
+    return _edit(ROW2_PROF + src, [('extern "C" {\n', PROF_READ)])
+
+
+ROW2_VARIANTS = {
+    "kernel": lambda s: s,
+    # the whole-row route's sections: the core inlined, the phased
+    # backward's ticks (BWD_SECTIONS)
+    "sections_row": lambda s: _bwd_sections(s),
+    # the key-tiled route's sections (ROW2_ROW_SECTIONS, ROW2_COL_SECTIONS)
+    "sections_tiled": _row2_tiled_sections,
+}
+
+
+def _row2_entry(lib: ctypes.CDLL, current: bool):
+    """the backward entry of a build: the committed one takes a scratch and
+    a route; an earlier one (the mma.sync kernels of 1b418aa) a [B, H, 3, N]
+    statistics buffer"""
+    fn = lib.clibd_flash_attention_qkv_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * (5 if current else 4)
+                   + [ctypes.c_void_p])
+    return fn
+
+
+def run_row2(paths, card: str) -> None:
+    """The committed backward with each route forced, each other source in
+    `paths` as it is (an earlier version of the file, built against the
+    headers beside it): each checked on the first 8 batch rows, then timed
+    twice, interleaved, beside v0 (the wrapper) and SDPA's backward; then
+    the `sections` variants' clock64 cycles of each route."""
+    texts = {f"row2_{n}": edit(ROW2_SOURCE.read_text()) for n, edit in ROW2_VARIANTS.items()}
+    for i, path in enumerate(paths):
+        texts[f"other{i}"] = path.read_text()
+    libs = build(texts, "exp_flash_sched_row2",
+                 includes={f"other{i}": path.parent for i, path in enumerate(paths)})
+    _report_ptxas(libs)
+    scratch_bytes = libs["row2_kernel"][0].clibd_flash_bwd_scratch_bytes
+    scratch_bytes.argtypes = [ctypes.c_int] * 5
+    scratch_bytes.restype = ctypes.c_long
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    for name, N, heads, masked in ROW1_SHAPES:
+        D = heads * 64
+        qkv = torch.randn(ROW1_B, N, 3 * D, generator=g, device=dev).to(torch.bfloat16)
+        dout = torch.randn(ROW1_B, N, D, generator=g, device=dev).to(torch.bfloat16)
+        mask = None
+        if masked:
+            keep = torch.rand(ROW1_B, N, generator=g, device=dev) > 0.3
+            keep[:, 0] = True
+            mask = (~keep).float() * torch.finfo(torch.float32).min
+        out = torch.empty_like(qkv)
+        want = flash_attention_qkv_bwd_reference(qkv[:8], dout[:8], heads,
+                                                 None if mask is None else mask[:8]).float()
+        scratch = torch.empty(scratch_bytes(ROW1_B, N, heads, 1, ROW2_ROUTES["tiled"]),
+                              dtype=torch.uint8, device=dev)
+        stats = torch.empty(ROW1_B, heads, 3, N, device=dev)
+
+        def call(fn, *route, current=True):
+            rc = fn(qkv.data_ptr(), dout.data_ptr(), None if mask is None else mask.data_ptr(),
+                    out.data_ptr(), (scratch if current else stats).data_ptr(), ROW1_B, N,
+                    heads, 1, *route, torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"launch failed: CUDA error {rc}")
+
+        runs = {}
+        for r, code in ROW2_ROUTES.items():
+            if r == "row" and N > ROW2_WHOLE_ROW_MAX_N:
+                continue
+            label = f"kernel {r}" + (" (picked)" if r == row2_route(N) else "")
+            runs[label] = lambda code=code: call(_row2_entry(libs["row2_kernel"][0], True), code)
+        for i in range(len(paths)):
+            current = "clibd_flash_bwd_route" in texts[f"other{i}"]
+            runs[f"other{i} ({paths[i].name})"] = (
+                lambda i=i, current=current: call(_row2_entry(libs[f"other{i}"][0], current),
+                                                  *((row2_route(N),) if current else ()),
+                                                  current=current))
+        for n, run in runs.items():
+            out.zero_()
+            run()
+            torch.cuda.synchronize()
+            got = out[:8].float()
+            rel = [float((got[..., k * D:(k + 1) * D] - want[..., k * D:(k + 1) * D]).abs().max()
+                         / want[..., k * D:(k + 1) * D].abs().max()) for k in range(3)]
+            print(f"{name} N={N} {n}: max|variant - plain| / max|plain| on 8 rows, dq "
+                  f"{rel[0]:.3e} dk {rel[1]:.3e} dv {rel[2]:.3e}", flush=True)
+        runs["v0 (backward kernel)"] = lambda: flash_attention_qkv_bwd_cuda(qkv, dout, heads, mask)
+        leaf = qkv.detach().requires_grad_()
+        lib_out = sdpa(leaf, heads, mask)
+        lib_grad = dout.view(ROW1_B, N, heads, 64).transpose(1, 2)
+        runs["sdpa backward"] = lambda: torch.autograd.grad(lib_out, leaf, lib_grad,
+                                                            retain_graph=True)
+        print(f"row 2 {name} B={ROW1_B} H={heads} N={N} mask={masked}, ms  [{card}]", flush=True)
+        for n, ts in _interleaved(runs).items():
+            print(f"  {n:28s} {', '.join(f'{t:.4f}' for t in ts)}", flush=True)
+        tiles = ROW1_B * heads * -(-N // 64)
+        for r, code in ROW2_ROUTES.items():
+            if r == "row" and N > ROW2_WHOLE_ROW_MAX_N:
+                continue
+            lib = libs["row2_sections_row" if r == "row" else "row2_sections_tiled"][0]
+            prof = (ctypes.c_ulonglong * 16)()
+            lib.clibd_prof.argtypes = [ctypes.c_void_p]
+            lib.clibd_prof(ctypes.addressof(prof))
+            call(_row2_entry(lib, True), code)
+            torch.cuda.synchronize()
+            lib.clibd_prof(ctypes.addressof(prof))
+            if r == "row":
+                blocks = max(prof[13], 1)
+                print(f"  clock64 sections, route row, thread 0, cycles a CTA: " + ", ".join(
+                    f"{s} {prof[i] / (ROW1_B * heads):.0f}" for i, s in enumerate(BWD_SECTIONS[:5]))
+                    + f"; a query block of warpgroup 0 ({blocks} blocks): " + ", ".join(
+                    f"{s[7:]} {prof[5 + i] / blocks:.0f}" for i, s in enumerate(BWD_SECTIONS[5:])),
+                    flush=True)
+            else:
+                print("  clock64 sections, route tiled, thread 0, cycles a row-kernel CTA: "
+                      + ", ".join(f"{s} {prof[i] / tiles:.0f}"
+                                  for i, s in enumerate(ROW2_ROW_SECTIONS))
+                      + "; a column item: " + ", ".join(
+                          f"{s} {prof[8 + i] / tiles:.0f}" for i, s in enumerate(ROW2_COL_SECTIONS)),
+                      flush=True)
+        del qkv, dout, mask, out, leaf, lib_out, lib_grad, scratch, stats
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phased", type=Path, default=SOURCES["phased"])
@@ -844,6 +1043,9 @@ def main(argv=None) -> None:
     parser.add_argument("--row1", type=Path, nargs="*", default=None,
                         help="time row 1 alone: the committed forward's CTA shapes and "
                              "variants, and each FILE as it is")
+    parser.add_argument("--row2", type=Path, nargs="*", default=None,
+                        help="time row 2 alone: the committed backward's routes and their "
+                             "sections, and each FILE as it is")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("exp_flash_sched needs a CUDA card")
@@ -851,6 +1053,9 @@ def main(argv=None) -> None:
     print(card, flush=True)
     if args.row1 is not None:
         run_row1(args.row1, card)
+        return
+    if args.row2 is not None:
+        run_row2(args.row2, card)
         return
     run_forward(args, card)
     run_bwd(args.bwd or [BWD_SOURCE], card)

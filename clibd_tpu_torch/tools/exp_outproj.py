@@ -29,9 +29,11 @@ The variants are text edits of the bf16 kernel (`VARIANTS`):
   CTA's rings) and before the exit.  Its shapes' grids must be even, and
   it takes H = 8 and 12 only (every warpgroup projects).
 
-FILE may also be the previous version of the file (`git show
-de1d180:clibd_tpu_torch/csrc/flash_attention_qkv_outproj.cu`), an
-8-warp kernel with an mma.sync projection; its variants (`PREV_VARIANTS`)
+FILE may also be the previous version of the file (de1d180's, an 8-warp
+kernel with an mma.sync projection), compiled with its own directory ahead
+of `csrc/` on the include path, so against the headers of its commit
+unpacked beside it (`git archive de1d180 clibd_tpu_torch/csrc | tar -x -C
+build/prev`); its variants (`PREV_VARIANTS`)
 are `kernel`, `attention`, `attention_12` (12 warps, three heads at once),
 `projection` and `sections`.
 
@@ -261,16 +263,18 @@ def variants_of(src: str) -> tuple:
     return {name: edit(src) for name, edit in table.items()}, PREV_SECTIONS if prev else SECTIONS
 
 
-def build(sources: dict) -> dict:
-    """One nvcc per variant, all together → {name: its CDLL}."""
+def build(sources: dict, include: Path = CSRC) -> dict:
+    """One nvcc per variant, all together → {name: its CDLL}; `include` is
+    searched for the headers ahead of `csrc/`."""
     out = build_dir() / "exp_outproj"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in sources.items():
         (out / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
-            [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out / f"{name}.so"),
-             str(out / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            [find_nvcc(), *NVCC_FLAGS, "-I", str(include), "-I", str(CSRC), "-o",
+             str(out / f"{name}.so"), str(out / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
@@ -299,7 +303,7 @@ def main() -> None:
     card = card_line()
     print(card, flush=True)
     sources, sections = variants_of(args.source.read_text())
-    libs = build(sources)
+    libs = build(sources, args.source.parent)
     names = [n for n in libs if n != "sections"]
     runs_on = {"cluster": lambda N, H: H in (8, 12) and B * -(-N // 64) % 2 == 0}
     dev = torch.device("cuda")

@@ -7,9 +7,11 @@ Builds scratch variants of the probe kernels `ops/attention.attention_bhnd`
 (separate q, k, v), `ops/gemm.tiled_matmul` and `ops/elementwise.scale_copy`
 -- each FILE, by default the committed `csrc/attention_bhnd.cu`,
 `csrc/tiled_gemm.cu` and `csrc/scale_copy.cu`; a FILE may also be an earlier
-version of one (`git show <commit>:clibd_tpu_torch/csrc/<file>`), which
-exports the same entry points -- side by side into `build/exp_probe_sched/`,
-and in one process:
+version of one, which exports the same entry points and is compiled with its
+own directory ahead of `csrc/` on the include path, so against the headers
+of its commit unpacked beside it (`git archive <commit> clibd_tpu_torch/csrc
+| tar -x -C build/prev`) -- side by side into `build/exp_probe_sched/`, and
+in one process:
 
 - attention at B=256 H=12 N=197, B=64 N=133 and B=64 N=20 (bf16): every
   variant checked against the plain version on the first 4 batch rows, then
@@ -41,7 +43,7 @@ kernel picks them per launch, `slabs_for`); the GEMM with the tile order row
 by row (`GROUP_M` = 1) and in groups of 8, and `sections`; the copy with
 four vectors a thread in flight (`unroll4`), its grid capped at 8 CTAs an SM
 (`capped`) and the streaming `__ldcs` / `__stcs` hints (`hints`).  The copy
-it replaced (`git show 60df5e0:...`) gets a `no_hints` variant: plain loads
+it replaced (60df5e0's) gets a `no_hints` variant: plain loads
 and stores in place of its hints.  Any other earlier version is built as it
 is.
 
@@ -200,9 +202,19 @@ def _ptxas(libs: dict) -> None:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
 
-def run_attention(sources: list, card: str) -> None:
-    libs = build({f"attn{i}_{n}": text for i, src in enumerate(sources)
-                  for n, text in attn_variants(src).items()}, "exp_probe_sched")
+def _sources(paths: list, prefix: str, variants) -> tuple:
+    """({name: text} of every variant of every FILE, {name: the FILE's
+    directory}, searched for its headers ahead of csrc/)"""
+    texts, includes = {}, {}
+    for i, path in enumerate(paths):
+        for n, text in variants(path.read_text()).items():
+            texts[f"{prefix}{i}_{n}"] = text
+            includes[f"{prefix}{i}_{n}"] = path.parent
+    return texts, includes
+
+
+def run_attention(paths: list, card: str) -> None:
+    libs = build(*_sources(paths, "attn", attn_variants), subdir="exp_probe_sched")
     _ptxas(libs)
     fns = {n: _bind(lib, "clibd_attention_bhnd", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
                     + [ctypes.c_void_p]) for n, (lib, _) in libs.items()}
@@ -229,13 +241,10 @@ def run_attention(sources: list, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def run_gemm(sources: list, card: str) -> None:
-    texts, tiles = {}, {}
-    for i, src in enumerate(sources):
-        for n, text in gemm_variants(src).items():
-            texts[f"gemm{i}_{n}"] = text
-            tiles[f"gemm{i}_{n}"] = tiles_of(text)
-    libs = build(texts, "exp_probe_sched")
+def run_gemm(paths: list, card: str) -> None:
+    texts, includes = _sources(paths, "gemm", gemm_variants)
+    tiles = {n: tiles_of(text) for n, text in texts.items()}
+    libs = build(texts, "exp_probe_sched", includes)
     _ptxas(libs)
     argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fns = {(n, t): _bind(lib, f"clibd_tiled_gemm_{t}", argtypes)
@@ -294,9 +303,8 @@ def _slope(sizes_mb, times_ms) -> float:
     return var / cov / 1e9 if cov > 0 else float("nan")
 
 
-def run_copy(sources: list, card: str) -> None:
-    libs = build({f"copy{i}_{n}": text for i, src in enumerate(sources)
-                  for n, text in copy_variants(src).items()}, "exp_probe_sched")
+def run_copy(paths: list, card: str) -> None:
+    libs = build(*_sources(paths, "copy", copy_variants), subdir="exp_probe_sched")
     _ptxas(libs)
     fns = {n: _bind(lib, "clibd_scale_copy", [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_float,
                                                                       ctypes.c_void_p])
@@ -343,7 +351,7 @@ def run_flash_same(old_dir: Path) -> None:
         texts[f"{schedule}_old"] = _edit((old_dir / name).read_text(),
                                          [('#include "wgmma_attention.cuh"\n', core)])
         texts[f"{schedule}_new"] = (CSRC / name).read_text()
-    libs = build(texts, "exp_probe_sched")
+    libs = build(texts, "exp_probe_sched", {f"{schedule}_old": old_dir for schedule in FLASH})
     _ptxas(libs)
     variants = {n: Variant(n.split("_")[0], lib) for n, (lib, _) in libs.items()}
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -381,9 +389,9 @@ def main(argv=None) -> None:
         raise SystemExit("exp_probe_sched needs a CUDA card")
     card = card_line()
     print(card, flush=True)
-    run_attention([p.read_text() for p in args.attn or [ATTN_SOURCE]], card)
-    run_gemm([p.read_text() for p in args.gemm or [GEMM_SOURCE]], card)
-    run_copy([p.read_text() for p in args.copy or [COPY_SOURCE]], card)
+    run_attention(args.attn or [ATTN_SOURCE], card)
+    run_gemm(args.gemm or [GEMM_SOURCE], card)
+    run_copy(args.copy or [COPY_SOURCE], card)
     if args.flash_from:
         run_flash_same(args.flash_from)
 

@@ -92,3 +92,63 @@ def test_every_row1_variant_edits_the_committed_forward():
     assert "clibd_prof" in text and "atomicAdd(g_prof + i" in text
     assert variants["l2_only"].count(", 0);\n") == 1 and "attend_items" in variants["l2_only"]
     assert "al0 = al1 = 1.f;\n    return;" in variants["no_softmax"]
+
+
+def test_every_row2_variant_edits_the_committed_backward():
+    """`--row2`: the main path's backward (csrc/flash_attention_qkv_bwd.cu)
+    as it is; the whole-row route's sections, the core inlined with the
+    phased backward's ticks; the key-tiled route's sections, the source's
+    clock64 hooks defined: eight sections of the row kernel, six of the
+    column kernel, each ticked"""
+    import re
+
+    from clibd_tpu_torch.tools.exp_flash_sched import (BWD_SECTIONS, ROW2_COL_SECTIONS,
+                                                      ROW2_PROF, ROW2_ROW_SECTIONS, ROW2_SOURCE,
+                                                      ROW2_VARIANTS)
+
+    src = ROW2_SOURCE.read_text()
+    variants = {name: edit(src) for name, edit in ROW2_VARIANTS.items()}
+    assert set(variants) == {"kernel", "sections_row", "sections_tiled"}
+    assert variants["kernel"] == src
+    row = variants["sections_row"]
+    assert '#include "wgmma_attention_bwd.cuh"' not in row and "row_block<KT>" in row
+    assert row.count("clock64()") == 5 + 1 + 8 + 1 == len(BWD_SECTIONS) + 2
+    assert "clibd_prof" in row
+    tiled = variants["sections_tiled"]
+    assert tiled.startswith(ROW2_PROF) and "clibd_prof" in tiled
+    # the hooks: the empty defaults, then each kernel's begin, ticks and end
+    assert src.count("#define BWD_TICK(k)\n") == 1
+    rows_kernel = src[src.index("bwd_rows_kernel("):src.index("bwd_cols_kernel(")]
+    cols_kernel = src[src.index("bwd_cols_kernel("):src.index("cudaError_t launch_tiled(")]
+    for body, first, names, n in ((rows_kernel, 0, ROW2_ROW_SECTIONS, 8),
+                                  (cols_kernel, 8, ROW2_COL_SECTIONS, 6)):
+        ticks = {int(k) for k in re.findall(r"BWD_TICK\((\d)\)", body)}
+        assert ticks == set(range(len(names))) and len(names) == n, ticks
+        assert body.count("BWD_PROF_BEGIN") == 1 and f"BWD_PROF_END({first})" in body
+
+
+def test_row2_route_matches_the_kernel():
+    """the tool's copy of the kernel's rule: the whole row on chip up to
+    208 keys, key-tiled past them"""
+    from clibd_tpu_torch.tools.exp_flash_sched import ROW2_ROUTES, ROW2_SOURCE, row2_route
+
+    src = ROW2_SOURCE.read_text()
+    assert "constexpr int route_for(int N) { return N <= 208 ? ROUTE_ROW : ROUTE_TILED; }" in src
+    assert "enum Route : int { ROUTE_ROW = 0, ROUTE_TILED = 1 };" in src
+    assert ROW2_ROUTES == {"row": 0, "tiled": 1}
+    assert [row2_route(N) for N in (1, 20, 133, 197, 207, 208, 209, 300, 657)] == \
+        ["row"] * 6 + ["tiled"] * 3
+
+
+def test_an_earlier_file_builds_against_the_headers_beside_it():
+    """a FILE's own directory comes ahead of csrc/ on nvcc's include path,
+    so an earlier version builds against its own commit's headers"""
+    from pathlib import Path
+
+    from clibd_tpu_torch.ops.cuda_build import CSRC
+    from clibd_tpu_torch.tools.exp_flash_sched import include_flags
+
+    prev = Path("build/prev/clibd_tpu_torch/csrc")
+    assert include_flags("other0", {"other0": prev}) == ["-I", str(prev), "-I", str(CSRC)]
+    assert include_flags("row2_kernel", {"other0": prev}) == ["-I", str(CSRC)]
+    assert include_flags("kernel", None) == ["-I", str(CSRC)]

@@ -127,7 +127,24 @@ def test_chip_smoke_holds_the_forward_kernel_to_the_wgmma_ptxas_limits():
                            for t in node.targets))
     assert "flash_attention_qkv" in sources
     assert {"flash_attention_qkv_phased", "flash_attention_qkv_batched", "attention_bhnd",
-            "flash_attention_qkv_bwd_phased"} <= set(sources)
+            "flash_attention_qkv_bwd_phased", "flash_attention_qkv_bwd"} <= set(sources)
+
+
+def test_chip_smoke_holds_the_backward_at_its_edges_and_records():
+    """chip_smoke.py's backward checks: BWD_EDGES (read with ast) take
+    either side of the whole-row route's 208 keys and every N the forward's
+    edges take, at B = 1, 3, 5 and H = 1, 8, 12; BWD_RECORDED_MS holds the
+    mma.sync design's times at the four shapes of the phase."""
+    tree = ast.parse((Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text())
+    consts = {t.id: ast.literal_eval(node.value) for node in tree.body
+              if isinstance(node, ast.Assign) for t in node.targets
+              if getattr(t, "id", None) in ("BWD_EDGES", "BWD_RECORDED_MS", "SHAPES")}
+    edges = consts["BWD_EDGES"]
+    Ns = {N for _, N, _ in edges}
+    assert {207, 208, 209} <= Ns and {N for _, N, _ in FWD_EDGES} <= Ns | {300} and 300 in Ns
+    assert {B for B, _, _ in edges} == {1, 3, 5} and {H for _, _, H in edges} == {1, 8, 12}
+    assert set(consts["BWD_RECORDED_MS"]) == {name for name, *_ in consts["SHAPES"]}
+    assert consts["BWD_RECORDED_MS"]["vit"] == 2.2553
 
 
 @pytest.mark.cuda
@@ -256,6 +273,44 @@ def test_bwd_kernel_matches_plain_version(cuda_device, N, H, masked, dtype):
     want = flash_attention_qkv_bwd_reference(t, g, H, m)
     errs = _parts_err(got, want, H)
     assert max(errs) <= BWD_REL_TOL, errs
+
+
+# (B, N, H) either side of the backward's route threshold (the whole row on
+# chip up to 208 keys, key-tiled past them), a block edge of each route and
+# one key, at odd B and H = 1, 8, 12
+BWD_ROUTE_EDGES = [(3, 1, 8), (5, 64, 1), (3, 65, 12), (3, 207, 8), (5, 208, 12), (1, 209, 1),
+                   (3, 209, 12), (5, 257, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H", BWD_ROUTE_EDGES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_bwd_kernel_either_side_of_its_route_threshold(cuda_device, B, N, H, masked):
+    qkv, mask = _inputs(B, N, H, masked, seed=3 * N + B)
+    dout = np.random.default_rng(N + 1).standard_normal((B, N, H * 64)).astype(np.float32)
+    t = torch.from_numpy(qkv).to(cuda_device, torch.bfloat16)
+    g = torch.from_numpy(dout).to(cuda_device, torch.bfloat16)
+    m = None if mask is None else torch.from_numpy(mask).to(cuda_device)
+    assert attention.flash_attention_qkv_bwd_route(N) == (0 if N <= 208 else 1)
+    got = flash_attention_qkv_bwd(t, g, H, m)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    errs = _parts_err(got, flash_attention_qkv_bwd_reference(t, g, H, m), H)
+    assert max(errs) <= BWD_REL_TOL, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,masked", [(197, 12, False), (657, 12, True)])
+def test_bwd_kernel_is_deterministic(cuda_device, N, H, masked):
+    """Both routes give the same bits from the same inputs: no CTA of
+    either adds into another's output (the key-tiled route's dQ comes from
+    its row kernel's second sweep, dK and dV from its column kernel)."""
+    qkv, mask = _inputs(16, N, H, masked, seed=N + 2)
+    t = torch.from_numpy(qkv).to(cuda_device, torch.bfloat16)
+    g = torch.randn(16, N, H * 64, device=cuda_device, dtype=torch.bfloat16)
+    m = None if mask is None else torch.from_numpy(mask).to(cuda_device)
+    first = flash_attention_qkv_bwd(t, g, H, m)
+    assert all(torch.equal(first, flash_attention_qkv_bwd(t, g, H, m)) for _ in range(3))
 
 
 @pytest.mark.cuda

@@ -58,12 +58,14 @@ def _attn_inputs(B, N, H, masked, seed):
     return qkv, dout, mask
 
 
-@pytest.mark.parametrize("N,H,masked", [(20, 2, True), (33, 2, False), (657, 2, False),
-                                         (657, 2, True)])
+@pytest.mark.parametrize("N,H,masked", [(20, 2, True), (33, 2, False), (208, 2, True),
+                                         (209, 2, True), (657, 2, False), (657, 2, True)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("ref", ["pallas_interpret", "xla_vjp"])
 def test_bwd_plain_version_matches_jax(N, H, masked, dtype, ref):
-    """N=657 is the overlap-tokenizer DNA tower's length, at one batch row."""
+    """N=657 is the overlap-tokenizer DNA tower's length, at one batch row;
+    N=208 and 209 the two sides of the CUDA backward's route threshold (the
+    whole row on chip up to 208 keys, key-tiled past them)."""
     qkv, dout, mask = _attn_inputs(1 if N > 256 else 3, N, H, masked, seed=N)
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
     jm = None if mask is None else jnp.asarray(mask)
