@@ -39,6 +39,7 @@ import torch
 
 from ..config import LEVELS, ExperimentConfig
 from ..models.clibd import CLIBD, clibd_apply
+from ..utils.profiling import loop_units, span
 
 ALL_TYPE_OF_FEATURES_OF_QUERY = [
     "encoded_image_feature",
@@ -94,19 +95,27 @@ def _encode_batches(model: CLIBD, cfg: ExperimentConfig, batches, compute_dtype)
             done.synchronize()
         return {k: v.numpy().astype(np.float32, copy=False) for k, v in host.items()}
 
-    for batch in batches:
+    for batch in loop_units(batches, "extract.next_batch"):
         model_batch = {k: batch[k] for k in MODALITIES if k in batch}
-        out = step(to_device(model_batch, device))
-        host = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
-        done = None
-        if device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
+        with span("extract.to_device"):
+            device_batch = to_device(model_batch, device)
+        with span("extract.encode"):
+            out = step(device_batch)
+        with span("extract.to_host"):
+            host = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
+            done = None
+            if device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record()
         if pending is not None:
-            yield drain(pending)
+            with span("extract.drain"):
+                arrays = drain(pending)
+            yield arrays
         pending = (host, done)
     if pending is not None:
-        yield drain(pending)
+        with span("extract.drain"):
+            arrays = drain(pending)
+        yield arrays
 
 
 def extract_split(model: CLIBD, cfg: ExperimentConfig, loader, for_key_set: bool = False,

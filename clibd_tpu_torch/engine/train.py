@@ -50,6 +50,7 @@ from ..ops.augment import train_augment
 from ..ops.loss import MODALITY_ORDER, clip_loss, sharded_clip_loss
 from ..parallel.mesh import (Mesh, all_hosts_agree, all_reduce_grads, broadcast_from_main,
                              create_mesh, mesh_is_multiprocess)
+from ..utils.profiling import StepTimer, loop_units, span
 from .checkpoint import (BestLastCheckpointer, load_train_state, opt_state_from_optax,
                          opt_state_to_optax)
 from .evaluate import compute_overall_acc, convert_acc_dict_to_wandb_dict, inference_and_eval
@@ -152,11 +153,13 @@ def make_loss_fn(cfg: ExperimentConfig, model: torch.nn.Module) -> Callable:
     encode = make_encode_fn(cfg, model)
 
     def loss_fn(batch: dict, generator: Optional[torch.Generator]) -> torch.Tensor:
-        out = encode(batch, generator)
-        # fix_temperature → literal 1/0.07 (reference train_epoch.py:55-56)
-        logit_scale = (1.0 / 0.07) if cfg.loss.fix_temperature else out["logit_scale"]
-        features = {m: out[m] for m in MODALITY_ORDER}
-        return clip_loss(features, batch["label"], logit_scale, cfg.loss)
+        with span("step.forward"):
+            out = encode(batch, generator)
+        with span("step.loss"):
+            # fix_temperature → literal 1/0.07 (reference train_epoch.py:55-56)
+            logit_scale = (1.0 / 0.07) if cfg.loss.fix_temperature else out["logit_scale"]
+            features = {m: out[m] for m in MODALITY_ORDER}
+            return clip_loss(features, batch["label"], logit_scale, cfg.loss)
 
     return loss_fn
 
@@ -170,8 +173,10 @@ def make_train_step(cfg: ExperimentConfig, model: torch.nn.Module,
     def step(batch: dict, generator: Optional[torch.Generator]) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(batch, generator)
-        loss.backward()
-        optimizer.step()
+        with span("step.backward"):
+            loss.backward()
+        with span("step.optimizer"):
+            optimizer.step()
         return loss.detach()
 
     return step
@@ -457,8 +462,6 @@ class Trainer:
     # -- epoch loops --------------------------------------------------------
 
     def train_epoch(self, epoch: int, progress: bool = False, start_batch: int = 0) -> float:
-        from ..utils.profiling import StepTimer
-
         cfg = self.cfg
         timer = StepTimer(warmup_steps=1, device=self.device)
         epoch_loss, n_steps = 0.0, 0
@@ -478,12 +481,16 @@ class Trainer:
                 print(f"\rEpoch {epoch}||Step {step_no}||Loss {loss_val:.4f}||LR {lr:.3e}||"
                       f"{n_steps / max(dt, 1e-9):.2f} it/s", end="")
 
-        for batch in self.train_loader.batches(epoch=epoch, start_batch=start_batch):
+        for batch in loop_units(self.train_loader.batches(epoch=epoch, start_batch=start_batch),
+                                "train.next_batch", start_batch):
             gen = batch_generator(self.device, cfg.default_seed, epoch, batch_idx)
             batch_idx += 1
             model_batch = {k: batch[k] for k in ("image", "dna", "language", "label")
                            if k in batch}
-            loss = self.step_fn(to_device(model_batch, self.device), gen)
+            with span("train.to_device"):
+                device_batch = to_device(model_batch, self.device)
+            with span("train.step"):
+                loss = self.step_fn(device_batch, gen)
             self.global_step += 1
             n_steps += 1
             # step-cadence last/ (mid-epoch failure recovery); meta.epoch is
@@ -494,9 +501,11 @@ class Trainer:
                                             epoch - 1)
             lr = float(self.schedule(self.global_step - 1))
             if pending is not None:
-                emit(pending)
+                with span("train.fetch_loss"):
+                    emit(pending)
             pending = (loss, self.global_step, lr)
-            timer.tick()
+            with span("train.sync"):
+                timer.tick()
         if pending is not None:
             emit(pending)
         if progress:

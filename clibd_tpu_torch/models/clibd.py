@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ..config import ExperimentConfig
+from ..utils.profiling import span
 from .bert import Bert
 from .clip import CLIPText, CLIPTextConfig, CLIPVision, CLIPVisionConfig, clip_normalize
 from .layers import Linear
@@ -228,11 +229,15 @@ def clibd_apply(model: CLIBD, cfg: ExperimentConfig, image_input=None, dna_input
     `layers.transformer_stack`."""
     out: Dict[str, Any] = {"image": None, "dna": None, "language": None}
     if image_input is not None and (model.image_encoder or model.clip_vision) is not None:
-        out["image"] = l2_normalize(encode_image(model, cfg, image_input, compute_dtype, remat))
+        with span("encode.image"):
+            out["image"] = l2_normalize(encode_image(model, cfg, image_input, compute_dtype,
+                                                     remat))
     if dna_input is not None and model.dna_encoder is not None:
-        out["dna"] = l2_normalize(encode_dna(model, cfg, dna_input, compute_dtype, remat))
+        with span("encode.dna"):
+            out["dna"] = l2_normalize(encode_dna(model, cfg, dna_input, compute_dtype, remat))
     if language_input is not None and (model.language_encoder or model.clip_text) is not None:
-        out["language"] = l2_normalize(encode_language(model, cfg, language_input, compute_dtype,
-                                                       remat))
+        with span("encode.language"):
+            out["language"] = l2_normalize(encode_language(model, cfg, language_input,
+                                                           compute_dtype, remat))
     out["logit_scale"] = torch.exp(model.logit_scale)
     return out

@@ -120,6 +120,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiling import span
 from .cuda_build import DTYPE_CODE, function, launch
 
 HEAD_DIM = 64  # the kernels' head width
@@ -471,9 +472,10 @@ _cuda_outproj = flash_attention_qkv_outproj_cuda
 
 @torch.library.custom_op("clibd::flash_attention_qkv_fwd", mutates_args=())
 def _fwd_op(qkv: torch.Tensor, mask_row: Optional[torch.Tensor], num_heads: int) -> torch.Tensor:
-    if qkv.device.type == "cpu":
-        return flash_attention_qkv_reference(qkv, num_heads, mask_row)
-    return _cuda_fwd(qkv, num_heads, mask_row)
+    with span("attn.fwd"):
+        if qkv.device.type == "cpu":
+            return flash_attention_qkv_reference(qkv, num_heads, mask_row)
+        return _cuda_fwd(qkv, num_heads, mask_row)
 
 
 @_fwd_op.register_fake
@@ -484,9 +486,10 @@ def _(qkv, mask_row, num_heads):
 @torch.library.custom_op("clibd::flash_attention_qkv_bwd", mutates_args=())
 def _bwd_op(qkv: torch.Tensor, dout: torch.Tensor, mask_row: Optional[torch.Tensor],
             num_heads: int) -> torch.Tensor:
-    if qkv.device.type == "cpu":
-        return flash_attention_qkv_bwd_reference(qkv, dout, num_heads, mask_row)
-    return _cuda_bwd(qkv, dout, num_heads, mask_row)
+    with span("attn.bwd"):
+        if qkv.device.type == "cpu":
+            return flash_attention_qkv_bwd_reference(qkv, dout, num_heads, mask_row)
+        return _cuda_bwd(qkv, dout, num_heads, mask_row)
 
 
 @_bwd_op.register_fake
@@ -511,9 +514,10 @@ _fwd_op.register_autograd(_backward, setup_context=_setup_context)
 @torch.library.custom_op("clibd::flash_attention_qkv_outproj", mutates_args=())
 def _outproj_op(qkv: torch.Tensor, mask_row: Optional[torch.Tensor], out_w: torch.Tensor,
                 out_b: torch.Tensor, num_heads: int) -> torch.Tensor:
-    if qkv.device.type == "cpu":
-        return flash_attention_qkv_outproj_reference(qkv, out_w, out_b, num_heads, mask_row)
-    return _cuda_outproj(qkv, out_w, out_b, num_heads, mask_row)
+    with span("attn.outproj"):
+        if qkv.device.type == "cpu":
+            return flash_attention_qkv_outproj_reference(qkv, out_w, out_b, num_heads, mask_row)
+        return _cuda_outproj(qkv, out_w, out_b, num_heads, mask_row)
 
 
 @_outproj_op.register_fake

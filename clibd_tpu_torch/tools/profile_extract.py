@@ -20,10 +20,11 @@ default) measures:
 2. extract: samples/s through `extract_split` over `BATCHES` full
    batches, host arrays to host embeddings, in the order kernel, plain,
    plain, kernel;
-3. trace: `torch.profiler` over `extract_split` of 3 batches.  Device time
-   by kernel group, and the device's idle share read from the trace: the
-   part of the traced `extract_split` span in which no kernel, copy or
-   memset ran on the card.
+3. trace: `torch.profiler` over `extract_split` of 3 batches, with the
+   program's spans recorded (`utils.profiling.SpanRecorder`).  Device time
+   by group, and the device's idle share read from the trace: the part of
+   the traced `extract_split` span in which no kernel, copy or memset ran on
+   the card.
 
 --train measures one train step of the same recipe (remat "attn", AdamW,
 the one-cycle schedule) on one batch already on the card, `--accum K` the
@@ -33,8 +34,15 @@ gradient cache's step with K microbatches (`make_train_step_accum`):
    warm-up step), with the kernels and with their plain versions
    in their place, in the order kernels, plain, plain, kernels; the peak
    device memory of a step;
-2. trace: `torch.profiler` over `TRACE_STEPS` steps.  Device time by kernel
-   group and the device's idle share inside the traced `train_step` span.
+2. trace: `torch.profiler` over `TRACE_STEPS` steps, with the program's
+   spans.  Device time by group and the device's idle share inside the
+   traced `train_step` span.
+
+A group is the attention operator whose span (`attn.fwd`, `attn.bwd`,
+`attn.outproj`) launched the operation (`benchmark/core/spans.py`, run from
+the root of the checkout), else the kernel's name read by `KERNEL_GROUPS`.
+The spans are merged into the exported trace, on its clock, so one timeline
+in Perfetto shows them over the device's work.
 
 `--no-plain` leaves out the runs with the plain versions (their timings are
 then "not measured"): at the overlap-tokenizer recipe's DNA length, N=657,
@@ -54,18 +62,19 @@ import os
 import tempfile
 import time
 from contextlib import contextmanager, nullcontext
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 EXPERIMENT = "for_bioscan_1m/final_experiments/image_dna_text_seed_42.yaml"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 BATCHES = 10  # the end-to-end runs
 TRACE_BATCHES = 3
 TRACE_STEPS = 2
-# kernel name fragment -> group, first match wins
+# the span that launched an operation -> its group
+SPAN_GROUPS = {"attn.fwd": "attention forward", "attn.bwd": "attention backward",
+               "attn.outproj": "attention + out-projection"}
+# kernel name fragment -> group, first match wins, for operations no span
+# of SPAN_GROUPS launched
 KERNEL_GROUPS = (
-    ("flash_fwd", "attention kernel"),
-    ("flash_bwd", "attention backward kernel"),
-    ("outproj_", "attention + out-projection kernel"),
     ("mlp_bf16", "fused MLP kernel"),
     ("nvjet", "gemm"), ("gemm", "gemm"), ("cutlass", "gemm"), ("xmma", "gemm"),
     ("multi_tensor", "optimizer"),
@@ -102,13 +111,24 @@ def kernel_group(name: str) -> str:
     return "elementwise and reductions"
 
 
-def device_ms_by_group(events: Iterable[dict], window: Tuple[float, float]) -> Dict[str, float]:
+def device_ms_by_group(events: List[dict], window: Tuple[float, float],
+                       owners: Optional[Dict[int, dict]] = None) -> Dict[str, float]:
+    """Device ms inside `window` by group; `owners` maps an operation (its
+    index in `events`) to the span that launched it
+    (`benchmark.core.spans.Spans.owner`)."""
     lo, hi = window
+    owners = owners or {}
     out: Dict[str, float] = {}
-    for e in events:
+    for i, e in enumerate(events):
         if e.get("cat") not in DEVICE_CATS or not lo <= e["ts"] <= hi:
             continue
-        group = kernel_group(e["name"]) if e["cat"] == "kernel" else "host<->device copies"
+        owner = owners.get(i)
+        if owner is not None and owner["name"] in SPAN_GROUPS:
+            group = SPAN_GROUPS[owner["name"]]
+        elif e["cat"] == "kernel":
+            group = kernel_group(e["name"])
+        else:
+            group = "host<->device copies"
         out[group] = out.get(group, 0.0) + e["dur"] / 1e3
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
@@ -141,9 +161,35 @@ def plain_kernels():
             setattr(module, name, kernel)
 
 
-def write_trace(prof, out: str, span: str, runs: int) -> dict:
-    """Write the profiler's table and gzipped trace into `out`; → the span's
-    length, the device's idle share in it and device ms by kernel group."""
+@contextmanager
+def traced(span: str):
+    """`torch.profiler` (host operators and the card) over the body, inside
+    a `record_function(span)` and closed by a synchronise, with the
+    program's spans recorded; yields [profiler, recorder]."""
+    import torch
+
+    from ..utils.profiling import SpanRecorder
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    rec = SpanRecorder()
+    with torch.profiler.profile(activities=acts) as prof:
+        rec.start()
+        try:
+            with torch.profiler.record_function(span):
+                yield prof, rec
+            torch.cuda.synchronize()
+        finally:
+            rec.stop()
+
+
+def write_trace(prof, rec, out: str, span: str, runs: int) -> dict:
+    """Write the profiler's table and gzipped trace, the recorder's spans
+    merged in, into `out`; → the span's length, the device's idle share in
+    it, device ms by group and the spans by name."""
+    from collections import Counter
+
+    from benchmark.core.spans import Spans
+
     with open(os.path.join(out, "profile_table.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
     with tempfile.TemporaryDirectory() as tmp:
@@ -151,13 +197,17 @@ def write_trace(prof, out: str, span: str, runs: int) -> dict:
         prof.export_chrome_trace(path)
         with open(path) as f:
             trace = json.load(f)
-    with gzip.open(os.path.join(out, "trace.json.gz"), "wt") as f:
-        json.dump(trace, f)
+    spans = rec.to_trace_events(trace.get("baseTimeNanoseconds", 0))
     events = trace["traceEvents"]
     window = trace_window(events, span)
+    owners = Spans(events, spans).owner if spans else {}
+    trace["traceEvents"] = events + spans
+    with gzip.open(os.path.join(out, "trace.json.gz"), "wt") as f:
+        json.dump(trace, f)
     return {"runs": runs, "span_ms": (window[1] - window[0]) / 1e3,
             "device_idle_share": device_idle_share(events, window),
-            "device_ms_by_group": device_ms_by_group(events, window)}
+            "device_ms_by_group": device_ms_by_group(events, window, owners),
+            "spans": dict(Counter(e["name"] for e in spans))}
 
 
 def profile_train(out: str, card: str, summary: dict, experiment: str, plain: bool,
@@ -199,13 +249,10 @@ def profile_train(out: str, card: str, summary: dict, experiment: str, plain: bo
         print(f"train step, {which}: {ms[which][-1]:.3f} ms = "
               f"{B / ms[which][-1] * 1e3:.2f} samples/s  [{card}]")
     summary["train_step_ms"] = {k: v or "not measured" for k, v in ms.items()}
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        with torch.profiler.record_function("train_step"):
-            for _ in range(TRACE_STEPS):
-                run()
-        torch.cuda.synchronize()
-    summary["trace"] = write_trace(prof, out, "train_step", TRACE_STEPS)
+    with traced("train_step") as (prof, rec):
+        for _ in range(TRACE_STEPS):
+            run()
+    summary["trace"] = write_trace(prof, rec, out, "train_step", TRACE_STEPS)
     print(f"trace of {TRACE_STEPS} train steps: {summary['trace']}  [{card}]")
     return summary
 
@@ -262,12 +309,9 @@ def profile_extract(out: str, card: str, summary: dict, experiment: str, plain: 
 
     short = SyntheticSplit("trace", TRACE_BATCHES * B, mc, seed=1)
     extract_split(model, mc, short)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        with torch.profiler.record_function("extract_split"):
-            extract_split(model, mc, short)
-        torch.cuda.synchronize()
-    summary["trace"] = write_trace(prof, out, "extract_split", TRACE_BATCHES)
+    with traced("extract_split") as (prof, rec):
+        extract_split(model, mc, short)
+    summary["trace"] = write_trace(prof, rec, out, "extract_split", TRACE_BATCHES)
     print(f"trace of {TRACE_BATCHES} batches: {summary['trace']}  [{card}]")
     return summary
 

@@ -1,19 +1,39 @@
 """Timing: the port of `PhaseTimer` and `StepTimer` in
 `clibd_tpu/utils/profiling.py`, `cuda_ms`, device time by CUDA events,
-`timeit`, the harnesses' best-of-passes host clock, and `card_line`, the
-card that a time was taken on.
+`timeit`, the harnesses' best-of-passes host clock, `card_line`, the card
+that a time was taken on, and the program's spans.
 
 A phase ends, and a step is ticked, with `torch.cuda.synchronize(device)`
 when the timer's device is CUDA, so the time of asynchronous kernels lands in
 the phase or step that launched them and not in the next one.
+
+Spans name the program's own phases on the clock of `torch.profiler`'s
+trace.  `span(name)` is a context manager placed where the work happens (the
+train and extraction loops, the train step's phases, the towers, the
+attention operators); `loop_units` wraps a loop's loader.  They record
+nothing until a `SpanRecorder` is started, and then they only read the host
+clock: no synchronise, no device work.  A span holds its name, an id, its
+parent's id (the innermost span open on its thread; on a thread with none
+open, such as autograd's device thread, the innermost open on the thread
+that started the recorder), the unit (the step or batch index the loop set),
+the thread (`threading.get_native_id()` and `threading.get_ident()`, the
+pthread id that CUPTI's runtime records carry) and its start and end in
+`time.time_ns()`: the trace's clock, an event's `ts` times 1000 plus the
+trace's `baseTimeNanoseconds`.  Spans stay in memory until the recorder
+stops; `to_trace_events` gives them as chrome-trace events beside the
+profiler's (`benchmark/core/spans.py` puts each device operation of a
+trace under the span that launched it).
 """
 
 from __future__ import annotations
 
+import itertools
+import os
 import statistics
 import subprocess
+import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, Iterator, List, NamedTuple, Optional
 
 import torch
 
@@ -155,3 +175,145 @@ class PhaseTimer:
             pct = 100.0 * dt / total if total else 0.0
             lines.append(f"  {name:28s} {dt:8.2f}s  {pct:5.1f}%")
         return "\n".join(lines)
+
+
+# -- spans ---------------------------------------------------------------
+
+
+class Span(NamedTuple):
+    id: int
+    parent: Optional[int]
+    name: str
+    unit: Optional[int]
+    tid: int        # threading.get_native_id()
+    ident: int      # threading.get_ident(): the pthread id
+    start_ns: int   # time.time_ns()
+    end_ns: int
+
+
+class _NoSpan:
+    """What `span` returns while nothing records: enters and exits, reads
+    no clock."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return None
+
+
+_NO_SPAN = _NoSpan()
+_END = object()
+# the recorder that `span` records into; None while nothing records
+_ACTIVE: Optional["SpanRecorder"] = None
+
+
+class _OpenSpan:
+    __slots__ = ("rec", "name", "thread", "id", "parent", "unit", "start")
+
+    def __init__(self, rec: "SpanRecorder", name: str):
+        self.rec, self.name = rec, name
+
+    def __enter__(self):
+        rec = self.rec
+        self.thread = thread = rec._thread()
+        stack = thread[0]
+        self.parent = stack[-1] if stack else rec._home_top()
+        self.id = next(rec._ids)
+        self.unit = rec.unit
+        stack.append(self.id)
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        end = time.time_ns()
+        stack, tid, ident = self.thread
+        stack.pop()
+        if self.rec.on:
+            self.rec.spans.append(Span(self.id, self.parent, self.name, self.unit, tid, ident,
+                                       self.start, end))
+        return None
+
+
+def span(name: str):
+    """A context manager that records the span `name` into the recorder
+    that is on; the shared no-op where none is."""
+    rec = _ACTIVE
+    if rec is None:
+        return _NO_SPAN
+    return _OpenSpan(rec, name)
+
+
+def loop_units(items: Iterable, name: str, first: int = 0) -> Iterator:
+    """A loop's loader: yields `items` one by one, each fetched inside
+    span(name), with the recorder's unit set to the item's index (from
+    `first`) before it is fetched."""
+    it = iter(items)
+    unit = first
+    while True:
+        rec = _ACTIVE
+        if rec is not None:
+            rec.unit = unit
+        with span(name):
+            item = next(it, _END)
+        if item is _END:
+            return
+        yield item
+        unit += 1
+
+
+class SpanRecorder:
+    """Records every span opened between `start()` and `stop()`, in any
+    thread; one recorder records at a time."""
+
+    def __init__(self):
+        self.spans: List[Span] = []
+        self.unit: Optional[int] = None
+        self.on = False
+
+    def start(self) -> "SpanRecorder":
+        global _ACTIVE
+        if _ACTIVE is not None:
+            raise RuntimeError("another SpanRecorder is recording")
+        self.spans, self.unit, self.on = [], None, True
+        self._ids = itertools.count(1)
+        self._local = threading.local()
+        self._home = self._thread()[0]
+        _ACTIVE = self
+        return self
+
+    def stop(self) -> List[Span]:
+        """Stop recording; → the spans that closed while it recorded."""
+        global _ACTIVE
+        self.on = False
+        if _ACTIVE is self:
+            _ACTIVE = None
+        return self.spans
+
+    def _thread(self) -> tuple:
+        """(open span ids, native id, pthread id) of the calling thread."""
+        local = self._local
+        try:
+            return local.thread
+        except AttributeError:
+            local.thread = ([], threading.get_native_id(), threading.get_ident())
+            return local.thread
+
+    def _home_top(self) -> Optional[int]:
+        try:
+            return self._home[-1]
+        except IndexError:
+            return None
+
+    def to_trace_events(self, base_ns: int = 0) -> List[dict]:
+        """The spans as chrome-trace complete events (`cat` "span"), `ts` and
+        `dur` in us from `base_ns`: give the trace's `baseTimeNanoseconds`
+        and they lie on its clock."""
+        pid = os.getpid()
+        return [{"ph": "X", "cat": "span", "name": s.name, "pid": pid, "tid": s.tid,
+                 "ts": (s.start_ns - base_ns) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+                 "args": {"id": s.id, "parent": s.parent, "unit": s.unit, "ident": s.ident}}
+                for s in self.spans]
+

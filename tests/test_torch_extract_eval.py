@@ -413,11 +413,58 @@ def test_device_idle_share_reads_the_trace():
     assert window == (100.0, 200.0)
     # busy: [110, 140) + [150, 160) + [190, 200) = 50 of 100 us
     assert device_idle_share(events, window) == pytest.approx(0.5)
+    # no span launched the attention kernel: it is grouped by its name, and
+    # no name fragment makes an attention group
     groups = device_ms_by_group(events, window)
-    assert groups == pytest.approx({"elementwise and reductions": 0.03, "gemm": 0.02,
-                                    "attention kernel": 0.02, "host<->device copies": 0.01})
+    assert groups == pytest.approx({"elementwise and reductions": 0.05, "gemm": 0.02,
+                                    "host<->device copies": 0.01})
     with pytest.raises(RuntimeError, match="no 'other' span"):
         trace_window(events, "other")
+
+
+def test_attention_groups_read_the_spans():
+    """The attention groups are the device time that the `attn.*` spans
+    launched, whatever the kernels are named.  An operation belongs to the
+    innermost span open on its launching thread (the runtime call with its
+    correlation); autograd's thread, with no span open, launches for the
+    span the loop's thread is in.  A trace of CUDA activity alone names a
+    thread by its pthread id's low 32 bits as a signed int32 made positive
+    (0x7f26a0bff6c0 is 0x5f400940); with host activity, by its native id."""
+    from benchmark.core.spans import Spans
+    from clibd_tpu_torch.tools.profile_extract import device_ms_by_group
+
+    def span(name, ts, dur, sid, parent=None, tid=5, ident=0x7FBF00F7B300):
+        return {"ph": "X", "cat": "span", "name": name, "pid": 1, "tid": tid, "ts": ts,
+                "dur": dur, "args": {"id": sid, "parent": parent, "unit": 0, "ident": ident}}
+
+    def op(name, ts, dur, corr, launch_ts, tid=5, cat="kernel"):
+        return [{"cat": "cuda_runtime", "name": "cudaLaunchKernel", "tid": tid, "ts": launch_ts,
+                 "dur": 1.0, "args": {"correlation": corr}},
+                {"cat": cat, "name": name, "tid": 7, "ts": ts, "dur": dur,
+                 "args": {"correlation": corr}}]
+
+    spans = [span("train.step", 0.0, 500.0, 1), span("attn.fwd", 10.0, 20.0, 2, 1),
+             span("step.backward", 90.0, 100.0, 3, 1),
+             span("attn.bwd", 100.0, 20.0, 4, 3, tid=6, ident=0x7F26A0BFF6C0),
+             span("attn.outproj", 200.0, 10.0, 5, 1)]
+    events = (op("any_renamed_kernel", 40.0, 30.0, 1, 12.0)
+              + op("flash_fwd_bf16_kernel", 80.0, 10.0, 2, 40.0)       # launched outside
+              + op("fused_bwd", 130.0, 50.0, 3, 105.0, tid=0x5F400940)
+              + op("elementwise_bwd", 185.0, 5.0, 7, 125.0, tid=0x5F400940)
+              + op("outproj_wgmma", 210.0, 40.0, 4, 201.0)
+              + op("nvjet_hsh_256x128", 300.0, 20.0, 5, 250.0)
+              + op("Memcpy HtoD", 330.0, 10.0, 6, 260.0, cat="gpu_memcpy"))
+    owners = Spans(events, spans).owner
+    assert {events[i]["name"]: o["name"] for i, o in owners.items()} == {
+        "any_renamed_kernel": "attn.fwd", "flash_fwd_bf16_kernel": "train.step",
+        "fused_bwd": "attn.bwd", "elementwise_bwd": "step.backward",
+        "outproj_wgmma": "attn.outproj", "nvjet_hsh_256x128": "train.step",
+        "Memcpy HtoD": "train.step"}
+    groups = device_ms_by_group(events, (0.0, 500.0), owners)
+    assert groups == pytest.approx({"attention forward": 0.03, "attention backward": 0.05,
+                                    "attention + out-projection": 0.04, "gemm": 0.02,
+                                    "elementwise and reductions": 0.015,
+                                    "host<->device copies": 0.01})
 
 
 def test_wrapper_on_cpu_needs_no_cuda():
