@@ -39,7 +39,16 @@ Phases, each of which raises on failure:
      each shape took, its TFLOP/s and the mma.sync design's recorded time
      (BWD_RECORDED_MS) are printed beside its time; and at B=16,
      `torch.autograd.grad` through the attention operator equals the
-     backward kernel's own output.
+     backward kernel's own output;
+   - `layernorm` and `layernorm_bwd` (bf16, fast math) at the towers' rows
+     at batch 500 (LN_SHAPES: ViT R=500*197 and BarcodeBERT R=500*133 and
+     500*657 at D=768, BERT-small R=500*20 at D=512): y, dx, dscale and
+     dbias within 1e-2 * max |plain| (LN_REL_TOL), the row statistics to a
+     bf16 ulp; two launches of each give the same bits at ViT; kernel,
+     plain version, autograd through the plain forward (the backward the
+     port ran before the kernel), library (`torch.nn.functional.layer_norm`
+     and `aten.native_layer_norm_backward`, timed only) and bound ms
+     (4 and 6 bytes an element) for both directions.
 4. eval slice: the flagship tri-modal recipe
    (for_bioscan_1m/final_experiments/image_dna_text_seed_42.yaml: ViT-B/16,
    BarcodeBERT, BERT-small, full width, bf16, batch 500, no LoRA), weights
@@ -47,8 +56,9 @@ Phases, each of which raises on failure:
    rows, test_seen and test_unseen 500 each): extract_split →
    inference_and_eval → format_results.  Checks that every embedding is
    finite and unit-norm, that the grid has entries, that the forward kernel
-   ran 28 times per batch (12 ViT + 12 BarcodeBERT + 4 text layers), and
-   that on 8 samples the bf16 path agrees with the fp32 path (cosine >= 0.99
+   ran 28 times per batch (12 ViT + 12 BarcodeBERT + 4 text layers), that
+   the LayerNorm kernel ran once a LayerNorm module and twice a block a
+   batch (60: ViT 25, DNA 26, text 9), and that on 8 samples the bf16 path agrees with the fp32 path (cosine >= 0.99
    per row).  The same, labelled "overlap", for the BIOSCAN-5M new
    BarcodeBERT recipe (for_bioscan_5m/barcodeBERT_trained_with_5m/
    image_dna_text_seed_42_new_barcodeBERT_5M.yaml: the overlap tokenizer,
@@ -60,7 +70,9 @@ Phases, each of which raises on failure:
    val_unseen 500, checkpoints in a temporary directory.  Checks: every
    loss finite; after the first step every trainable parameter has a
    finite, nonzero gradient; 28 forward and 28 backward kernel launches per
-   step (the "attn" policy does not re-run the forward kernel); both evals
+   step (the "attn" policy does not re-run the forward kernel); 116 forward
+   and 60 backward LayerNorm launches per step (the 60 of a batch and the
+   56 inside the blocks again, which the policy recomputes); both evals
    give a grid; last/ and best/ are written and best/ loads back; 5 steps on
    one fixed batch at a constant LR of 5e-5 lower its loss; and on 16
    samples the bf16 gradients through the kernels agree with those through
@@ -455,6 +467,14 @@ OVERLAP = ("for_bioscan_5m/barcodeBERT_trained_with_5m/"
            "image_dna_text_seed_42_new_barcodeBERT_5M.yaml")
 BIOCLIP = "for_bioscan_1m/image_bind_style/with_bioclip_bind_to_image.yaml"
 REL_TOL = 2e-2         # out-projection and fused MLP: max |kernel - plain| / max |plain|
+# LayerNorm (name, R, D, eps): the towers' rows at batch 500, bf16 fast math
+LN_SHAPES = (("vit", 500 * 197, 768, 1e-6), ("barcode_bert", 500 * 133, 768, 1e-12),
+             ("barcode_bert_overlap", 500 * 657, 768, 1e-12), ("bert_small", 500 * 20, 512, 1e-12))
+# LayerNorm kernels against their plain versions, of max |plain|: the same
+# rounding points, so a bf16 ulp where an fp32 sum in another order rounds the
+# mean, the inverse std or an element the other way (dscale and dbias: fp32
+# sums over the rows in another order)
+LN_REL_TOL = 1e-2
 # fused MLP (name, R, D, F, activation): the BioCLIP towers' shapes at batch 500
 MLP_SHAPES = (("vit", 500 * 197, 768, 3072, "gelu_tanh"),
               ("barcode_bert", 500 * 133, 768, 3072, "gelu_tanh"),
@@ -930,6 +950,7 @@ def eval_slice_phase(card: str, label: str, mc, device, split_rows: dict) -> dic
     torch.cuda.synchronize()
 
     reset_counts()
+    ln0 = layernorm_counts()
     t0 = time.perf_counter()
     keys_dict = extract_split(model, mc, splits["all_keys"], for_key_set=True)
     seen_dict = extract_split(model, mc, splits["test_seen"])
@@ -948,6 +969,14 @@ def eval_slice_phase(card: str, label: str, mc, device, split_rows: dict) -> dic
     if launches != per_batch * n_batches or any(others.values()):
         fail(f"{label} eval launched the forward kernel {launches} times, expected "
              f"{per_batch * n_batches}, and the others {others}")
+    ln = {k: n - ln0[k] for k, n in layernorm_counts().items()}
+    ln_batch = layernorm_per_batch(model)
+    print(f"LayerNorm launches in the {label} eval: {ln} (expected {ln_batch} x {n_batches} "
+          f"batches = {ln_batch * n_batches} forward, no backward)")
+    if ln != {"layernorm": ln_batch * n_batches, "layernorm_bwd": 0}:
+        fail(f"{label} eval launched the LayerNorm kernels {ln}, expected "
+             f"{ln_batch * n_batches} forward")
+    counts.update(ln)
 
     t0 = time.perf_counter()
     acc_dict, _, _ = inference_and_eval(keys_dict, seen_dict, unseen_dict, k_list=[1, 3, 5],
@@ -1002,8 +1031,10 @@ def train_slice_phase(card: str, label: str, gcfg, device, train_rows: dict) -> 
         batch_generator,
         make_loss_fn,
         make_train_step,
+        remat_arg,
     )
     from clibd_tpu_torch.models import init_clibd_model
+    from clibd_tpu_torch.models.layers import TransformerStack
     from clibd_tpu_torch.ops.attention import flash_attention_qkv, flash_attention_qkv_bwd
     from clibd_tpu_torch.tools.profile_extract import plain_kernels
 
@@ -1026,13 +1057,16 @@ def train_slice_phase(card: str, label: str, gcfg, device, train_rows: dict) -> 
                           eval_loader_factory=lambda split, train: splits[split], model=model,
                           log_fn=logs.append, device=device)
         per_step = []  # (forward, backward) kernel launches of each train step
+        ln_per_step = []  # and of the LayerNorm kernels
         step_fn = trainer.step_fn
 
         def counted_step(batch, gen):
             f0, b0 = flash_attention_qkv.launches, flash_attention_qkv_bwd.launches
+            ln0 = layernorm_counts()
             loss = step_fn(batch, gen)
             per_step.append((flash_attention_qkv.launches - f0,
                              flash_attention_qkv_bwd.launches - b0))
+            ln_per_step.append(tuple(n - ln0[k] for k, n in layernorm_counts().items()))
             if len(per_step) == 1:  # the first step's gradients are still on the parameters
                 bad = [n for n, p in trainable
                        if p.grad is None or not bool(torch.isfinite(p.grad).all())
@@ -1046,6 +1080,7 @@ def train_slice_phase(card: str, label: str, gcfg, device, train_rows: dict) -> 
 
         trainer.step_fn = counted_step
         reset_counts()
+        ln_fit0 = layernorm_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         history = trainer.fit()
@@ -1065,6 +1100,19 @@ def train_slice_phase(card: str, label: str, gcfg, device, train_rows: dict) -> 
                 or any(others.values()):
             fail(f"{label} train steps launched {per_step}, expected ({n_layers}, {n_layers}) x "
                  f"{steps}, and the other kernels {others}, expected none")
+        # each LayerNorm once forward and once backward, and the blocks' again
+        # where the remat policy recomputes them
+        ln_batch = layernorm_per_batch(model)
+        recomputed = 2 * sum(m.num_layers for m in model.modules()
+                             if isinstance(m, TransformerStack)) if remat_arg(mc) else 0
+        ln_want = (ln_batch + recomputed, ln_batch)
+        print(f"{label} LayerNorm launches per train step (forward, backward): "
+              f"{sorted(set(ln_per_step))} over {len(ln_per_step)} steps (expected {ln_want}: "
+              f"{ln_batch} a forward, {recomputed} recomputed)")
+        if set(ln_per_step) != {ln_want}:
+            fail(f"{label} train steps launched the LayerNorm kernels {ln_per_step}, expected "
+                 f"{ln_want} each")
+        counts.update({k: n - ln_fit0[k] for k, n in layernorm_counts().items()})
         losses = [d["loss"] for d in logs if "loss" in d]
         if len(losses) != steps or not all(math.isfinite(v) for v in losses):
             fail(f"train losses {losses}")
@@ -1173,6 +1221,113 @@ def add_launches(entries: dict, path: str, counts: dict) -> None:
             continue
         entries[name]["launches"] = (entries[name]["launches"] or 0) + n
         entries[name].setdefault("launches_by_path", {})[path] = n
+
+
+def layernorm_kernel_phase(card: str) -> list:
+    """The LayerNorm kernels against their plain versions at LN_SHAPES, bf16
+    fast math, and timed → the `kernels` line's entries for `layernorm`
+    and `layernorm_bwd`."""
+    import torch
+    import torch.nn.functional as F
+
+    from clibd_tpu_torch.ops.layernorm import (layernorm_bwd_cuda, layernorm_bwd_reference,
+                                               layernorm_cuda, layernorm_reference,
+                                               layernorm_stats_reference)
+    from clibd_tpu_torch.utils.profiling import cuda_ms
+
+    def autograd_plain(x, scale, bias, eps, dy):
+        """the backward the port ran before the kernel: autograd through the
+        plain forward"""
+        xs, ss, bs = (t.detach().requires_grad_(True) for t in (x, scale, bias))
+        return torch.autograd.grad(layernorm_reference(xs, ss, bs, eps, True), (xs, ss, bs), dy)
+
+    fwd_shapes, bwd_shapes = [], []
+    for i, (name, R, D, eps) in enumerate(LN_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(300 + i)
+        x = (torch.randn(R, D, generator=g, device="cuda") * 3 + 1).to(torch.bfloat16)
+        scale = torch.randn(D, generator=g, device="cuda") * 0.5 + 1
+        bias = torch.randn(D, generator=g, device="cuda")
+        dy = torch.randn(R, D, generator=g, device="cuda").to(torch.bfloat16)
+        y, mean, rstd = layernorm_cuda(x, scale, bias, eps, True)
+        want = layernorm_stats_reference(x, scale, bias, eps, True)
+        grads = layernorm_bwd_cuda(x, dy, scale, mean, rstd, True)
+        want_grads = layernorm_bwd_reference(x, dy, scale, mean, rstd, True)
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(t).all()) for t in (y, *grads)):
+            fail(f"LayerNorm kernel output not finite at {name}")
+        rel = {"y": rel_err(y, want[0]), "dx": rel_err(grads[0], want_grads[0]),
+               "dscale": rel_err(grads[1], want_grads[1]),
+               "dbias": rel_err(grads[2], want_grads[2])}
+        stats = max(rel_err(mean, want[1]), rel_err(rstd, want[2]))
+        same = float((y == want[0]).float().mean())
+        print(f"kernel layernorm {name} R={R} D={D}: max|kernel-plain|/max|plain| "
+              f"{ {k: f'{v:.3e}' for k, v in rel.items()} } (tol {LN_REL_TOL}), statistics "
+              f"{stats:.3e}, y equal bit for bit {100 * same:.3f}%")
+        if max(rel.values()) > LN_REL_TOL or stats > 2 ** -7:
+            fail(f"LayerNorm kernels disagree with their plain versions at {name}: {rel}, "
+                 f"statistics {stats}")
+        if i == 0:
+            again = layernorm_cuda(x, scale, bias, eps, True)
+            again_grads = layernorm_bwd_cuda(x, dy, scale, mean, rstd, True)
+            if not (all(torch.equal(a, b) for a, b in zip((y, mean, rstd), again))
+                    and all(torch.equal(a, b) for a, b in zip(grads, again_grads))):
+                fail("two launches of a LayerNorm kernel on the same inputs differ")
+            print("kernel layernorm vit: two launches of each direction bit-identical "
+                  "(y, mean, rstd; dx, dscale, dbias)")
+            del again, again_grads
+        fwd_err = float((y.float() - want[0].float()).abs().max())
+        bwd_err = float((grads[0].float() - want_grads[0].float()).abs().max())
+        del y, want, grads, want_grads
+        w16, b16 = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+        _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [D], w16, b16, eps)
+        times = {
+            "fwd": cuda_ms(lambda: layernorm_cuda(x, scale, bias, eps, True)),
+            "fwd_plain": cuda_ms(lambda: layernorm_reference(x, scale, bias, eps, True)),
+            "fwd_library": cuda_ms(lambda: F.layer_norm(x, (D,), w16, b16, eps)),
+            "bwd": cuda_ms(lambda: layernorm_bwd_cuda(x, dy, scale, mean, rstd, True)),
+            "bwd_plain": cuda_ms(lambda: layernorm_bwd_reference(x, dy, scale, mean, rstd, True)),
+            "bwd_autograd": cuda_ms(lambda: autograd_plain(x, scale, bias, eps, dy)),
+            "bwd_library": cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x, [D], lmean, lrstd, w16, b16, [True, True, True]))}
+        fwd_bound, fwd_by = bound(4 * R * D + 8 * R + 8 * D, 0)
+        bwd_bound, bwd_by = bound(6 * R * D + 8 * R + 12 * D, 0)
+        print(f"time layernorm {name} R={R} D={D}: forward kernel {times['fwd']:.4f} ms "
+              f"({4 * R * D / times['fwd'] / 1e9:.2f} TB/s), plain {times['fwd_plain']:.4f}, "
+              f"library {times['fwd_library']:.4f}, bound {fwd_bound:.4f}; backward kernel "
+              f"{times['bwd']:.4f} ms ({6 * R * D / times['bwd'] / 1e9:.2f} TB/s), plain "
+              f"{times['bwd_plain']:.4f}, autograd through the plain forward "
+              f"{times['bwd_autograd']:.4f}, library {times['bwd_library']:.4f}, bound "
+              f"{bwd_bound:.4f}  [{card}]")
+        common = {"shape": name, "R": R, "D": D}
+        fwd_shapes.append({**common, "ms": times["fwd"], "plain_ms": times["fwd_plain"],
+                           "library_ms": times["fwd_library"], "bound_ms": fwd_bound,
+                           "bound_by": fwd_by, "max_abs_err": fwd_err})
+        bwd_shapes.append({**common, "ms": times["bwd"], "plain_ms": times["bwd_plain"],
+                           "autograd_plain_ms": times["bwd_autograd"],
+                           "library_ms": times["bwd_library"], "bound_ms": bwd_bound,
+                           "bound_by": bwd_by, "max_abs_err": bwd_err})
+        del x, dy, mean, rstd, lmean, lrstd
+    torch.cuda.empty_cache()
+    replaces = "none: XLA fuses clibd_tpu/models/layers.py::layernorm"
+    return [kernel_entry("layernorm", "clibd_tpu_torch/csrc/layernorm.cu", replaces, fwd_shapes),
+            kernel_entry("layernorm_bwd", "clibd_tpu_torch/csrc/layernorm.cu", replaces,
+                         bwd_shapes)]
+
+
+def layernorm_counts() -> dict:
+    from clibd_tpu_torch.ops.layernorm import layernorm, layernorm_bwd
+
+    return {"layernorm": layernorm.launches, "layernorm_bwd": layernorm_bwd.launches}
+
+
+def layernorm_per_batch(model) -> int:
+    """LayerNorm calls of one forward of `model`: its LayerNorm modules once
+    (the ViT's class-row norm, the BERTs' embedding norms, the MLM head's)
+    and two in every block of its towers."""
+    from clibd_tpu_torch.models.layers import LayerNorm, TransformerStack
+
+    return sum(isinstance(m, LayerNorm) for m in model.modules()) + 2 * sum(
+        m.num_layers for m in model.modules() if isinstance(m, TransformerStack))
 
 
 def outproj_kernel_phase(card: str) -> dict:
@@ -4834,8 +4989,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build_libraries(["flash_attention_qkv", "flash_attention_qkv_bwd",
                      "flash_attention_qkv_outproj", "fused_mlp", "scale_copy", "tiled_gemm",
-                     "attention_bhnd", *EXP_FLASH_KERNELS])
-    print(f"build: all ten kernel sources in parallel, {time.perf_counter() - t0:.2f} s wall")
+                     "attention_bhnd", "layernorm", *EXP_FLASH_KERNELS])
+    print(f"build: all eleven kernel sources in parallel, {time.perf_counter() - t0:.2f} s wall")
     for name, info in BUILD_INFO.items():
         print(f"build {name}.cu: nvcc {info['seconds']:.2f} s -> {info['path']}")
         for line in info["log"].splitlines():
@@ -4845,7 +5000,7 @@ def main() -> int:
 
     fwd = forward_kernel_phase(card)
     bwd = backward_kernel_phase(card)
-    entries = {e["name"]: e for e in (fwd, bwd)}
+    entries = {e["name"]: e for e in (fwd, bwd, *layernorm_kernel_phase(card))}
     from clibd_tpu_torch.models.layers import kernel_knobs
 
     cuda = torch.device("cuda")

@@ -9,7 +9,8 @@ weights are stored `[in, out]` for `x @ W`, q/k/v are one fused `[D, 3D]`
 projection, and matmuls run in `compute_dtype` with outputs in that dtype
 (the counterpart of `preferred_element_type=compute_dtype`); bias adds are a
 separate op, as in `layers.py:112-118`.  LayerNorm and softmax accumulate in
-fp32.
+fp32.  `layernorm` is `ops.layernorm.layernorm`: the plain version on a CPU
+tensor, one kernel forward and one backward on a CUDA tensor.
 
 Attention dispatch: a key-only mask (or none) goes to
 `ops.attention.flash_attention_qkv` -- the CUDA kernels on a CUDA tensor,
@@ -59,6 +60,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..ops.attention import flash_attention_qkv, flash_attention_qkv_outproj
+from ..ops.layernorm import layernorm
 from ..ops.mlp import fused_mlp
 
 ATTN_FUSE_OUTPROJ = os.environ.get("CLIBD_ATTN_FUSE_OUTPROJ", "0") == "1"
@@ -88,24 +90,6 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     if b is not None:
         y = y + b.to(compute_dtype)
     return y
-
-
-def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-              eps: float = 1e-12, fast: bool = False) -> torch.Tensor:
-    """Exact path: fp32 throughout.  fast=True (non-fp32 inputs only): mean
-    and variance accumulate in fp32, the normalise/scale arithmetic stays in
-    x's dtype (`layers.py:121-139`)."""
-    if fast and x.dtype != torch.float32:
-        mean = x.float().mean(dim=-1, keepdim=True).to(x.dtype)
-        xc = x - mean
-        var = xc.float().square().mean(dim=-1, keepdim=True)
-        inv = torch.rsqrt(var + eps).to(x.dtype)
-        return xc * inv * scale.to(x.dtype) + bias.to(x.dtype)
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    return (y * scale + bias).to(x.dtype)
 
 
 def gelu(x: torch.Tensor, fast: bool = False) -> torch.Tensor:

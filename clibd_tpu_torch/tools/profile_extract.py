@@ -145,12 +145,14 @@ def trace_window(events: List[dict], name: str) -> Tuple[float, float]:
 def plain_kernels():
     """Send every kernel's operator to its plain version on the card, for a
     comparison; the port itself has no such switch."""
-    from ..ops import attention, mlp
+    from ..ops import attention, layernorm, mlp
 
     swaps = [(attention, "_cuda_fwd", attention.flash_attention_qkv_reference),
              (attention, "_cuda_bwd", attention.flash_attention_qkv_bwd_reference),
              (attention, "_cuda_outproj", attention.flash_attention_qkv_outproj_reference),
-             (mlp, "_cuda_mlp", mlp.fused_mlp_reference)]
+             (mlp, "_cuda_mlp", mlp.fused_mlp_reference),
+             (layernorm, "_cuda_fwd", layernorm.layernorm_stats_reference),
+             (layernorm, "_cuda_bwd", layernorm.layernorm_bwd_reference)]
     saved = [getattr(module, name) for module, name, _ in swaps]
     for module, name, plain in swaps:
         setattr(module, name, plain)
