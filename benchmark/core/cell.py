@@ -73,11 +73,16 @@ class Cell:
 
 
 # where the program's config holds each width of a configuration file:
-# {modality: (prefix of the keys listed, their keys, prefix of the rest)}
+# {group of `widths`: (prefix of the keys listed, their keys, prefix of the
+# rest)}.  A file states `image`, `dna` and `language` for the default
+# backbone, or `clip` (the names of the program's `CLIPBackboneConfig`) and
+# `dna` for the open_clip backbone, whose CLIP towers take the place of the
+# image and text towers.
 _WIDTH_PATHS = {
     "image": ("image.vit.", (), "image.vit."),
     "dna": ("dna.", ("tokenizer", "kmer", "stride", "max_bp", "readout"), "dna.bert."),
     "language": ("language.", ("max_len",), "language.bert."),
+    "clip": ("clip.", (), "clip."),
 }
 _TRAIN_PATHS = ("batch_size", "epochs", "amp", "remat", "remat_policy", "disable_lora",
                 "accum_steps", "fast_math", "loss.bind_to",
@@ -96,13 +101,28 @@ def config_value(obj, path: str):
     return obj
 
 
+def is_clip(config: dict) -> bool:
+    """Whether a configuration file states the open_clip backbone's widths."""
+    return "clip" in config["widths"]
+
+
 def config_pairs(config: dict) -> Dict[str, object]:
     """Every value of a configuration file under the program config's path."""
+    widths = config["widths"]
+    if is_clip(config):
+        both = sorted({"image", "language"} & set(widths))
+        if both:
+            raise ValueError(f"{config['name']}: widths state `clip` and {both}; the CLIP "
+                             "towers are the image and text towers")
+        groups = ("clip", "dna")
+    else:
+        groups = ("image", "dna", "language")
     out = {}
-    for modality, (prefix, listed, rest) in _WIDTH_PATHS.items():
-        for key, value in config["widths"][modality].items():
+    for group in groups:
+        prefix, listed, rest = _WIDTH_PATHS[group]
+        for key, value in widths[group].items():
             out[(prefix if key in listed else rest) + key] = value
-    out["output_dim"] = config["widths"]["output_dim"]
+    out["output_dim"] = widths["output_dim"]
     for path in _TRAIN_PATHS:
         out[path] = config["train"][path]
     return out
@@ -112,7 +132,9 @@ def program_config(config: dict, seed: int, apply: bool = False):
     """The program's GlobalConfig for a configuration file: its recipe as
     the program loads it, run with the run's seed and no checkpoints.  Every
     value the file states must be the recipe's; `apply=True` writes them
-    into the config instead (for runs at test sizes)."""
+    into the config instead (for runs at test sizes).  Either way the
+    recipe's `backbone` must be open_clip where the file states `clip`
+    widths, and anything else where it does not."""
     from clibd_tpu_torch.config import load_config, set_by_path
 
     gcfg = load_config(experiment=config["recipe"])
@@ -120,6 +142,9 @@ def program_config(config: dict, seed: int, apply: bool = False):
     mc.default_seed = seed
     gcfg.save_ckpt = False
     bad = []
+    if (mc.backbone == "open_clip") != is_clip(config):
+        bad.append(f"backbone: recipe {mc.backbone!r}, file "
+                   f"{'clip' if is_clip(config) else 'image and language'} widths")
     for path, want in config_pairs(config).items():
         if apply:
             set_by_path(mc, path, want)

@@ -20,6 +20,24 @@ twice (its input needs no gradient), the other GEMMs 3 times, each
 attention forward and backward once; the model's operations are 3 times
 the forward's (recomputation not counted).  Embedding runs each forward
 once.
+
+A configuration of the open_clip backbone (`clip` widths) has the CLIP
+towers in place of the ViT and the BERT text tower (`models/clip.py`):
+- vision: N = (S/p)² + 1, D, F and L from `vision_*`; the patch GEMM has
+  no bias (its bytes are the same), the head is `proj` [D, embed_dim] on
+  the class row;
+- text: N = `context_length`, D, F and L from `text_*`, the head
+  `text_projection` [D, embed_dim] on the EOT row.  Its attention is
+  causal, so the rows attend K = B·(N+1)/2 keys (query i sees i+1): 4·N·D·K
+  = 4·D·B·N(N+1)/2 operations forward, 10·N·D·K backward.  The rows come
+  from the ids; CLIP text has no key mask.
+Remat is counted from the configuration as for the other towers, but
+`models/clip.py`'s towers ignore `remat` today, so until the program
+honours it `gemm_roofline` counts their block GEMMs 4 times where 3 run.
+The text tower's causal attention runs on the eager path (matmuls and a
+softmax), not the attention kernels, so its least time sits in the
+attention counts while its device time falls in the GEMM and elementwise
+groups of `core/trace.py`.
 """
 
 from __future__ import annotations
@@ -27,17 +45,29 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 
+def _image(widths: dict):
+    """The image tower's S, p, L, D, F and head width: the CLIP vision
+    tower's under `clip`, else the ViT's."""
+    c = widths.get("clip")
+    if c:
+        return (c["image_size"], c["patch_size"], c["vision_layers"], c["vision_hidden"],
+                c["vision_mlp"], c["embed_dim"])
+    w = widths["image"]
+    return (w["image_size"], w["patch_size"], w["num_layers"], w["hidden_size"], w["mlp_dim"],
+            widths["output_dim"])
+
+
 def towers(widths: dict, batch: dict) -> List[dict]:
     """The transformer towers a batch drives: name, layers L, length N,
     width D, MLP width F, rows B, and keys: the keys each row attends,
     summed over the rows (B·N where nothing is masked)."""
     out = []
+    clip = widths.get("clip")
     if "image" in batch:
-        w = widths["image"]
+        S, p, L, D, F, _ = _image(widths)
         B = batch["image"].shape[0]
-        N = (w["image_size"] // w["patch_size"]) ** 2 + 1
-        out.append({"name": "image", "L": w["num_layers"], "N": N, "D": w["hidden_size"],
-                    "F": w["mlp_dim"], "B": B, "keys": B * N})
+        N = (S // p) ** 2 + 1
+        out.append({"name": "image", "L": L, "N": N, "D": D, "F": F, "B": B, "keys": B * N})
     if "dna" in batch:
         w = widths["dna"]
         dna = batch["dna"]
@@ -46,7 +76,12 @@ def towers(widths: dict, batch: dict) -> List[dict]:
         keys = int(dna["attention_mask"].sum()) if isinstance(dna, dict) else B * N
         out.append({"name": "dna", "L": w["num_layers"], "N": N, "D": w["hidden_size"],
                     "F": w["intermediate_size"], "B": B, "keys": keys})
-    if "language" in batch:
+    if "language" in batch and clip:
+        B, N = batch["language"]["input_ids"].shape
+        out.append({"name": "language", "L": clip["text_layers"], "N": N,
+                    "D": clip["text_hidden"], "F": clip["text_mlp"], "B": B,
+                    "keys": B * (N + 1) / 2})
+    elif "language" in batch:
         w = widths["language"]
         mask = batch["language"]["attention_mask"]
         B, N = mask.shape
@@ -66,22 +101,22 @@ def gemms(widths: dict, batch: dict) -> List[dict]:
                         "count": t["L"]})
     out_dim = widths["output_dim"]
     if "image" in batch:
-        w = widths["image"]
+        S, p, _, D, _, head = _image(widths)
         B = batch["image"].shape[0]
-        n_patch = (w["image_size"] // w["patch_size"]) ** 2
-        out.append({"M": B * n_patch, "K": w["patch_size"] ** 2 * 3, "N": w["hidden_size"],
+        out.append({"M": B * (S // p) ** 2, "K": p ** 2 * 3, "N": D,
                     "dtype": "bf16", "where": "patch", "count": 1})
-        out.append({"M": B, "K": w["hidden_size"], "N": out_dim, "dtype": "bf16",
-                    "where": "head", "count": 1})
+        out.append({"M": B, "K": D, "N": head, "dtype": "bf16", "where": "head", "count": 1})
     if "dna" in batch:
         t = next(t for t in towers(widths, batch) if t["name"] == "dna")
         M, D = t["B"] * t["N"], t["D"]
         out.append({"M": M, "K": D, "N": D, "dtype": "bf16", "where": "head", "count": 1})
         out.append({"M": M, "K": D, "N": out_dim, "dtype": "bf16", "where": "head", "count": 1})
     if "language" in batch:
-        B = batch["language"]["attention_mask"].shape[0]
-        out.append({"M": B, "K": widths["language"]["hidden_size"], "N": out_dim,
-                    "dtype": "bf16", "where": "head", "count": 1})
+        clip = widths.get("clip")
+        B = batch["language"]["input_ids"].shape[0]
+        K, N = ((clip["text_hidden"], clip["embed_dim"]) if clip else
+                (widths["language"]["hidden_size"], out_dim))
+        out.append({"M": B, "K": K, "N": N, "dtype": "bf16", "where": "head", "count": 1})
     return out
 
 

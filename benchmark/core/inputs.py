@@ -3,7 +3,8 @@ program's synthetic split draws (`clibd_tpu_torch/data/synthetic.py`), so
 the program receives only generated inputs.
 
 A batch of B rows holds, for the modalities a traffic mix asks for:
-- "image": uint8 [B, S, S, 3], uniform bytes;
+- "image": uint8 [B, S, S, 3], uniform bytes; S is `clip.image_size` for a
+  configuration of the open_clip backbone (`clip` widths), else the ViT's;
 - "dna": k-mer ids of random barcodes.  Non-overlapping k-mers ("kmer"):
   int32 [B, 1 + max_bp // k], id 0 first, then 3 + the k-mer's base-4 value,
   2 (UNK) for a k-mer that runs past the barcode.  Overlapping ("overlap"):
@@ -12,12 +13,17 @@ A batch of B rows holds, for the modalities a traffic mix asks for:
   len // stride positions, cut to the ids' width};
 - "language": {"input_ids", "token_type_ids", "attention_mask"}: int32
   [B, max_len], ids uniform in [1, vocab) on the first `len` positions and 0
-  after, token types 0;
+  after, token types 0.  With `clip` widths, CLIP-form text as the synthetic
+  split lays it out for the open_clip backbone, the one key its text tower
+  reads: {"input_ids": int32 [B, context_length]}, SOT = vocab - 2 first,
+  ids uniform in [1, vocab - 3] after it, EOT = vocab - 1 at the row's last
+  token (so the row's argmax), 0 after;
 - "label": int64 [B], the rows' instance labels (every row its own).
 
 Every batch of every seed has the same multiset of sizes, which sets the
 work: barcode lengths 400..659 bp spread evenly over the rows and text
-lengths 3..max_len likewise; the seed draws their order and the contents.
+lengths 3..max_len (3..context_length) likewise; the seed draws their order
+and the contents.
 """
 
 from __future__ import annotations
@@ -57,11 +63,23 @@ def overlap_ids(bases: np.ndarray, lengths: np.ndarray, k: int, stride: int) -> 
     return {"input_ids": ids.astype(np.int32), "attention_mask": mask[:, :n]}
 
 
+def clip_text_ids(rng: np.random.Generator, rows: int, n: int, vocab: int) -> np.ndarray:
+    """CLIP-form text ids [rows, n]: SOT, body, EOT at the row's last token,
+    zeros after (`data/synthetic.py`'s rule for the open_clip backbone)."""
+    lengths = rng.permutation(even_lengths(rows, 3, n + 1))
+    mask = (np.arange(n)[None, :] < lengths[:, None]).astype(np.int32)
+    ids = rng.integers(1, vocab - 2, (rows, n)).astype(np.int32) * mask
+    ids[:, 0] = vocab - 2
+    ids[np.arange(rows), lengths - 1] = vocab - 1
+    return ids
+
+
 def make_batch(rng: np.random.Generator, widths: dict, rows: int, modalities: Sequence[str],
                first_label: int) -> Dict[str, object]:
     batch: Dict[str, object] = {}
+    clip = widths.get("clip")
     if "image" in modalities:
-        s = widths["image"]["image_size"]
+        s = (clip or widths["image"])["image_size"]
         batch["image"] = rng.integers(0, 256, (rows, s, s, 3), dtype=np.uint8)
     if "dna" in modalities:
         d = widths["dna"]
@@ -74,7 +92,10 @@ def make_batch(rng: np.random.Generator, widths: dict, rows: int, modalities: Se
             batch["dna"] = overlap_ids(bases, lengths, d["kmer"], d["stride"])
         else:
             raise ValueError(f"DNA tokenizer {d['tokenizer']!r}")
-    if "language" in modalities:
+    if "language" in modalities and clip:
+        batch["language"] = {"input_ids": clip_text_ids(rng, rows, clip["context_length"],
+                                                        clip["vocab_size"])}
+    elif "language" in modalities:
         t = widths["language"]
         n = t["max_len"]
         lengths = rng.permutation(even_lengths(rows, 3, n + 1))

@@ -134,27 +134,21 @@ def start_group(ctx):
     return dist.group.WORLD, agree, reduce
 
 
-# the recipe's settings the plain reference implements
-REFERENCE_SETTINGS = {"loss.bind_to": "", "loss.no_image_text_loss": False,
-                      "loss.fix_temperature": False, "loss.local_loss": False,
-                      "optim.optimizer": "adamw", "optim.lr_scheduler": "one_cycle",
-                      "optim.grad_clip_norm": 0.0, "accum_steps": 1, "disable_lora": True}
-
-
 def reference_readings(ctx, pool, mc, steps: int, precision: str = "fp32") -> dict:
     """The plain reference's losses, first gradient (norms, and the
     tensors as "grad_t"), change (tensors) and first step's unit features
     (this rank's rows) over the set-up's steps, from the weights drawn
-    again."""
+    again.  A recipe whose settings differ from those the configuration's
+    reference declares it implements (its `SETTINGS`) is refused."""
     import torch
 
     from benchmark.core.cell import config_value
 
-    other = {k: config_value(mc, k) for k, v in REFERENCE_SETTINGS.items()
+    ref = ctx.cell.reference
+    other = {k: config_value(mc, k) for k, v in ref.SETTINGS.items()
              if config_value(mc, k) != v}
     if other:
         raise ValueError(f"the plain reference does not implement {other}")
-    ref = ctx.cell.reference
     ref.no_tf32()
     widths = ctx.cell.widths
     shapes = ref.param_shapes(widths)

@@ -37,6 +37,13 @@ import torch
 
 FP8_MAX = 448.0  # the largest finite float8 e4m3fn
 
+# the recipe's settings this reference implements, at the program config's
+# paths; the train driver refuses a recipe that differs
+SETTINGS = {"loss.bind_to": "", "loss.no_image_text_loss": False,
+            "loss.fix_temperature": False, "loss.local_loss": False,
+            "optim.optimizer": "adamw", "optim.lr_scheduler": "one_cycle",
+            "optim.grad_clip_norm": 0.0, "accum_steps": 1, "disable_lora": True}
+
 
 def no_tf32() -> None:
     """float32 matmuls in float32, not TF32."""
